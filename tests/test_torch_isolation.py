@@ -1,0 +1,71 @@
+"""easyhec_torch stands alone: no module of it (nor chip_smoke.py) imports
+jax, optax, easyhec_tpu or __graft_entry__, and its entry points refuse to
+fall back to the CPU when the caller did not ask for it.
+"""
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import easyhec_torch
+from easyhec_torch.robot import make_box
+
+ROOT = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "optax", "easyhec_tpu", "__graft_entry__")
+
+_PROBE = f"""
+import importlib, pkgutil, sys
+blocked = {BLOCKED!r}
+for k in list(sys.modules):
+    if k.split(".")[0] in blocked:
+        del sys.modules[k]
+for k in blocked:
+    sys.modules[k] = None  # any import of it now raises ImportError
+sys.path.insert(0, {str(ROOT)!r})
+import easyhec_torch
+names = [m.name for m in pkgutil.walk_packages(easyhec_torch.__path__, "easyhec_torch.")]
+for n in names:
+    importlib.import_module(n)
+importlib.import_module("chip_smoke")
+leaked = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in blocked]
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_every_module_imports_without_jax():
+    r = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True,
+                       timeout=300, cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-2000:]
+    expected = len(list(pkgutil.walk_packages(easyhec_torch.__path__, "easyhec_torch.")))
+    assert int(r.stdout.strip()) == expected >= 20
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from easyhec_torch.render import RobotRenderer
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RobotRenderer([make_box()], 8, 8)
+    with pytest.raises(RuntimeError):
+        easyhec_torch.resolve_device()
+    assert easyhec_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_refuses_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run for real")
+    # in the checkout: no CUDA -> non-zero exit, no result line
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True,
+                       text=True, timeout=300, cwd=ROOT)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
+    # alone in a directory: non-zero exit as well
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True,
+                       text=True, timeout=300, cwd=tmp_path)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
