@@ -4,27 +4,43 @@
     python3 chip_smoke.py [--steps N] [--profile DIR]
 
 Run from the root of a checkout; it imports nothing of JAX or easyhec_tpu.
-Phases, in order (any failure exits non-zero):
+The bench scene: 10 frames of 640x480, f = 600, the procedural arm
+(assets/mini_arm.urdf subdivided to 8 mm edges, 21,312 triangles), fused
+tiles of 16x32 with cap 1664, adaptive rebinning, Adam 3e-3 from xi + 0.01.
+It runs on two routes: compact (256 chunks, kernels K2f/K2b) and dense
+(compact_chunks = 0, the default RenderConfig's: K1f/K1b for the loss,
+K4f/K4b for the silhouette). Phases, in order (any failure exits non-zero):
 
 1. Build: compile every CUDA kernel of easyhec_torch/ops/csrc with nvcc
-   (sm_90a), print the build seconds and the card's name and power limit.
-2. Kernel vs plain, at the main path's full shapes on a real bin state:
-   the compact loss forward (per-frame loss, min(acc, 2)) and backward
-   (dcam) against their plain PyTorch versions.
-3. Main path: ``calibrate`` on the bench workload — 10 frames of 640x480,
-   f = 600, the procedural arm (assets/mini_arm.urdf subdivided to 8 mm
-   edges, 21,312 triangles), compact fused tiles (16x32, cap 1664, 256
-   chunks), adaptive rebinning, Adam 3e-3 from xi + 0.01, target masks
-   rendered by the forward kernel at the ground-truth pose. Asserts no
-   overflow, a falling loss, and launch counts that show every step went
-   through both kernels.
-4. Reference check on a small input: the same calibration at a small size
-   on the card and through the plain versions on the CPU must agree.
+   (sm_90a), one nvcc per source started together; print the build seconds
+   and the card's name and power limit.
+2. Kernels vs plain, at the full shapes on real bin states: the compact
+   loss forward (per-frame loss, min(acc, 2)) and backward (dcam); the dense
+   loss forward (per-tile loss, min(acc, 2)) and backward (dcam); the dense
+   silhouette forward (the image) and backward (dcam, also taken by
+   torch.autograd.grad through RobotRenderer.silhouette). Each kernel's
+   CUDA-event time, its plain version's, and its bound for this data.
+3. Compact main path: ``calibrate`` at the bench scene, target masks from
+   the compact forward kernel at the ground-truth pose. Asserts no
+   overflow, a falling loss, and one K2f and one K2b launch per step.
+4. Dense calibrate: the same run on the dense route (ms/step against the
+   compact route's, same call).
+5. Dense trainer: ``run_offline_calibration`` with an in-memory Config and
+   CalibBatch (target masks: RobotRenderer.silhouette, K4f, at the GT pose).
+   Asserts no overflow, a falling loss, one K1f and one K1b launch per
+   step, one K4f launch per render_outputs call, and the artifacts.
+6. Silhouette gradient path: Adam steps on Σ(RobotRenderer.silhouette −
+   mask)² through autograd (the loss of easyhec_tpu's sharded calibration):
+   one K4f and one K4b launch per step.
+7. Reference checks on small inputs, compact and dense: the same
+   calibration on the card and through the plain versions on the CPU must
+   agree.
 
 Prints the kernel table as one JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. With --profile DIR it
-also replays the main path under torch.profiler and writes that run's
-device busy share and per-step breakdown into DIR.
+also replays the compact and the dense ``calibrate`` runs under
+torch.profiler and writes each run's device busy share and per-step
+breakdown into DIR.
 """
 from __future__ import annotations
 
@@ -83,7 +99,8 @@ def _time_ms(fn, reps: int, warm: int = 2) -> float:
 
 
 def build_scene(device, H=H, W=W, B=B, max_edge=0.008, cap=1664, nc=256):
-    """The bench workload's scene on `device`: (renderer, lp, K, xi_gt)."""
+    """The bench workload's scene on `device`: (renderer, lp, K, xi_gt, qs).
+    nc = 0 selects the dense route."""
     import numpy as np
     import torch
 
@@ -115,64 +132,145 @@ def build_scene(device, H=H, W=W, B=B, max_edge=0.008, cap=1664, nc=256):
     qs = np.random.default_rng(0).uniform(lim[:, 0], lim[:, 1], (B, chain.n_dof))
     lp = chain.fk(torch.tensor(qs, dtype=torch.float32, device=device))
     lp = lp[:, [chain.link_index(n) for n in names]]
-    return renderer, lp, K, xi
+    return renderer, lp, K, xi, qs
 
 
-def _needed_work(cam, st, ref_tiles, acc, gb, meta):
-    """(fwd pairs, fwd lanes, bwd pairs, bwd lanes, fwd bytes, bwd bytes)
-    that THIS call's data needs: chunks the saturation early-out skips and
-    backward chunks with no live pixel are not counted."""
+def _bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time for this much work."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def _needed_work(cam, frames, gps, meta):
+    """The work that THIS data needs from a loss or silhouette kernel pair,
+    on either route.
+
+    frames: per frame, (blk [n, 12, 128] record chunks in tile order, ct [n]
+    their tiles, nlive [n] their live slots); gps: {name: [B, T, P]} the
+    masked cotangents of the backward kernels. A lane-pixel pair counts when
+    its lane is a live slot whose coverage can be nonzero in its tile (valid,
+    bbox within the soft band of the tile); lanes are the live slots set up.
+    Forward chunks that the saturation early-out skips, and backward chunks
+    with no live cotangent pixel, are not counted. A tile is visited when it
+    has a live slot: the backward needs acc and ref (or g) of visited tiles
+    only, since the parts of the others are zero. Returns {"fwd": [pairs,
+    lanes, chunks], name: [pairs, lanes, chunks], "tiles": visited tiles}."""
     import torch
 
     from easyhec_torch.ops.pose_raster import (
-        _chunk_coverage, _chunk_setup, pix_grids, tile_origin,
+        CHUNK, _chunk_coverage, _chunk_setup, pix_grids, tile_origin,
     )
-    from easyhec_torch.ops.pose_raster_compact import _chunks_of, _cotangent
 
-    P = meta.th * meta.tw
-    px, py = pix_grids(meta.th, meta.tw, cam.device)
-    Bn, nc = st.nlive.shape
-    T = ref_tiles.shape[1]
-    fp = fl = bp = bl = 0
-    fbytes = Bn * T * P * 4 + Bn * T * 4 + Bn * (nc * 8 + 4 + 64)
-    bbytes = Bn * (nc * 12 + 4 + 64) + Bn * nc * 48
-    for b in range(Bn):
-        ct = st.ctmap[b].long()
+    dev = cam.device
+    px, py = pix_grids(meta.th, meta.tw, dev)
+    reach = 0.5 / meta.sharpness + 1.0
+    work = {"fwd": [0, 0, 0], "tiles": 0, **{k: [0, 0, 0] for k in gps}}
+    for b, (blk, ct, nl) in enumerate(frames):
+        n = ct.numel()
+        if n == 0:
+            continue
         x0, y0 = tile_origin(ct, meta.n_tx, meta.th, meta.tw)
-        blk = _chunks_of(st.rec[b])
-        s = _chunk_setup(blk, cam[b].expand(nc, 16), x0, y0, meta.near, meta.far)
+        s = _chunk_setup(blk, cam[b].expand(n, 16), x0, y0, meta.near, meta.far)
+        live_slot = torch.arange(CHUNK, device=dev) < nl[:, None]
+        lox, loy, hix, hiy = s["bbox"]
+        ok = (s["valid"] & live_slot & (hix + reach > 0) & (lox - reach < meta.tw)
+              & (hiy + reach > 0) & (loy - reach < meta.th))
         cov, *_ = _chunk_coverage(s, px, py, meta.sharpness)
-        nl = st.nlive[b].long()
-        delta = cov.sum(dim=-2) * (nl > 0)[:, None]
-        cs = torch.cumsum(delta, dim=0)
-        first = torch.ones(nc, dtype=torch.bool, device=cam.device)
+        delta = torch.einsum("ncp,nc->np", cov, live_slot.float())
+        ar = torch.arange(n, device=dev)
+        first = torch.ones(n, dtype=torch.bool, device=dev)
         first[1:] = ct[1:] != ct[:-1]
-        start = torch.cummax(torch.where(first, torch.arange(nc, device=cam.device), 0), 0)[0]
+        start = torch.cummax(torch.where(first, ar, 0), 0)[0]
+        cs = torch.cumsum(delta, dim=0)
         base = torch.where((start > 0)[:, None], cs[(start - 1).clamp(min=0)], 0.0)
-        before = cs - delta - base
-        run = (nl > 0) & ~(before.amin(dim=-1) >= 2.0)
-        fp += int((nl * run).sum()) * P
-        fl += int((nl * run).sum())
-        fbytes += int(run.sum()) * CHUNK_BYTES + int(first.sum()) * P * 4
-        gp = _cotangent(acc[b].reshape(T, P)[ct], ref_tiles[b].reshape(T, P)[ct],
-                        gb[b], ct, meta)
-        live_px = (gp != 0).sum(dim=-1)
-        live = (nl > 0) & (live_px > 0)
-        nvalid = (s["valid"] & (torch.arange(128, device=cam.device) < nl[:, None])).sum(-1)
-        bp += int((nvalid * live_px * live).sum())
-        bl += int((nvalid * live).sum())
-        bbytes += int(live.sum()) * (CHUNK_BYTES + 2 * P * 4)
-    return fp, fl, bp, bl, fbytes, bbytes
+        run = (nl > 0) & ~((cs - delta - base).amin(dim=-1) >= 2.0)
+        nok, nslot = ok.sum(-1), live_slot.sum(-1)
+        uses = {"fwd": (run, nok * meta.th * meta.tw)}  # (chunks run, pairs)
+        for k, gp in gps.items():
+            live_px = (gp[b][ct] != 0).sum(dim=-1)
+            uses[k] = ((nl > 0) & (live_px > 0), nok * live_px)
+        for k, (use, pairs) in uses.items():
+            w = work[k]
+            w[0] += int((pairs * use).sum())
+            w[1] += int((nslot * use).sum())
+            w[2] += int(use.sum())
+        work["tiles"] += int(torch.unique(ct[nl > 0]).numel())
+    return work
+
+
+def _ops(w, pair_ops, lane_ops):
+    return w[0] * pair_ops + w[1] * lane_ops
+
+
+def _check_loss_fwd(tag, got, want):
+    """A loss forward's (per-tile loss [B, T], acc) against its plain
+    version's; returns the per-tile loss's max abs error."""
+    import torch
+
+    (lk, acck), (lp, accp) = got, want
+    torch.cuda.synchronize()
+    fk, fp = lk.sum(-1), lp.sum(-1)
+    err = (lk - lp).abs().max().item()
+    frame_rel = ((fk - fp).abs() / fp.abs().clamp(min=1e-6)).max().item()
+    acc_err = (acck.clamp(max=2) - accp.clamp(max=2)).abs().max().item()
+    # Tolerances: the per-frame loss sums 512 pixels x ~600 tiles in another
+    # order (rtol 1e-4). acc sums up to ~1,300 lane coverages per pixel, and
+    # nvcc contracts each edge function a*px + b*py + c into FMAs, which
+    # rounds differently by ~1e-6 per term (|c| is up to the tile size):
+    # atol 1e-3 on min(acc, 2).
+    print(f"[kernels] {tag} loss: max abs err per tile {err:.3e}, per frame rel "
+          f"{frame_rel:.3e} (tol rtol 1e-4); min(acc,2) max abs err {acc_err:.3e} "
+          "(tol 1e-3). Reason: summation order over lanes, pixels and tiles; FMA "
+          "contraction of the edge functions")
+    if not (frame_rel <= 1e-4 and acc_err <= 1e-3):
+        raise AssertionError(f"{tag} disagrees with its plain version")
+    return err
+
+
+def _check_dcam(tag, dk, dp):
+    """A backward's dcam [B, 16] against its plain version's; returns the max
+    abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    scale = dp.abs().max().item()
+    err = (dk - dp).abs().max().item()
+    print(f"[kernels] {tag} dcam: max abs err {err:.3e}, max|dcam| {scale:.3e} "
+          "(tol 1e-3*max|dcam|). Reason: summation order over lanes and pixels")
+    if not (scale > 0 and err <= 1e-3 * scale):
+        raise AssertionError(f"{tag} disagrees with its plain version")
+    return err
+
+
+def _row(name, tag, source, replaces, err, run, plain, nbytes, ops):
+    """Time a kernel (CUDA events, mean of 50 launches) and its plain
+    version (3), bound its work, print them and return its kernels-line row."""
+    ms = _time_ms(run, 50)
+    plain_ms = _time_ms(plain, 3, warm=1)
+    bms, bby = _bound(nbytes, ops)
+    print(f"[kernels] {tag} {ms:.4f} ms (plain {plain_ms:.3f} ms), needs {nbytes} "
+          f"bytes, {ops} operations -> bound {bms:.4f} ms ({bby})")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=bby, library_ms=None)
+
+
+def _print_work(route, w):
+    print(f"[kernels] {route} work at the start pose: forward {w['fwd'][0]} lane-pixel "
+          f"pairs over {w['fwd'][2]} chunks; {w['tiles']} visited tiles; backward "
+          + ", ".join(f"{k} {v[0]} live pairs over {v[2]} chunks"
+                      for k, v in w.items() if k not in ("fwd", "tiles")))
 
 
 def kernel_phase(renderer, lp, K, xi, target):
-    """Phase 2: both kernels against their plain versions at full shapes.
-    Returns the per-kernel measurements."""
+    """Phase 2, compact route: K2f and K2b against their plain versions at
+    full shapes. Returns the per-kernel measurements."""
     import torch
 
     from easyhec_torch.geometry import se3
     from easyhec_torch.models.calib import tile_masks
     from easyhec_torch.ops import pose_raster_compact as prc
+    from easyhec_torch.ops.pose_raster import loss_cotangent
     from easyhec_torch.render.fused import cam_rows
 
     d0 = xi + 0.01
@@ -184,67 +282,38 @@ def kernel_phase(renderer, lp, K, xi, target):
     cfg = renderer.tile
     meta = prc.Meta(TH, TW, -(-W // TW), H, W, 1.0, 0.001, 10.0, cfg.bwd_band_only)
     fargs = (cam, st.rec, st.nlive, st.ctmap, st.ncu, ref, meta)
-    lk, acck = prc.loss_fwd_compact_cuda(*fargs)
-    lp_, accp = prc.loss_fwd_compact_plain(*fargs)
-    torch.cuda.synchronize()
-    fk, fpl = lk.sum(-1), lp_.sum(-1)
-    loss_err = (lk - lp_).abs().max().item()
-    frame_rel = ((fk - fpl).abs() / fpl.abs().clamp(min=1e-6)).max().item()
-    acc_err = (acck.clamp(max=2) - accp.clamp(max=2)).abs().max().item()
-    # Tolerances: the per-frame loss sums 512 pixels x ~600 tiles in another
-    # order (rtol 1e-4). acc sums up to ~1,300 lane coverages per pixel, and
-    # nvcc contracts each edge function a*px + b*py + c into FMAs, which
-    # rounds differently by ~1e-6 per term (|c| is up to the tile size):
-    # atol 1e-3 on min(acc, 2).
-    print(f"[kernels] K2f loss: max abs err per tile {loss_err:.3e}, per frame "
-          f"rel {frame_rel:.3e} (tol rtol 1e-4); min(acc,2) max abs err "
-          f"{acc_err:.3e} (tol 1e-3). Reason: summation order over lanes, "
-          "pixels and tiles; FMA contraction of the edge functions")
-    if not (frame_rel <= 1e-4 and acc_err <= 1e-3):
-        raise AssertionError("K2f disagrees with its plain version")
-
+    got = prc.loss_fwd_compact_cuda(*fargs)
+    f_err = _check_loss_fwd("K2f", got, prc.loss_fwd_compact_plain(*fargs))
+    acck = got[1]
     gb = torch.full((B,), 1.0 / B, device=cam.device)
     bargs = (cam, st.rec, st.bwd_nlive, st.bwd_ctmap, st.bwd_cpos, ref, acck, gb, meta)
-    dk = prc.loss_bwd_compact_cuda(*bargs).sum(1)
-    dpl = prc.loss_bwd_compact_plain(*bargs).sum(1)
-    torch.cuda.synchronize()
-    scale = dpl.abs().max().item()
-    dcam_err = (dk - dpl).abs().max().item()
-    print(f"[kernels] K2b dcam: max abs err {dcam_err:.3e}, max|dcam| {scale:.3e} "
-          f"(tol 1e-3*max|dcam|). Reason: summation order over lanes and pixels")
-    if not (scale > 0 and dcam_err <= 1e-3 * scale):
-        raise AssertionError("K2b disagrees with its plain version")
-
-    fwd_ms = _time_ms(lambda: prc.loss_fwd_compact_cuda(*fargs), 50)
-    bwd_ms = _time_ms(lambda: prc.loss_bwd_compact_cuda(*bargs), 50)
-    fwd_plain_ms = _time_ms(lambda: prc.loss_fwd_compact_plain(*fargs), 3, warm=1)
-    bwd_plain_ms = _time_ms(lambda: prc.loss_bwd_compact_plain(*bargs), 3, warm=1)
-    fp, fl, bp, bl, fbytes, bbytes = _needed_work(cam, st, ref, acck, gb, meta)
-    fwd_ops = fp * OPS_FWD_PAIR + fl * OPS_FWD_LANE
-    bwd_ops = bp * OPS_BWD_PAIR + bl * OPS_BWD_LANE
-
-    def bound(nbytes, ops):
-        tb, to = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-        return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
-
-    fb, fby = bound(fbytes, fwd_ops)
-    bb, bby = bound(bbytes, bwd_ops)
-    print(f"[kernels] K2f {fwd_ms:.4f} ms (plain {fwd_plain_ms:.3f} ms), needs "
-          f"{fp} lane-pixel pairs, {fbytes} bytes -> bound {fb:.4f} ms ({fby})")
-    print(f"[kernels] K2b {bwd_ms:.4f} ms (plain {bwd_plain_ms:.3f} ms), needs "
-          f"{bp} live lane-pixel pairs, {bbytes} bytes -> bound {bb:.4f} ms ({bby})")
+    b_err = _check_dcam("K2b", prc.loss_bwd_compact_cuda(*bargs).sum(1),
+                        prc.loss_bwd_compact_plain(*bargs).sum(1))
     print(f"[kernels] start-pose loads: max tile count {int(st.counts.max())} "
           f"(cap {cfg.capacity}), max ncu {int(st.ncu.max())} (budget {cfg.compact_chunks})")
+
+    T, P, nc = ref.shape[1], TH * TW, st.nlive.shape[1]
+    frames = [(prc._chunks_of(st.rec[b]), st.ctmap[b].long(), st.nlive[b].long())
+              for b in range(B)]
+    gp = loss_cotangent(acck.reshape(B, T, P), ref.reshape(B, T, P), gb[:, None, None],
+                        torch.arange(T, device=cam.device), meta)
+    w = _needed_work(cam, frames, {"K2b": gp}, meta)
+    _print_work("compact", w)
+    maps = B * (nc * 8 + 4 + 64)  # nlive and ctmap (or cpos), ncu (or gb), cam
     src = "easyhec_torch/ops/csrc/pose_raster_compact.cu"
     return [
-        dict(name="loss_fwd_compact", route="cuda", source=src,
-             replaces="easyhec_tpu/ops/pose_raster_compact.py:66",
-             max_abs_err=loss_err, ms=fwd_ms, plain_ms=fwd_plain_ms,
-             bound_ms=fb, bound_by=fby, library_ms=None),
-        dict(name="loss_bwd_compact", route="cuda", source=src,
-             replaces="easyhec_tpu/ops/pose_raster_compact.py:105",
-             max_abs_err=dcam_err, ms=bwd_ms, plain_ms=bwd_plain_ms,
-             bound_ms=bb, bound_by=bby, library_ms=None),
+        # records of the chunks run and ref of visited tiles in; acc and loss out
+        _row("loss_fwd_compact", "K2f", src, "easyhec_tpu/ops/pose_raster_compact.py:66",
+             f_err, lambda: prc.loss_fwd_compact_cuda(*fargs),
+             lambda: prc.loss_fwd_compact_plain(*fargs),
+             w["fwd"][2] * CHUNK_BYTES + w["tiles"] * P * 4 + B * T * (P + 1) * 4 + maps,
+             _ops(w["fwd"], OPS_FWD_PAIR, OPS_FWD_LANE)),
+        # records of the live chunks and acc + ref of visited tiles in; parts out
+        _row("loss_bwd_compact", "K2b", src, "easyhec_tpu/ops/pose_raster_compact.py:105",
+             b_err, lambda: prc.loss_bwd_compact_cuda(*bargs),
+             lambda: prc.loss_bwd_compact_plain(*bargs),
+             w["K2b"][2] * CHUNK_BYTES + w["tiles"] * 2 * P * 4 + maps + B * nc * (4 + 48),
+             _ops(w["K2b"], OPS_BWD_PAIR, OPS_BWD_LANE)),
     ]
 
 
@@ -272,50 +341,295 @@ def check_tile_acc(renderer, K, xi, st):
         raise AssertionError("compact_tile_acc disagrees with the plain forward")
 
 
-def main_path(renderer, lp, K, xi, target, steps, profile_dir):
-    """Phase 3: the port's calibrate at full width."""
+def _dense_frames(rec, counts):
+    """Per frame, the used chunks of the dense records as _needed_work takes
+    them: (blk, tile, live slots), chunk j of a tile holding slots
+    [128 j, 128 (j + 1)) of its count."""
+    import torch
+
+    from easyhec_torch.ops.pose_raster import CHUNK, _dense_chunks
+
+    cap = rec.shape[-1] // counts.shape[1]
+    frames = []
+    for b in range(counts.shape[0]):
+        cnt = counts[b].long().clamp(0, cap)
+        blk, ct = _dense_chunks(rec[b], counts[b], cap)
+        used = -(-cnt // CHUNK)
+        j = torch.arange(ct.numel(), device=ct.device) - (torch.cumsum(used, 0) - used)[ct]
+        frames.append((blk, ct, (cnt[ct] - j * CHUNK).clamp(0, CHUNK)))
+    return frames
+
+
+def dense_kernel_phase(renderer, lp, K, xi, target):
+    """The dense kernels (K1f, K1b, K4f, K4b) against their plain versions at
+    the bench scene's full shapes, on the dense bin state at the start pose.
+    K4b is also taken by torch.autograd.grad through RobotRenderer.silhouette.
+    Returns the per-kernel measurements."""
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.models.calib import tile_masks
+    from easyhec_torch.ops import pose_raster as pr
+    from easyhec_torch.ops.pose_raster import tile_image
+    from easyhec_torch.render.fused import cam_rows
+    from easyhec_torch.render.tiled import _untile
+
+    d0 = xi + 0.01
+    st = renderer.bin_state(se3.exp(d0), lp, K)
+    if bool(st.overflow.any()):
+        raise AssertionError("dense bin overflow at the start pose")
+    rec = pr._pad_records(st.rec, st.counts)
+    counts = pr.i32(st.counts)
+    cam = cam_rows(se3.exp(d0), K, B).contiguous()
+    ref = tile_masks(target, renderer).contiguous()
+    cfg = renderer.tile
+    meta = pr.Meta(TH, TW, -(-W // TW), H, W, 1.0, 0.001, 10.0, cfg.bwd_band_only)
+    T = counts.shape[1]
+    print(f"[dense] start-pose loads: max tile count {int(st.counts.max())} (cap "
+          f"{cfg.capacity}), {int((st.counts > 0).sum())} of {B * T} tiles visited; "
+          f"records {rec.numel() * 4} bytes")
+
+    # K1f: per-tile loss and min(acc, 2); K1b: dcam for gb = 1/B (the
+    # gradient of the mean over frames).
+    fargs = (cam, rec, counts, ref, meta)
+    got = pr.loss_fwd_cuda(*fargs)
+    k1f_err = _check_loss_fwd("K1f", got, pr.loss_fwd_plain(*fargs))
+    acck = got[1]
+    gb = torch.full((B,), 1.0 / B, device=cam.device)
+    bargs = (cam, rec, counts, ref, acck, gb, meta)
+    k1b_err = _check_dcam("K1b", pr.loss_bwd_cuda(*bargs).sum(1),
+                          pr.loss_bwd_plain(*bargs).sum(1))
+
+    # K4f: the clipped image (tolerance of min(acc, 2)).
+    sargs = (cam, rec, counts, meta)
+    sk, acc_s = pr.sil_fwd_cuda(*sargs)
+    spl, _ = pr.sil_fwd_plain(*sargs)
+    torch.cuda.synchronize()
+    k4f_err = (sk - spl).abs().max().item()
+    print(f"[kernels] K4f image: max abs err {k4f_err:.3e} (tol 1e-3, as min(acc,2))")
+    if not k4f_err <= 1e-3:
+        raise AssertionError("K4f disagrees with its plain version")
+
+    # K4b: the cotangent of mean Σ(sil − target)², through the wrapper and
+    # through autograd on RobotRenderer.silhouette (same bin state).
+    g_img = 2.0 * (_untile(sk, H, W, cfg) - target) / B
+    g_t = tile_image(g_img, TH, TW).contiguous()
+    gargs = (cam, rec, counts, acc_s, g_t, meta)
+    qpl = pr.sil_bwd_plain(*gargs).sum(1)
+    k4b_err = _check_dcam("K4b", pr.sil_bwd_cuda(*gargs).sum(1), qpl)
+    Tc = se3.exp(d0).detach().requires_grad_()
+    n0 = pr.sil_bwd_cuda.launches
+    sil = renderer.silhouette(Tc, lp, K, bin_state=st)
+    (gT,) = torch.autograd.grad(sil, Tc, g_img)
+    torch.cuda.synchronize()
+    if pr.sil_bwd_cuda.launches != n0 + 1:
+        raise AssertionError("autograd through RobotRenderer.silhouette did not launch K4b")
+    want = qpl[:, :12].sum(0)
+    ag_err = (gT[:3, :4].reshape(12) - want).abs().max().item()
+    print(f"[kernels] K4b through autograd on RobotRenderer.silhouette vs plain: "
+          f"{ag_err:.3e} of max {want.abs().max().item():.3e} (tol 1e-3*max). "
+          "Reason: summation order")
+    if not ag_err <= 1e-3 * want.abs().max().item():
+        raise AssertionError("K4b through autograd disagrees with its plain version")
+
+    P = TH * TW
+    gps = {
+        "K1b": pr.loss_cotangent(acck.reshape(B, T, P), ref.reshape(B, T, P),
+                                 gb[:, None, None], torch.arange(T, device=cam.device), meta),
+        "K4b": pr.image_cotangent(acc_s, g_t, meta).reshape(B, T, P),
+    }
+    w = _needed_work(cam, _dense_frames(rec, counts), gps, meta)
+    _print_work("dense", w)
+    img = B * T * P * 4
+    small = B * T * 4 + B * 64  # counts, cam
+    fwd_bytes = w["fwd"][2] * CHUNK_BYTES + small + 2 * img  # + (K1f) ref in, or image out
+    fwd_ops = _ops(w["fwd"], OPS_FWD_PAIR, OPS_FWD_LANE)
+
+    def bwd_bytes(k):  # records of the live chunks, acc + ref (or g) of visited tiles; parts out
+        return w[k][2] * CHUNK_BYTES + w["tiles"] * 2 * P * 4 + small + B * T * 48
+
+    src = "easyhec_torch/ops/csrc/pose_raster.cu"
+    at = "easyhec_tpu/ops/pose_raster.py:"
+    return [
+        _row("loss_fwd", "K1f", src, at + "648", k1f_err, lambda: pr.loss_fwd_cuda(*fargs),
+             lambda: pr.loss_fwd_plain(*fargs), fwd_bytes + B * T * 4, fwd_ops),
+        _row("loss_bwd", "K1b", src, at + "681", k1b_err, lambda: pr.loss_bwd_cuda(*bargs),
+             lambda: pr.loss_bwd_plain(*bargs), bwd_bytes("K1b") + B * 4,
+             _ops(w["K1b"], OPS_BWD_PAIR, OPS_BWD_LANE)),
+        _row("sil_fwd", "K4f", src, at + "167", k4f_err, lambda: pr.sil_fwd_cuda(*sargs),
+             lambda: pr.sil_fwd_plain(*sargs), fwd_bytes, fwd_ops),
+        _row("sil_bwd", "K4b", src, at + "490", k4b_err, lambda: pr.sil_bwd_cuda(*gargs),
+             lambda: pr.sil_bwd_plain(*gargs), bwd_bytes("K4b"),
+             _ops(w["K4b"], OPS_BWD_PAIR, OPS_BWD_LANE)),
+    ]
+
+
+def _reset(kernels):
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def main_path(renderer, lp, K, xi, target, steps, kernels, label):
+    """``calibrate`` at full width on `renderer`'s route; kernels
+    {name: (forward wrapper, backward wrapper)} names the loss pair that must
+    run once per step. Returns (launches by name, ms/step)."""
     import numpy as np
     import torch
 
     from easyhec_torch.geometry import se3
     from easyhec_torch.models.calib import calibrate
-    from easyhec_torch.ops import pose_raster_compact as prc
 
     d0 = (xi + 0.01).cpu().numpy()
     gt = se3.exp(xi).cpu().numpy()
     torch.cuda.synchronize()
-    prc.loss_fwd_compact_cuda.launches = 0
-    prc.loss_bwd_compact_cuda.launches = 0
+    _reset(kernels)
     t0 = time.perf_counter()
     res = calibrate(d0, renderer, lp, K, target, num_steps=steps, max_lr=3e-3,
                     rebin_every=0, Tc_c2b_gt=gt)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    nf, nb = prc.loss_fwd_compact_cuda.launches, prc.loss_bwd_compact_cuda.launches
-    print(f"[main] {steps} steps in {dt:.3f} s: {dt / steps * 1e3:.3f} ms/step, "
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    print(f"[{label}] {steps} steps in {dt:.3f} s: {dt / steps * 1e3:.3f} ms/step, "
           f"{steps * B * H * W / dt:.0f} px/s fwd+bwd, {res.rebins} rebins")
-    print(f"[main] loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}; launches "
-          f"K2f {nf}, K2b {nb}; pose error {json.dumps(res.metrics)}")
+    print(f"[{label}] loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}; launches "
+          f"{json.dumps(launches)}; pose error {json.dumps(res.metrics)}")
     if res.overflow:
-        raise AssertionError("bin overflow during calibrate")
+        raise AssertionError(f"bin overflow during calibrate ({label})")
     if not (np.isfinite(res.losses).all() and np.isfinite(res.dof).all()):
         raise AssertionError("non-finite loss or pose")
     if not res.losses[-1] < res.losses[0]:
         raise AssertionError("loss did not fall")
-    if nf < steps or nb != steps:
-        raise AssertionError(f"launch counts K2f {nf}, K2b {nb} for {steps} steps")
-    if profile_dir:
-        _profile(renderer, lp, K, d0, target, steps, res.rebins, Path(profile_dir))
-    return {"loss_fwd_compact": nf, "loss_bwd_compact": nb}
+    fwd, bwd = list(launches.values())
+    if fwd < steps or bwd != steps:
+        raise AssertionError(f"launch counts {launches} for {steps} steps ({label})")
+    return launches, dt / steps * 1e3, res.rebins
 
 
-def _profile(renderer, lp, K, d0, target, steps, main_rebins, out):
-    """Replay the main path (same start, steps and settings, so the same
-    rebin rate) under torch.profiler. Reports that run's own device busy
-    share (device time over its wall time) and its device time per step by
-    part; writes out/profile_calibrate.txt (top ops) and
-    out/profile_breakdown.json. No chrome trace: at 1000 steps it would hold
-    millions of events."""
+def trainer_phase(lp, K, xi, qs, target, steps):
+    """run_offline_calibration on the dense route at the bench scene, with an
+    in-memory Config and CalibBatch (the GPU machine has no PyYAML or
+    OpenCV, so nothing is read from disk but the URDF)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from easyhec_torch.config import Config
+    from easyhec_torch.data import CalibBatch
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.ops import pose_raster as pr
+    from easyhec_torch.trainer import offline
+
+    cfg = Config()
+    m, r, s = cfg.model, cfg.render, cfg.solver
+    m.urdf_path = str(ROOT / "assets" / "mini_arm.urdf")
+    m.use_links = ["base", "upper", "fore"]
+    m.H, m.W, m.subdivide_max_edge = H, W, 0.008
+    r.tile_h, r.tile_w, r.capacity, r.rect_y, r.rect_x = TH, TW, 1664, 5, 3
+    r.margin, r.cull_backfaces, r.bin_big_k, r.bin_subsort_rows = 2.0, True, 6144, True
+    r.compact_chunks = 0  # the dense route (RenderConfig's default)
+    s.num_epochs, s.max_lr, s.rebin_every = steps, 3e-3, 0
+    batch = CalibBatch(
+        rgb=np.zeros((B, H, W, 3), np.uint8), masks=target.cpu().numpy(),
+        qpos=qs.astype(np.float32), link_poses=lp.cpu().numpy(), K=K.cpu().numpy(),
+        Tc_c2b_gt=se3.exp(xi).cpu().numpy(),
+    )
+    kernels = {"loss_fwd": pr.loss_fwd_cuda, "loss_bwd": pr.loss_bwd_cuda,
+               "sil_fwd": pr.sil_fwd_cuda, "sil_bwd": pr.sil_bwd_cuda}
+    calls = [0]
+    real = offline.render_outputs
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.output_dir = tmp
+        offline.render_outputs = counted
+        torch.cuda.synchronize()
+        _reset(kernels)
+        try:
+            res = offline.run_offline_calibration(cfg, batch=batch,
+                                                  init_dof=(xi + 0.01).cpu().numpy())
+        finally:
+            offline.render_outputs = real
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        out = Path(tmp)
+        want = ["Tc_c2b.txt", "metrics.json", "eval.json", "config.yaml",
+                "checkpoints/final.npz", "metrics.jsonl"]
+        missing = [f for f in want if not (out / f).is_file()]
+        wall = json.loads((out / "checkpoints" / "final.json").read_text())["wall_time_s"]
+        evals = json.loads((out / "eval.json").read_text())
+    print(f"[trainer] run_offline_calibration, dense route: {steps} steps in "
+          f"{wall:.3f} s (wall_time_s, with the step hooks' {steps // 100} mid-run panels "
+          f"and checkpoints): {wall / steps * 1e3:.3f} ms/step, "
+          f"{steps * B * H * W / wall:.0f} px/s; {res.rebins} rebins")
+    print(f"[trainer] loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}; launches "
+          f"{json.dumps(launches)}; render_outputs calls {calls[0]}; mask_iou "
+          f"{evals.get('mask_iou', float('nan')):.4f}; pose error {json.dumps(res.metrics)}")
+    if missing:
+        raise AssertionError(f"trainer artifacts missing: {missing}")
+    if res.overflow:
+        raise AssertionError("bin overflow during the trainer run")
+    if not (np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]):
+        raise AssertionError("trainer loss did not fall")
+    if launches["loss_fwd"] != steps or launches["loss_bwd"] != steps:
+        raise AssertionError(f"K1 launches {launches} for {steps} steps")
+    if calls[0] == 0 or launches["sil_fwd"] != calls[0]:
+        raise AssertionError(f"K4f launches {launches['sil_fwd']} for "
+                             f"{calls[0]} render_outputs calls")
+    return launches, wall / steps * 1e3
+
+
+def silhouette_path(renderer, lp, K, xi, target, steps=20):
+    """Adam steps on mean Σ(RobotRenderer.silhouette − mask)² through
+    autograd: the image-route loss (easyhec_tpu's sharded calibration
+    differentiates the silhouette so). Each step re-bins densely (no bin
+    state passed), renders with K4f and differentiates with K4b."""
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.ops import pose_raster as pr
+    from easyhec_torch.solver.optim import make_optimizer
+
+    opt = make_optimizer("adam", max_lr=3e-3)
+    dof = (xi + 0.01).clone()
+    state = opt.init(dof)
+    kernels = {"sil_fwd": pr.sil_fwd_cuda, "sil_bwd": pr.sil_bwd_cuda}
+    torch.cuda.synchronize()
+    _reset(kernels)
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(steps):
+        d = dof.detach().requires_grad_(True)
+        sil = renderer.silhouette(se3.exp(d), lp, K)
+        loss = ((sil - target) ** 2).sum(dim=(-2, -1)).mean()
+        (g,) = torch.autograd.grad(loss, d)
+        upd, state = opt.update(g, state, dof)
+        dof = (dof + upd).detach()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    losses = torch.stack(losses).cpu()
+    print(f"[silhouette] {steps} image-loss steps through RobotRenderer.silhouette: "
+          f"{dt / steps * 1e3:.3f} ms/step with a dense rebin each; loss "
+          f"{losses[0]:.3f} -> {losses[-1]:.3f}; launches {json.dumps(launches)}")
+    if not (torch.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError("silhouette-path loss did not fall")
+    if launches != {"sil_fwd": steps, "sil_bwd": steps}:
+        raise AssertionError(f"K4 launches {launches} for {steps} steps")
+    return launches
+
+
+def _profile(renderer, lp, K, d0, target, steps, main_rebins, out, tag, fwd_pat, bwd_pat):
+    """Replay a ``calibrate`` run (same start, steps and settings, so the
+    same rebin rate) under torch.profiler. Reports that run's own device
+    busy share (device time over its wall time) and its device time per
+    step by part; writes out/profile_<tag>.txt (top ops) and
+    out/profile_breakdown_<tag>.json. No chrome trace: at 1000 steps it
+    would hold millions of events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -340,7 +654,7 @@ def _profile(renderer, lp, K, d0, target, steps, main_rebins, out):
     finally:
         del renderer.bin_state
     t0 = time.perf_counter()
-    us = dict(total=0.0, k2f=0.0, k2b=0.0, rebin=0.0)
+    us = dict(total=0.0, fwd=0.0, bwd=0.0, rebin=0.0)
     n_ops = 0
     for ev in prof.events():
         if ev.device_type == DeviceType.CPU:
@@ -349,33 +663,34 @@ def _profile(renderer, lp, K, d0, target, steps, main_rebins, out):
         elif not getattr(ev, "is_user_annotation", False):
             us["total"] += ev.device_time_total
             n_ops += 1
-            if "loss_fwd_compact_kernel" in ev.name:
-                us["k2f"] += ev.device_time_total
-            elif "loss_bwd_compact_kernel" in ev.name:
-                us["k2b"] += ev.device_time_total
-    us["other"] = us["total"] - us["k2f"] - us["k2b"] - us["rebin"]
+            if fwd_pat in ev.name:
+                us["fwd"] += ev.device_time_total
+            elif bwd_pat in ev.name:
+                us["bwd"] += ev.device_time_total
+    us["other"] = us["total"] - us["fwd"] - us["bwd"] - us["rebin"]
     per_step = {k: v / 1e3 / steps for k, v in us.items()}
     busy = us["total"] / 1e3 / wall_ms
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    (out / "profile_calibrate.txt").write_text(table)
-    summary = dict(steps=steps, rebins=res.rebins, main_path_rebins=main_rebins,
+    (out / f"profile_{tag}.txt").write_text(table)
+    summary = dict(route=tag, steps=steps, rebins=res.rebins, main_path_rebins=main_rebins,
                    wall_ms=wall_ms, device_ms=us["total"] / 1e3, busy_share=busy,
                    device_ops_per_step=n_ops / steps, device_ms_per_step=per_step,
                    device_ms_per_rebin=us["rebin"] / 1e3 / max(res.rebins, 1))
-    (out / "profile_breakdown.json").write_text(json.dumps(summary, indent=1))
-    print(f"[profile] replay of the main path under torch.profiler: {steps} steps, "
-          f"{res.rebins} rebins (main path {main_rebins}), {wall_ms:.3f} ms wall, "
+    (out / f"profile_breakdown_{tag}.json").write_text(json.dumps(summary, indent=1))
+    print(f"[profile {tag}] replay under torch.profiler: {steps} steps, "
+          f"{res.rebins} rebins (unprofiled run {main_rebins}), {wall_ms:.3f} ms wall, "
           f"that is {wall_ms / steps:.3f} ms/step with the profiler on")
-    print(f"[profile] device busy {us['total'] / 1e3:.3f} ms of that run's "
+    print(f"[profile {tag}] device busy {us['total'] / 1e3:.3f} ms of that run's "
           f"{wall_ms:.3f} ms wall = {busy:.4f}; {n_ops / steps:.1f} device ops per step")
-    print("[profile] device ms per step: " + ", ".join(
+    print(f"[profile {tag}] device ms per step: " + ", ".join(
         f"{k} {v:.4f}" for k, v in per_step.items())
-        + f"; {summary['device_ms_per_rebin']:.4f} ms per rebin; post-processing "
-        f"{time.perf_counter() - t0:.1f} s")
+        + f" (fwd = {fwd_pat}, bwd = {bwd_pat}); {summary['device_ms_per_rebin']:.4f} "
+        f"ms per rebin; post-processing {time.perf_counter() - t0:.1f} s")
 
 
-def reference_check():
-    """Phase 4: a small calibration on the card vs the plain CPU path."""
+def reference_check(nc):
+    """A small calibration on the card vs the plain CPU path, on the compact
+    route (nc > 0 chunks) or the dense one (nc = 0)."""
     import numpy as np
     import torch
 
@@ -383,12 +698,18 @@ def reference_check():
     from easyhec_torch.models.calib import calibrate
     from easyhec_torch.render.fused import silhouette_compact
 
+    route = "compact" if nc else "dense"
     out, scenes, target = [], {}, None
     for dev in ("cuda", "cpu"):
-        r, lp, K, xi = build_scene(dev, H=96, W=128, B=3, max_edge=0.04, cap=512, nc=32)
+        r, lp, K, xi, _ = build_scene(dev, H=96, W=128, B=3, max_edge=0.04, cap=512, nc=nc)
         if target is None:  # one target for both runs, rendered on the card
-            st = r.bin_state(se3.exp(xi), lp, K)
-            target = (silhouette_compact(r, se3.exp(xi), K, st) > 0.5).float()
+            with torch.no_grad():
+                if nc:
+                    st = r.bin_state(se3.exp(xi), lp, K)
+                    sil = silhouette_compact(r, se3.exp(xi), K, st)
+                else:
+                    sil = r.silhouette(se3.exp(xi), lp, K)
+            target = (sil > 0.5).float()
         target = target.to(dev)
         scenes[dev] = (r, lp, K, target)
         out.append(calibrate((xi + 0.01).cpu().numpy(), r, lp, K, target,
@@ -408,12 +729,12 @@ def reference_check():
     first = abs(a.losses[0] - b.losses[0]) / abs(b.losses[0])
     rel = np.abs(a.losses - b.losses).max() / np.abs(b.losses).max()
     ddof = np.abs(a.dof - b.dof).max()
-    print(f"[reference] small calibrate cuda vs cpu: first loss rel {first:.3e} "
+    print(f"[reference {route}] small calibrate cuda vs cpu: first loss rel {first:.3e} "
           f"(tol 1e-5), gradient at identical poses {grad_gap:.3e} of max|g| "
           f"(tol 2e-3), loss trace rel {rel:.3e} (tol 1e-2), dof max abs "
           f"{ddof:.3e} (tol 1e-3), rebins {a.rebins} vs {b.rebins}")
     if not (first <= 1e-5 and grad_gap <= 2e-3 and rel <= 1e-2 and ddof <= 1e-3):
-        raise AssertionError("cuda and cpu calibrations disagree")
+        raise AssertionError(f"cuda and cpu calibrations disagree ({route})")
 
 
 def _divergence(a, b, scenes) -> float:
@@ -476,8 +797,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=1000)
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="replay the main path under torch.profiler and write "
-                         "its summary into DIR")
+                    help="replay the compact and the dense calibrate runs under "
+                         "torch.profiler and write their summaries into DIR")
     args = ap.parse_args()
 
     import torch
@@ -497,15 +818,18 @@ def main() -> int:
     print(f"[build] {sorted(secs)} built in {time.perf_counter() - t0:.2f} s")
     for name in _build.sources():
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {name}: {line.strip()}")
     gpu = _gpu_line()
     print(f"[device] {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from easyhec_torch.geometry import se3
+    from easyhec_torch.ops import pose_raster as pr
+    from easyhec_torch.ops import pose_raster_compact as prc
+    from easyhec_torch.render import RobotRenderer
     from easyhec_torch.render.fused import silhouette_compact
 
-    renderer, lp, K, xi = build_scene("cuda")
+    renderer, lp, K, xi, qs = build_scene("cuda")
     print(f"[scene] {renderer.n_faces} triangles, {B} frames of {W}x{H}")
     st_gt = renderer.bin_state(se3.exp(xi), lp, K)
     if bool(st_gt.overflow):
@@ -513,15 +837,42 @@ def main() -> int:
     target = (silhouette_compact(renderer, se3.exp(xi), K, st_gt) > 0.5).float()
     print(f"[scene] target masks: {float(target.mean()):.4f} of pixels set; GT-pose "
           f"loads max tile {int(st_gt.counts.max())}, max ncu {int(st_gt.ncu.max())}")
+    dense = RobotRenderer(renderer.meshes, H, W,
+                          tile=renderer.tile._replace(compact_chunks=0), device="cuda")
+    with torch.no_grad():  # RobotRenderer.silhouette (K4f) at the GT pose
+        target_d = (dense.silhouette(se3.exp(xi), lp, K) > 0.5).float()
+    print(f"[scene] dense target masks: {float(target_d.mean()):.4f} of pixels set, "
+          f"{float((target_d != target).float().mean()):.2e} differ from the compact ones")
 
     check_tile_acc(renderer, K, xi, st_gt)
     kernels = kernel_phase(renderer, lp, K, xi, target)
-    launches = main_path(renderer, lp, K, xi, target, args.steps, args.profile)
+    kernels += dense_kernel_phase(dense, lp, K, xi, target_d)
+
+    compact_k = {"loss_fwd_compact": prc.loss_fwd_compact_cuda,
+                 "loss_bwd_compact": prc.loss_bwd_compact_cuda}
+    launches, ms_c, rebins_c = main_path(renderer, lp, K, xi, target, args.steps,
+                                         compact_k, "main compact")
+    _, ms_d, rebins_d = main_path(dense, lp, K, xi, target_d, args.steps,
+                                  {"loss_fwd": pr.loss_fwd_cuda, "loss_bwd": pr.loss_bwd_cuda},
+                                  "main dense")
+    print(f"[main] dense against compact, same call: {ms_d:.3f} against {ms_c:.3f} "
+          f"ms/step ({ms_d / ms_c:.3f}x)")
+    if args.profile:
+        d0 = (xi + 0.01).cpu().numpy()
+        _profile(renderer, lp, K, d0, target, args.steps, rebins_c, Path(args.profile),
+                 "compact", "loss_fwd_compact_kernel", "loss_bwd_compact_kernel")
+        _profile(dense, lp, K, d0, target_d, args.steps, rebins_d, Path(args.profile),
+                 "dense", "pose_fwd_kernel<true>", "pose_bwd_kernel<true>")
+    trainer_launches, _ = trainer_phase(lp, K, xi, qs, target_d, args.steps)
+    sil_launches = silhouette_path(dense, lp, K, xi, target_d)
+    launches.update({k: trainer_launches[k] for k in ("loss_fwd", "loss_bwd", "sil_fwd")})
+    launches["sil_bwd"] = sil_launches["sil_bwd"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']} never launched on the main path")
-    reference_check()
+            raise AssertionError(f"{k['name']} never launched on its path")
+    reference_check(32)
+    reference_check(0)
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]

@@ -2,8 +2,8 @@
 
 Torch counterpart of easyhec_tpu/models/calib.py. ``calibrate`` runs Adam
 on the 6-dof se(3) camera pose; each step is one fused loss kernel call
-(forward plus analytic backward to Tc[:3,:4], ops/pose_raster_compact.py)
-on bin states that are rebuilt only when the projected drift of the probe
+(forward plus analytic backward to Tc[:3,:4]: ops/pose_raster.py on the
+dense route, ops/pose_raster_compact.py on the compact one) on bin states that are rebuilt only when the projected drift of the probe
 points exceeds the margin budget (adaptive rebinning, ``opt_scan``).
 
 Where the JAX package runs ``lax.scan`` over a chunk of steps, this runs a
@@ -38,6 +38,10 @@ __all__ = [
     "make_drift_probe_fn",
     "opt_scan",
     "calibrate",
+    "render_outputs",
+    "downscale_mask",
+    "downscale_K",
+    "calibrate_multires",
 ]
 
 
@@ -79,7 +83,8 @@ def mask_loss_per_frame(
     sharpness: float = 1.0, bin_state=None, ref_tiles=None,
 ) -> torch.Tensor:
     """Per-frame Σ_pixels (rendered − ref)² [..B] through the fused loss
-    kernels (the only route ported)."""
+    kernels, dense or compact as the bin state (or the tile config) says;
+    the fused route is the only one ported."""
     if not renderer.tile.fused:
         raise NotImplementedError(
             "only the fused loss route is ported to easyhec_torch (ROADMAP.md)"
@@ -369,4 +374,82 @@ def calibrate(
         metrics=pose_metrics(dof_np, Tc_c2b_gt) if Tc_c2b_gt is not None else {},
         overflow=overflowed,
         rebins=rebins,
+    )
+
+
+def render_outputs(dof, renderer: RobotRenderer, link_poses, K, masks_ref,
+                   sharpness: float = 1.0) -> dict[str, np.ndarray]:
+    """Rendered / reference / |error| mask maps (host numpy), rendered by
+    RobotRenderer.silhouette on the renderer's device."""
+    dev = renderer.device
+
+    def t(x):
+        return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
+                               dtype=torch.float32, device=dev)
+
+    with torch.no_grad():
+        sil = renderer.silhouette(se3.exp(t(dof)), t(link_poses), t(K), sharpness)
+    sil = sil.cpu().numpy()
+    ref = t(masks_ref).cpu().numpy()
+    return {"rendered_masks": sil, "ref_masks": ref, "error_maps": np.abs(sil - ref)}
+
+
+def downscale_mask(masks: np.ndarray, s: int) -> np.ndarray:
+    """Average-pool masks by integer factor s (soft targets at coarse scale)."""
+    m = np.asarray(masks, np.float32)
+    if s == 1:
+        return m
+    B, H, W = m.shape
+    H2, W2 = H // s * s, W // s * s
+    return m[:, :H2, :W2].reshape(B, H2 // s, s, W2 // s, s).mean(axis=(2, 4))
+
+
+def downscale_K(K: np.ndarray, s: int) -> np.ndarray:
+    """Intrinsics for an s-times downsampled image (pixel-center exact)."""
+    K = np.asarray(K, np.float64).copy()
+    if s != 1:
+        K[0, 0] /= s
+        K[1, 1] /= s
+        K[0, 2] = (K[0, 2] + 0.5) / s - 0.5
+        K[1, 2] = (K[1, 2] + 0.5) / s - 0.5
+    return K.astype(np.float32)
+
+
+def calibrate_multires(
+    init_dof,
+    renderers: dict[int, RobotRenderer],
+    link_poses,
+    K,
+    masks_ref,
+    steps_per_scale: dict[int, int],
+    max_lr: float = 3e-3,
+    optimizer: str = "adam",
+    scheduler: str = "constant",
+    grad_clip: float = 0.0,
+    sharpness: float = 1.0,
+    Tc_c2b_gt: np.ndarray | None = None,
+) -> CalibResult:
+    """Coarse-to-fine calibration: run at each scale s (descending) with
+    renderers[s], K and masks downscaled by s, warm-starting the next."""
+    dof = np.asarray(init_dof, np.float32)
+    all_losses, all_hist = [], []
+    for s in sorted(steps_per_scale, reverse=True):
+        n = steps_per_scale[s]
+        if n <= 0:
+            continue
+        res = calibrate(
+            dof, renderers[s], link_poses, downscale_K(np.asarray(K), s),
+            downscale_mask(np.asarray(masks_ref), s), num_steps=n, max_lr=max_lr,
+            optimizer=optimizer, scheduler=scheduler, grad_clip=grad_clip,
+            sharpness=sharpness,
+        )
+        dof = res.dof
+        all_losses.append(res.losses)
+        all_hist.append(res.history)
+    return CalibResult(
+        dof=dof,
+        Tc_c2b=se3.exp(torch.as_tensor(dof)).numpy(),
+        losses=np.concatenate(all_losses),
+        history=np.concatenate(all_hist),
+        metrics=pose_metrics(dof, Tc_c2b_gt) if Tc_c2b_gt is not None else {},
     )

@@ -8,8 +8,8 @@ use with
 
 into ``easyhec_torch/ops/build/`` (listed in .gitignore; override with
 ``EASYHEC_TORCH_BUILD_DIR``), then loaded with ctypes. The file name carries
-a hash of the source, so an edited kernel is rebuilt and a stale library is
-never loaded. ``build_all`` starts one nvcc per source, all at once.
+a hash of the source and of the shared headers ``csrc/*.cuh``, so an edited
+kernel is rebuilt and a stale library is never loaded. ``build_all`` starts one nvcc per source, all at once.
 Nothing is fetched: the CUDA toolkit's nvcc and headers are all it needs.
 """
 from __future__ import annotations
@@ -54,8 +54,12 @@ def sources() -> list[str]:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # The hash covers every header of csrc too: the sources share device
+    # code through csrc/*.cuh, and an edited header must rebuild them all.
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return _build_dir() / f"{name}-{h.hexdigest()[:12]}.so"
 
 

@@ -27,20 +27,28 @@ stops adding once a whole tile saturates); clip(acc), acc <= 1 and
 """
 from __future__ import annotations
 
-import ctypes
-from typing import NamedTuple
-
 import torch
 
 from . import _build
 from .pose_raster import (
+    _F,
+    _I,
+    _P,
     CHUNK,
     POSE_RECORD,
+    Meta,
     _bwd_chunk,
     _chunk_coverage,
     _chunk_setup,
+    _dcam,
+    check_tensor,
+    check_tile,
     crop_mask,
+    dispatch,
+    i32,
+    loss_cotangent,
     pix_grids,
+    raise_on,
     tile_origin,
 )
 
@@ -52,20 +60,6 @@ __all__ = [
     "loss_fwd_compact_plain",
     "loss_bwd_compact_plain",
 ]
-
-
-class Meta(NamedTuple):
-    """Static parameters of one compact loss call."""
-
-    th: int
-    tw: int
-    n_tx: int
-    H: int
-    W: int
-    sharpness: float = 1.0
-    near: float = 0.001
-    far: float = 10.0
-    band_only: bool = False
 
 
 # ---------------------------------------------------------------------------
@@ -108,19 +102,6 @@ def loss_fwd_compact_plain(cam, rec, nlive, ctmap, ncu, ref_tiles, meta: Meta):
     return loss, acc.reshape(B, T, meta.th, meta.tw)
 
 
-def _cotangent(acc_t, ref_t, gb_b, ct, meta: Meta):
-    """d(loss_b)/d(acc) = 2·gb·e·1{acc ≤ 1}, zero outside the crop and, with
-    band_only, outside the silhouette band 0 < acc < 1. [..., P]."""
-    e = torch.clamp(acc_t, 0.0, 1.0) - ref_t
-    g = 2.0 * gb_b * e * (acc_t <= 1.0).to(torch.float32)
-    g = g * crop_mask(ct, meta.n_tx, meta.th, meta.tw, meta.H, meta.W)
-    if meta.band_only:
-        # Non-band pixels carry only pairwise-cancelling internal-edge
-        # contributions (easyhec_tpu/ops/pose_raster._masked_cotangent).
-        g = g * ((acc_t > 0.0) & (acc_t < 1.0)).to(torch.float32)
-    return g
-
-
 def loss_bwd_compact_plain(cam, rec, bnl, bct, bcp, ref_tiles, acc, gb, meta: Meta):
     """Plain backward: -> parts [B, ncb, 12], the per-chunk d(loss)/d(Tc)
     partials (summed over the chunk's lanes)."""
@@ -135,7 +116,7 @@ def loss_bwd_compact_plain(cam, rec, bnl, bct, bcp, ref_tiles, acc, gb, meta: Me
         blk = _chunks_of(rec[b])[bcp[b].long()]  # [ncb, 12, C]
         acc_t = acc[b].reshape(T, P)[ct]
         ref_t = ref_tiles[b].reshape(T, P)[ct]
-        gp2 = _cotangent(acc_t, ref_t, gb[b], ct, meta)  # [ncb, P]
+        gp2 = loss_cotangent(acc_t, ref_t, gb[b], ct, meta)  # [ncb, P]
         live = (bnl[b] > 0) & (gp2.abs().amax(dim=-1) > 0)
         x0, y0 = tile_origin(ct, meta.n_tx, meta.th, meta.tw)
         cam_b = cam[b].expand(ncb, 16)
@@ -148,9 +129,6 @@ def loss_bwd_compact_plain(cam, rec, bnl, bct, bcp, ref_tiles, acc, gb, meta: Me
 # ---------------------------------------------------------------------------
 # CUDA kernels (csrc/pose_raster_compact.cu), bound with ctypes
 # ---------------------------------------------------------------------------
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
 
 def _lib():
     lib = _build.load("pose_raster_compact")
@@ -167,42 +145,19 @@ def _lib():
     return lib
 
 
-def _check(name, t, dtype, shape, dev):
-    if t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: expected contiguous {dtype} {tuple(shape)} on {dev}, got "
-            f"{t.dtype} {tuple(t.shape)} on {t.device} "
-            f"(contiguous={t.is_contiguous()})"
-        )
-
-
-def _launch_dims(meta: Meta):
-    P = meta.th * meta.tw
-    if not 0 < P <= 1024:
-        raise ValueError(f"tile of {P} pixels: the kernels take one thread per "
-                         "pixel, at most 1024")
-    return P
-
-
-def _raise_on(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} failed to launch: CUDA error {err}")
-
-
 def loss_fwd_compact_cuda(cam, rec, nlive, ctmap, ncu, ref_tiles, meta: Meta):
     """CUDA forward (one block per visited tile, one thread per pixel):
     -> (loss_tiles [B, T], acc [B, T, th, tw])."""
     dev = cam.device
     B, nc = nlive.shape
     T = ref_tiles.shape[1]
-    _launch_dims(meta)
-    _check("cam", cam, torch.float32, (B, 16), dev)
-    _check("rec", rec, torch.float32, (B, POSE_RECORD, nc * CHUNK), dev)
+    check_tile(meta)
+    check_tensor("cam", cam, torch.float32, (B, 16), dev)
+    check_tensor("rec", rec, torch.float32, (B, POSE_RECORD, nc * CHUNK), dev)
     for n, t in (("nlive", nlive), ("ctmap", ctmap)):
-        _check(n, t, torch.int32, (B, nc), dev)
-    _check("ncu", ncu, torch.int32, (B,), dev)
-    _check("ref_tiles", ref_tiles, torch.float32, (B, T, meta.th, meta.tw), dev)
+        check_tensor(n, t, torch.int32, (B, nc), dev)
+    check_tensor("ncu", ncu, torch.int32, (B,), dev)
+    check_tensor("ref_tiles", ref_tiles, torch.float32, (B, T, meta.th, meta.tw), dev)
     acc = torch.zeros((B, T, meta.th, meta.tw), dtype=torch.float32, device=dev)
     loss_tiles = torch.zeros((B, T), dtype=torch.float32, device=dev)
     err = _lib().easyhec_loss_fwd_compact(
@@ -213,7 +168,7 @@ def loss_fwd_compact_cuda(cam, rec, nlive, ctmap, ncu, ref_tiles, meta: Meta):
         meta.sharpness, meta.near, meta.far,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(err, "loss_fwd_compact kernel")
+    raise_on(err, "loss_fwd_compact kernel")
     loss_fwd_compact_cuda.launches += 1
     return loss_tiles, acc
 
@@ -225,14 +180,14 @@ def loss_bwd_compact_cuda(cam, rec, bnl, bct, bcp, ref_tiles, acc, gb, meta: Met
     B, ncb = bnl.shape
     nc = rec.shape[-1] // CHUNK
     T = ref_tiles.shape[1]
-    _launch_dims(meta)
-    _check("cam", cam, torch.float32, (B, 16), dev)
-    _check("rec", rec, torch.float32, (B, POSE_RECORD, nc * CHUNK), dev)
+    check_tile(meta)
+    check_tensor("cam", cam, torch.float32, (B, 16), dev)
+    check_tensor("rec", rec, torch.float32, (B, POSE_RECORD, nc * CHUNK), dev)
     for n, t in (("bwd_nlive", bnl), ("bwd_ctmap", bct), ("bwd_cpos", bcp)):
-        _check(n, t, torch.int32, (B, ncb), dev)
-    _check("ref_tiles", ref_tiles, torch.float32, (B, T, meta.th, meta.tw), dev)
-    _check("acc", acc, torch.float32, (B, T, meta.th, meta.tw), dev)
-    _check("gb", gb, torch.float32, (B,), dev)
+        check_tensor(n, t, torch.int32, (B, ncb), dev)
+    check_tensor("ref_tiles", ref_tiles, torch.float32, (B, T, meta.th, meta.tw), dev)
+    check_tensor("acc", acc, torch.float32, (B, T, meta.th, meta.tw), dev)
+    check_tensor("gb", gb, torch.float32, (B,), dev)
     parts = torch.empty((B, ncb, POSE_RECORD), dtype=torch.float32, device=dev)
     err = _lib().easyhec_loss_bwd_compact(
         bnl.data_ptr(), bct.data_ptr(), bcp.data_ptr(), cam.data_ptr(),
@@ -242,7 +197,7 @@ def loss_bwd_compact_cuda(cam, rec, bnl, bct, bcp, ref_tiles, acc, gb, meta: Met
         meta.sharpness, meta.near, meta.far, int(meta.band_only),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(err, "loss_bwd_compact kernel")
+    raise_on(err, "loss_bwd_compact kernel")
     loss_bwd_compact_cuda.launches += 1
     return parts
 
@@ -251,20 +206,12 @@ loss_fwd_compact_cuda.launches = 0
 loss_bwd_compact_cuda.launches = 0
 
 
-def _fwd(cam, rec, nlive, ctmap, ncu, ref_tiles, meta):
-    if cam.device.type == "cuda":
-        return loss_fwd_compact_cuda(cam, rec, nlive, ctmap, ncu, ref_tiles, meta)
-    if cam.device.type == "cpu":
-        return loss_fwd_compact_plain(cam, rec, nlive, ctmap, ncu, ref_tiles, meta)
-    raise ValueError(f"no compact loss kernel for device {cam.device}")
+def _fwd(*args):
+    return dispatch(loss_fwd_compact_cuda, loss_fwd_compact_plain, *args)
 
 
-def _bwd(cam, rec, bnl, bct, bcp, ref_tiles, acc, gb, meta):
-    if cam.device.type == "cuda":
-        return loss_bwd_compact_cuda(cam, rec, bnl, bct, bcp, ref_tiles, acc, gb, meta)
-    if cam.device.type == "cpu":
-        return loss_bwd_compact_plain(cam, rec, bnl, bct, bcp, ref_tiles, acc, gb, meta)
-    raise ValueError(f"no compact loss kernel for device {cam.device}")
+def _bwd(*args):
+    return dispatch(loss_bwd_compact_cuda, loss_bwd_compact_plain, *args)
 
 
 class _PoseTileLossCompact(torch.autograd.Function):
@@ -282,14 +229,7 @@ class _PoseTileLossCompact(torch.autograd.Function):
         cam, rec, bnl, bct, bcp, ref_tiles, acc = ctx.saved_tensors
         parts = _bwd(cam, rec, bnl, bct, bcp, ref_tiles, acc,
                      gb.to(torch.float32).contiguous(), ctx.meta)
-        dcam = parts.sum(dim=1)  # [B, 12]
-        # intrinsics columns (fx fy cx cy) are constants of the optimization
-        dcam = torch.cat([dcam, torch.zeros_like(dcam[:, :4])], dim=-1)
-        return (dcam,) + (None,) * 9
-
-
-def _i32(t):
-    return t.to(torch.int32).contiguous()
+        return (_dcam(parts),) + (None,) * 9
 
 
 def pose_tile_loss_compact(
@@ -314,9 +254,9 @@ def pose_tile_loss_compact(
     meta = Meta(int(tile_h), int(tile_w), int(n_tx), int(H), int(W),
                 float(sharpness), float(near), float(far), bool(band_only))
     return _PoseTileLossCompact.apply(
-        cam.to(torch.float32).contiguous(), rec.contiguous(), _i32(nlive),
-        _i32(ctmap), _i32(ncu), _i32(bwd_nlive), _i32(bwd_ctmap),
-        _i32(bwd_cpos), ref_tiles.to(torch.float32).contiguous(), meta,
+        cam.to(torch.float32).contiguous(), rec.contiguous(), i32(nlive),
+        i32(ctmap), i32(ncu), i32(bwd_nlive), i32(bwd_ctmap),
+        i32(bwd_cpos), ref_tiles.to(torch.float32).contiguous(), meta,
     )
 
 
@@ -333,5 +273,5 @@ def compact_tile_acc(
     zeros = torch.zeros((B, n_tiles, tile_h, tile_w), dtype=torch.float32,
                         device=rec.device)
     _, acc = _fwd(cam.detach().to(torch.float32).contiguous(), rec.contiguous(),
-                  _i32(nlive), _i32(ctmap), _i32(ncu), zeros, meta)
+                  i32(nlive), i32(ctmap), i32(ncu), zeros, meta)
     return acc

@@ -1,17 +1,17 @@
-"""Fused-pose loss path: static per-rebin records, one kernel pair per step.
+"""Fused-pose path: static per-rebin records, one kernel pair per step.
 
-Torch counterpart of the compact route of easyhec_tpu/render/fused.py:
+Torch counterpart of easyhec_tpu/render/fused.py:
 
 - At REBIN time: project the triangles under the current pose, bin their
-  margin-dilated bboxes (binning.bin_count), and pack chunk-aligned records
-  of BASE-frame corner positions Xb = T_base_from_link(qpos) @ X_rest
-  (CompactState). Records and bins are constants of the rebin window.
+  margin-dilated bboxes (binning.bin_count), and pack records of BASE-frame
+  corner positions Xb = T_base_from_link(qpos) @ X_rest — dense, ``cap``
+  slots per tile (FusedState), or chunk-aligned and compact
+  (CompactState, ``compact_chunks > 0``). Records and bins are constants
+  of the rebin window.
 - At STEP time: one forward and one backward kernel whose only
   differentiable input is the 16-scalar camera row per frame
-  [Tc[:3,:4] | fx fy cx cy] (ops/pose_raster_compact.py).
-
-The dense route (``compact_chunks == 0``, FusedState, the K1 kernels) is
-not ported yet and raises NotImplementedError (ROADMAP.md).
+  [Tc[:3,:4] | fx fy cx cy]: ops/pose_raster.py (dense: the loss K1 and the
+  silhouette K4) or ops/pose_raster_compact.py (compact loss K2).
 """
 from __future__ import annotations
 
@@ -22,27 +22,23 @@ import torch
 import torch.nn.functional as F
 
 from ..geometry import camera
-from ..ops.pose_raster import CHUNK, tile_image
+from ..ops.pose_raster import CHUNK, pose_tile_loss, pose_tile_silhouette, tile_image
 from ..ops.pose_raster_compact import compact_tile_acc, pose_tile_loss_compact
 from .binning import BinState, bin_count
 from .projection import setup_triangles_corners
 from .tiled import _cdiv, _untile
 
 __all__ = [
+    "FusedState",
     "CompactState",
+    "build_fused_state",
     "build_compact_state",
+    "silhouette_fused",
     "silhouette_compact",
     "loss_fused",
     "cam_rows",
     "tile_image",
 ]
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to easyhec_torch yet (ROADMAP.md, kernel queue "
-        "K1); use a TileConfig with fused=True and compact_chunks > 0"
-    )
 
 
 def cam_rows(Tc_c2b: torch.Tensor, K: torch.Tensor, batch: int) -> torch.Tensor:
@@ -74,6 +70,21 @@ def _base_corner_fields(corners_rest, face_link_onehot, link_poses):
             )
         rows.append(None)
     return rows
+
+
+class FusedState(NamedTuple):
+    """Per-rebin state of the dense fused route.
+
+    rec:      [B, POSE_RECORD, n_tiles*cap] f32 field-major base-frame corner
+              records (x,y,z,w per corner; all-zero = empty slot)
+    counts:   [B, n_tiles] int32
+    overflow: [B] bool — a bin of the frame exceeded cap or a bbox exceeded
+              the rect enumeration window at rebin time
+    """
+
+    rec: torch.Tensor
+    counts: torch.Tensor
+    overflow: torch.Tensor
 
 
 class CompactState(NamedTuple):
@@ -143,6 +154,19 @@ def _fused_bins_and_fields(renderer, Tc_c2b, link_poses, K):
     fields = torch.stack([vrow if r is None else r for r in rows], dim=1)
     fpad = torch.cat([fields, fields.new_zeros((B, 12, 1))], dim=-1)
     return state, fpad, lp
+
+
+@torch.no_grad()
+def build_fused_state(renderer, Tc_c2b, link_poses, K) -> FusedState:
+    """Bin + pack dense base-frame corner records under the current pose.
+
+    link_poses: [..., L, 4, 4]; leading batch axes are flattened."""
+    state, fpad, _ = _fused_bins_and_fields(renderer, Tc_c2b, link_poses, K)
+    idx = state.idx.reshape(state.idx.shape[0], -1).long()  # [B, n_tiles*cap]
+    # One frame at a time: an index expanded over the 12 fields would be a
+    # [B, 12, n_tiles*cap] int64 temporary (1 GB at the bench shapes).
+    rec = torch.stack([fpad[b].index_select(1, idx[b]) for b in range(idx.shape[0])])
+    return FusedState(rec=rec, counts=state.counts, overflow=state.overflow)
 
 
 @torch.no_grad()
@@ -275,6 +299,38 @@ def _boundary_prefix_map(renderer, cam, rec, nlive, ctmap, ncu, counts, cpt,
     return (nlive_b.to(i32), tob.to(i32), cpos_b.to(i32)), torch.any(ncu_b > ncb)
 
 
+def silhouette_fused(
+    renderer,
+    Tc_c2b: torch.Tensor,
+    link_poses: torch.Tensor,
+    K: torch.Tensor,
+    sharpness: float = 1.0,
+    state: FusedState | None = None,
+) -> torch.Tensor:
+    """Soft silhouette [..., H, W] through the dense silhouette kernels (K4).
+
+    Tc_c2b [4, 4] (or [B, 4, 4] matching the flattened frame batch);
+    link_poses [..., L, 4, 4]. Differentiable in Tc_c2b only (link poses
+    enter through the per-rebin records, exact for fixed qpos)."""
+    cfg = renderer.tile
+    H, W = renderer.H, renderer.W
+    batch = link_poses.shape[:-3]
+    B = math.prod(batch)
+    if isinstance(state, CompactState):
+        raise TypeError(
+            "CompactState drives the loss path only (loss_fused); for a "
+            "silhouette image pass state=None (builds a dense FusedState)"
+        )
+    if state is None:
+        state = build_fused_state(renderer, Tc_c2b, link_poses, K)
+    tiles = pose_tile_silhouette(
+        cam_rows(Tc_c2b, K, B), state.rec, state.counts, cfg.tile_h, cfg.tile_w,
+        _cdiv(W, cfg.tile_w), sharpness, camera.NEAR_DEFAULT, camera.FAR_DEFAULT,
+        band_only=cfg.bwd_band_only,
+    )
+    return _untile(tiles, H, W, cfg).reshape(batch + (H, W))
+
+
 @torch.no_grad()
 def silhouette_compact(
     renderer,
@@ -305,11 +361,13 @@ def loss_fused(
     K: torch.Tensor,
     masks_ref: torch.Tensor | None = None,
     sharpness: float = 1.0,
-    state: CompactState | None = None,
+    state: FusedState | CompactState | None = None,
     ref_tiles: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Per-frame mask loss Σ_pixels (silhouette − ref)² through the compact
-    loss kernels; differentiable in Tc_c2b only.
+    """Per-frame mask loss Σ_pixels (silhouette − ref)² through the fused
+    loss kernels (dense K1 for a FusedState, compact K2 for a CompactState;
+    state=None builds the one the tile config selects); differentiable in
+    Tc_c2b only.
 
     Pass either masks_ref [..., H, W] or pre-tiled ref_tiles
     [..., n_tiles, th, tw] (tile_image; hoist the tiling out of optimizer
@@ -318,16 +376,13 @@ def loss_fused(
     cfg = renderer.tile
     H, W = renderer.H, renderer.W
     batch = link_poses.shape[:-3]
-    B = 1
-    for s in batch:
-        B *= s
+    B = math.prod(batch)
     if state is None:
-        if cfg.compact_chunks <= 0:
-            raise _not_ported("the dense fused route (compact_chunks == 0)")
-        state = build_compact_state(renderer, Tc_c2b, link_poses, K,
-                                    sharpness=sharpness)
-    elif not isinstance(state, CompactState):
-        raise _not_ported(f"loss_fused with a {type(state).__name__}")
+        if cfg.compact_chunks > 0:
+            state = build_compact_state(renderer, Tc_c2b, link_poses, K,
+                                        sharpness=sharpness)
+        else:
+            state = build_fused_state(renderer, Tc_c2b, link_poses, K)
     cam = cam_rows(Tc_c2b, K, B)
     if ref_tiles is None:
         if masks_ref is None:
@@ -335,6 +390,13 @@ def loss_fused(
         ref_tiles = tile_image(masks_ref.reshape((-1, H, W)), cfg.tile_h, cfg.tile_w)
     else:
         ref_tiles = ref_tiles.reshape((B,) + ref_tiles.shape[-3:])
+    if isinstance(state, FusedState):
+        # K1f sums Σ(0 − ref)² over unvisited tiles itself: no separate term.
+        return pose_tile_loss(
+            cam, state.rec, state.counts, ref_tiles, cfg.tile_h, cfg.tile_w,
+            _cdiv(W, cfg.tile_w), H, W, sharpness, camera.NEAR_DEFAULT,
+            camera.FAR_DEFAULT, band_only=cfg.bwd_band_only,
+        ).reshape(batch)
     loss_b = pose_tile_loss_compact(
         cam, state.rec, state.nlive, state.ctmap, state.ncu,
         state.bwd_nlive, state.bwd_ctmap, state.bwd_cpos, ref_tiles,

@@ -1,10 +1,12 @@
 """High-level robot renderer: static mesh arrays and the bin-state entry.
 
 Torch counterpart of easyhec_tpu/render/renderer.py::RobotRenderer. All
-links of all frames render in one batched call. This slice of the port
-carries the compact fused calibration route: the static arrays,
-``camera_link_poses``, ``link_aabb_corners`` and ``bin_state``.
-``silhouette``, ``depth`` and ``link_silhouettes`` are not ported yet.
+links of all frames render in one batched call. The port carries the fused
+route (``tile.fused``): the static arrays, ``camera_link_poses``,
+``link_aabb_corners``, ``bin_state`` (dense or compact) and ``silhouette``
+(the dense silhouette kernels, K4). ``depth``, ``link_silhouettes`` and the
+unfused silhouette need the tiled rasterizer (K5) and raise until it is
+ported.
 """
 from __future__ import annotations
 
@@ -85,27 +87,45 @@ class RobotRenderer:
         link_poses [..., L, 4, 4] base-from-link -> [..., L, 4, 4]."""
         return torch.einsum("...ij,...ljk->...lik", Tc_c2b, link_poses)
 
+    def _require_fused(self, what: str):
+        if not self.tile.fused:
+            raise NotImplementedError(
+                f"RobotRenderer.{what} with tile.fused=False needs the tiled "
+                "rasterizer (K5), not ported to easyhec_torch yet (ROADMAP.md)"
+            )
+
     def bin_state(self, Tc_c2b, link_poses, K, sharpness: float = 1.0):
         """Rebin state for the current pose (leaves carry the flattened frame
         batch); reuse it while the pose stays within tile.margin px of where
-        it was built. Compact fused route only."""
-        if not (self.tile.fused and self.tile.compact_chunks > 0):
-            raise NotImplementedError(
-                "only the compact fused route (fused=True, compact_chunks > 0) "
-                "is ported to easyhec_torch (ROADMAP.md)"
-            )
-        from .fused import build_compact_state
+        it was built: a CompactState when tile.compact_chunks > 0, else a
+        FusedState. sharpness must match the loss kernel's when
+        tile.bwd_chunks > 0 (it sizes the boundary-prefix band dilation)."""
+        self._require_fused("bin_state")
+        from .fused import build_compact_state, build_fused_state
 
-        return build_compact_state(self, Tc_c2b, link_poses, K, sharpness=sharpness)
+        if self.tile.compact_chunks > 0:
+            return build_compact_state(self, Tc_c2b, link_poses, K, sharpness=sharpness)
+        return build_fused_state(self, Tc_c2b, link_poses, K)
+
+    def silhouette(self, Tc_c2b, link_poses, K, sharpness: float = 1.0,
+                   bin_state=None):
+        """Soft silhouette of the whole arm (union of links) in [0, 1]:
+        Tc_c2b [..., 4, 4], link_poses [..., L, 4, 4], K [3, 3] -> [..., H, W].
+        Differentiable in Tc_c2b. bin_state: an optional FusedState (from
+        self.bin_state); a CompactState drives the loss only, so it is
+        dropped and the bins are rebuilt densely."""
+        self._require_fused("silhouette")
+        from .fused import CompactState, silhouette_fused
+
+        if isinstance(bin_state, CompactState):
+            bin_state = None
+        return silhouette_fused(self, Tc_c2b, link_poses, K, sharpness, state=bin_state)
 
     def _later(self, name):
         raise NotImplementedError(
             f"RobotRenderer.{name} is not ported to easyhec_torch yet "
-            "(ROADMAP.md queue item 7; it needs the K4/K5 kernels)"
+            "(ROADMAP.md queue item 7; it needs the tiled rasterizer, K5)"
         )
-
-    def silhouette(self, *args, **kwargs):
-        self._later("silhouette")
 
     def depth(self, *args, **kwargs):
         self._later("depth")

@@ -83,6 +83,31 @@ class KinematicChain:
             poses.append(T)
         return torch.stack(poses, dim=-3)
 
+    def fk_np(self, qpos: np.ndarray) -> np.ndarray:
+        """Host-side numpy FK of one configuration [n_dof] -> [n_links, 4, 4]
+        (float64 composition, float32 result), for data loading off-device."""
+        qpos = np.asarray(qpos, dtype=np.float64)
+        poses = np.zeros((self.n_links, 4, 4), dtype=np.float64)
+        for i, spec in enumerate(self._specs):
+            parent_T = np.eye(4) if spec.parent_index < 0 else poses[spec.parent_index]
+            T = parent_T @ spec.origin.astype(np.float64)
+            if spec.joint_type != FIXED:
+                q = qpos[spec.qpos_index] * spec.mimic_multiplier + spec.mimic_offset
+                if spec.joint_type == REVOLUTE:
+                    w = spec.axis.astype(np.float64) * q
+                    th = np.linalg.norm(w)
+                    Kx = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+                    J = np.eye(4)
+                    if th > 1e-12:
+                        Kx = Kx / th
+                        J[:3, :3] = np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * (Kx @ Kx)
+                    T = T @ J
+                else:
+                    T = T.copy()
+                    T[:3, 3] += T[:3, :3] @ (spec.axis.astype(np.float64) * q)
+            poses[i] = T
+        return poses.astype(np.float32)
+
 
 def build_chain(model: RobotModel, root: str | None = None) -> KinematicChain:
     """Build a KinematicChain from a parsed RobotModel.

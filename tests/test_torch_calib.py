@@ -181,3 +181,59 @@ def test_overflow_raise_warn_ignore(rig):
         tc.calibrate(*args, num_steps=2, rebin_every=0)
     assert tc.calibrate(*args, num_steps=2, rebin_every=0, on_overflow="warn").overflow
     assert not tc.calibrate(*args, num_steps=2, rebin_every=0, on_overflow="ignore").overflow
+
+
+# ---------------------------------------------------------------------------
+# The dense fused route (compact_chunks == 0, the default RenderConfig's):
+# K1 loss kernels in calibrate, K4 silhouette kernels in render_outputs.
+# ---------------------------------------------------------------------------
+
+DENSE = dict(CFG, compact_chunks=0)
+
+
+@pytest.fixture(scope="module")
+def dense_rig(rig):
+    _, tr, lp, gt, target = rig
+    jr = JR(tr.meshes, H, W, tile=JTC(**DENSE))
+    trd = TR(tr.meshes, H, W, tile=TTC(**DENSE), device="cpu")
+    return jr, trd, lp, gt, target
+
+
+def test_calibrate_30_steps_adaptive_dense(dense_rig):
+    jr, tr, lp, gt, target = dense_rig
+    init = gt + OFFSET
+    jres = jc.calibrate(init, jr, lp, K, target, num_steps=30, rebin_every=0)
+    tres = tc.calibrate(init, tr, lp, K, target, num_steps=30, rebin_every=0)
+    assert tres.rebins == jres.rebins and not tres.overflow
+    np.testing.assert_allclose(tres.losses, jres.losses, rtol=1e-3)
+    np.testing.assert_allclose(tres.history, jres.history, atol=1e-4)
+    np.testing.assert_allclose(tres.dof, jres.dof, atol=1e-4)
+    assert tres.losses[-1] < tres.losses[0]
+
+
+def test_render_outputs_match(dense_rig):
+    jr, tr, lp, gt, target = dense_rig
+    dof = gt + OFFSET
+    oj = jc.render_outputs(dof, jr, lp, K, target)
+    ot = tc.render_outputs(dof, tr, lp, K, target)
+    assert oj.keys() == ot.keys()
+    for k in oj:
+        np.testing.assert_allclose(ot[k], oj[k], atol=1e-5, err_msg=k)
+    assert ot["rendered_masks"].max() == 1.0
+
+
+def test_calibrate_multires_two_scales(dense_rig):
+    jr, tr, lp, gt, target = dense_rig
+    rj = {1: jr, 2: JR(tr.meshes, H // 2, W // 2, tile=JTC(**DENSE))}
+    rt = {1: tr, 2: TR(tr.meshes, H // 2, W // 2, tile=TTC(**DENSE), device="cpu")}
+    np.testing.assert_array_equal(tc.downscale_mask(target, 2), jc.downscale_mask(target, 2))
+    np.testing.assert_array_equal(tc.downscale_K(K, 2), jc.downscale_K(K, 2))
+    steps = {2: 8, 1: 6}
+    Tgt = np.asarray(jse3.exp(jnp.asarray(gt)))
+    jres = jc.calibrate_multires(gt + OFFSET, rj, lp, K, target, steps, Tc_c2b_gt=Tgt)
+    tres = tc.calibrate_multires(gt + OFFSET, rt, lp, K, target, steps, Tc_c2b_gt=Tgt)
+    assert tres.losses.shape == (14,)
+    np.testing.assert_allclose(tres.losses, jres.losses, rtol=1e-3)
+    np.testing.assert_allclose(tres.dof, jres.dof, atol=1e-4)
+    np.testing.assert_allclose(tres.Tc_c2b, jres.Tc_c2b, atol=1e-5)
+    assert tres.metrics.keys() == jres.metrics.keys()

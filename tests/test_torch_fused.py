@@ -198,3 +198,95 @@ def test_loss_fused_offscreen_frame(scene):
     assert vt == vj == float(target[0].sum())
     np.testing.assert_array_equal(gt, 0.0)
     np.testing.assert_array_equal(gj, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# The dense route (compact_chunks == 0): FusedState, K1 loss, K4 silhouette.
+# At an uneven 40×56 image the last tile row and column are cropped, so the
+# loss crop and the pad pixels of the silhouette's untiling both bite.
+# ---------------------------------------------------------------------------
+
+HU, WU = 40, 56
+KU = np.array([[60.0, 0, 28], [0, 60.0, 20], [0, 0, 1]], np.float32)
+XIU = np.array([0.02, -0.03, 1.0, 0.05, -0.08, 0.03], np.float32)
+DENSE = dict(tile_h=16, tile_w=32, capacity=96, binner="count", fused=True, margin=2.0)
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["all_px", "band_only"])
+def dense_scene(request):
+    cfg = dict(DENSE, bwd_band_only=request.param)
+    meshes = [make_box((0.15, 0.15, 0.3)), make_cylinder(0.05, 0.4, sections=12)]
+    jr = JR(meshes, HU, WU, tile=JTC(**cfg))
+    tr = TR(meshes, HU, WU, tile=TTC(**cfg), device="cpu")
+    lp = _link_poses()
+    args = (jse3.exp(jnp.asarray(XIU)), jnp.asarray(lp), jnp.asarray(KU))
+    js = jf.build_fused_state(jr, *args)
+    ts = tr.bin_state(tse3.exp(torch.from_numpy(XIU)), torch.from_numpy(lp),
+                      torch.from_numpy(KU))
+    return jr, tr, lp, js, ts
+
+
+def test_build_fused_state_exact(dense_scene):
+    js, ts = dense_scene[3:]
+    assert isinstance(ts, tf.FusedState) and js._fields == ts._fields
+    assert not bool(np.any(np.asarray(js.overflow)))
+    for name in js._fields:
+        np.testing.assert_array_equal(
+            np.asarray(getattr(js, name)), getattr(ts, name).numpy(), err_msg=name)
+    # cap 32 overflows this scene's bins, flagged per frame in both
+    meshes, lp = dense_scene[1].meshes, dense_scene[2]
+    cfg = dict(DENSE, capacity=32)
+    jo = jf.build_fused_state(JR(meshes, HU, WU, tile=JTC(**cfg)), jse3.exp(jnp.asarray(XIU)),
+                              jnp.asarray(lp), jnp.asarray(KU))
+    to = tf.build_fused_state(TR(meshes, HU, WU, tile=TTC(**cfg), device="cpu"),
+                              tse3.exp(torch.from_numpy(XIU)), torch.from_numpy(lp),
+                              torch.from_numpy(KU))
+    assert np.asarray(jo.overflow).any()
+    np.testing.assert_array_equal(np.asarray(jo.overflow), to.overflow.numpy())
+
+
+def test_silhouette_fused_and_vjp_match(dense_scene):
+    jr, tr, lp, js, ts = dense_scene
+    xi = XIU + 0.01
+    g = np.random.default_rng(4).normal(size=(3, HU, WU)).astype(np.float32)
+    sj, vjp = jax.vjp(lambda d: jf.silhouette_fused(
+        jr, jse3.exp(d), jnp.asarray(lp), jnp.asarray(KU), state=js), jnp.asarray(xi))
+    (gj,) = vjp(jnp.asarray(g))
+    d = torch.from_numpy(xi).requires_grad_()
+    st = tf.silhouette_fused(tr, tse3.exp(d), torch.from_numpy(lp), torch.from_numpy(KU),
+                             state=ts)
+    assert st.shape == (3, HU, WU)
+    st.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(st.detach().numpy(), np.asarray(sj), atol=1e-5)
+    gj = np.asarray(gj)
+    assert np.abs(gj).max() > 0
+    np.testing.assert_allclose(d.grad.numpy(), gj, rtol=1e-4, atol=1e-4 * np.abs(gj).max())
+    # the renderer entry (state=None rebuilds densely) renders the same image
+    with torch.no_grad():
+        img = tr.silhouette(tse3.exp(torch.from_numpy(xi)), torch.from_numpy(lp),
+                            torch.from_numpy(KU))
+    np.testing.assert_allclose(img.numpy(), np.asarray(jr.silhouette(
+        jse3.exp(jnp.asarray(xi)), jnp.asarray(lp), jnp.asarray(KU))), atol=1e-5)
+
+
+def test_dense_loss_fused_matches(dense_scene):
+    jr, tr, lp, js, ts = dense_scene
+    target = (np.random.default_rng(5).random((3, HU, WU)) > 0.6).astype(np.float32)
+    vj, gj, vt, gt = _loss_and_grad_both(jr, tr, XIU + 0.01, lp, target, (js, ts), KU)
+    np.testing.assert_allclose(vt, vj, rtol=1e-5)
+    assert np.abs(gj).max() > 0
+    np.testing.assert_allclose(gt, gj, rtol=1e-4, atol=1e-4 * np.abs(gj).max())
+    # state=None builds the dense state itself
+    vj2, _, vt2, _ = _loss_and_grad_both(jr, tr, XIU + 0.01, lp, target, None, KU)
+    np.testing.assert_allclose(vt2, vj2, rtol=1e-5)
+
+
+def test_silhouette_fused_refuses_compact_state(scene):
+    _, tr, lp, _, ts = scene
+    with pytest.raises(TypeError, match="CompactState"):
+        tf.silhouette_fused(tr, tse3.exp(torch.from_numpy(XI)), torch.from_numpy(lp),
+                            torch.from_numpy(K), state=ts)
+    # the renderer drops a compact state and re-bins densely instead
+    img = tr.silhouette(tse3.exp(torch.from_numpy(XI)), torch.from_numpy(lp),
+                        torch.from_numpy(K), bin_state=ts)
+    assert img.shape == (3, H, W) and float(img.max()) == 1.0

@@ -1,7 +1,10 @@
 """easyhec_torch stands alone: no module of it (nor chip_smoke.py) imports
 jax, optax, easyhec_tpu or __graft_entry__, and its entry points refuse to
-fall back to the CPU when the caller did not ask for it.
+fall back to the CPU when the caller did not ask for it. The GPU machine has
+no PyYAML, OpenCV or matplotlib either: every module imports without them,
+and they are needed only to read or write files and plots.
 """
+import json
 import pkgutil
 import shutil
 import subprocess
@@ -43,6 +46,47 @@ def test_every_module_imports_without_jax():
     assert r.returncode == 0, r.stderr[-2000:]
     expected = len(list(pkgutil.walk_packages(easyhec_torch.__path__, "easyhec_torch.")))
     assert int(r.stdout.strip()) == expected >= 20
+
+
+# Modules added with the dense route and the offline trainer.
+NEW_MODULES = (
+    "easyhec_torch.cli.run",
+    "easyhec_torch.config.config",
+    "easyhec_torch.data.dataset",
+    "easyhec_torch.evaluators.evaluators",
+    "easyhec_torch.models.pose_init",
+    "easyhec_torch.registry",
+    "easyhec_torch.trainer.offline",
+    "easyhec_torch.utils.checkpoint",
+    "easyhec_torch.utils.live",
+    "easyhec_torch.utils.logging",
+)
+
+_HOST_PROBE = f"""
+import importlib, json, pkgutil, sys, tempfile
+from pathlib import Path
+for k in {BLOCKED + ("yaml", "cv2", "matplotlib")!r}:
+    sys.modules[k] = None  # any import of it now raises ImportError
+sys.path.insert(0, {str(ROOT)!r})
+import easyhec_torch
+names = [m.name for m in pkgutil.walk_packages(easyhec_torch.__path__, "easyhec_torch.")]
+for n in names:
+    importlib.import_module(n)
+from easyhec_torch.config import Config, save_config
+cfg = Config()
+out = Path(tempfile.mkdtemp()) / "config.yaml"
+save_config(cfg, out)
+assert json.loads(out.read_text())["render"]["compact_chunks"] == 0
+print(json.dumps(names))
+"""
+
+
+def test_new_modules_import_without_host_packages():
+    r = subprocess.run([sys.executable, "-c", _HOST_PROBE], capture_output=True,
+                       text=True, timeout=300, cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-2000:]
+    names = set(json.loads(r.stdout.strip().splitlines()[-1]))
+    assert set(NEW_MODULES) <= names
 
 
 def test_default_device_raises_without_cuda():
