@@ -5,36 +5,39 @@
 
 Run from the root of a checkout; it imports nothing of JAX or easyhec_tpu.
 The bench scene: 10 frames of 640x480, f = 600, the procedural arm
-(assets/mini_arm.urdf subdivided to 8 mm edges, 21,312 triangles), fused
-tiles of 16x32 with cap 1664, adaptive rebinning, Adam 3e-3 from xi + 0.01.
-It runs on two routes: compact (256 chunks, kernels K2f/K2b) and dense
+(assets/mini_arm.urdf subdivided to 8 mm edges, 21,312 triangles), tiles of
+16x32 with cap 1664, adaptive rebinning, Adam 3e-3 from xi + 0.01. It runs
+on three routes: compact (256 chunks, kernels K2f/K2b), dense
 (compact_chunks = 0, the default RenderConfig's: K1f/K1b for the loss,
-K4f/K4b for the silhouette). Phases, in order (any failure exits non-zero):
+K4f/K4b for the silhouette) and unfused (fused = False: the silhouette
+through K5f/K5b, autograd through the record pack and the triangle setup).
+Phases, in order (any failure exits non-zero):
 
 1. Build: compile every CUDA kernel of easyhec_torch/ops/csrc with nvcc
    (sm_90a), one nvcc per source started together; print the build seconds
    and the card's name and power limit.
 2. Kernels vs plain, at the full shapes on real bin states: the compact
-   loss forward (per-frame loss, min(acc, 2)) and backward (dcam); the dense
-   loss forward (per-tile loss, min(acc, 2)) and backward (dcam); the dense
-   silhouette forward (the image) and backward (dcam, also taken by
-   torch.autograd.grad through RobotRenderer.silhouette). Each kernel's
-   CUDA-event time, its plain version's, and its bound for this data.
-3. Compact main path: ``calibrate`` at the bench scene, target masks from
-   the compact forward kernel at the ground-truth pose. Asserts no
-   overflow, a falling loss, and one K2f and one K2b launch per step.
-4. Dense calibrate: the same run on the dense route (ms/step against the
-   compact route's, same call).
-5. Dense trainer: ``run_offline_calibration`` with an in-memory Config and
-   CalibBatch (target masks: RobotRenderer.silhouette, K4f, at the GT pose).
-   Asserts no overflow, a falling loss, one K1f and one K1b launch per
-   step, one K4f launch per render_outputs call, and the artifacts.
-6. Silhouette gradient path: Adam steps on Σ(RobotRenderer.silhouette −
-   mask)² through autograd (the loss of easyhec_tpu's sharded calibration):
-   one K4f and one K4b launch per step.
-7. Reference checks on small inputs, compact and dense: the same
-   calibration on the card and through the plain versions on the CPU must
-   agree.
+   loss forward and backward (K2); the dense loss (K1) and silhouette (K4)
+   forward and backward, K4b also through autograd on
+   RobotRenderer.silhouette; the unfused rasterizer K5f (image, min(acc, 2))
+   and K5b (dtri, and dTc through autograd on RobotRenderer.silhouette).
+   Each kernel's CUDA-event time, its plain version's, and its bound for
+   this data. Then K1, K2 and K4 on 32x128 tiles (four pixel sub-blocks per
+   tile) against their plain versions.
+3. Main paths: ``calibrate`` at the bench scene on the compact, dense and
+   unfused routes, 1000 steps each. Asserts no overflow, a falling loss, and
+   one loss (or K5) kernel pair launch per step.
+4. Dense trainer: ``run_offline_calibration`` with an in-memory Config and
+   CalibBatch. Asserts no overflow, a falling loss, one K1f and one K1b
+   launch per step, one K4f launch per render_outputs call, the artifacts.
+5. Silhouette gradient path: Adam steps on Σ(RobotRenderer.silhouette −
+   mask)² through autograd: one K4f and one K4b launch per step.
+6. Global search: ``global_search_init`` at its defaults on frame 0 (K5f
+   251 launches, K5b 200); then ``run_offline_calibration`` on the compact
+   route with init_method="global_search" (the overflow pre-check adds one
+   K5f).
+7. Reference checks on small inputs, compact, dense and unfused, and a
+   small global search: the card against the plain versions on the CPU.
 
 Prints the kernel table as one JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. With --profile DIR it
@@ -55,6 +58,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 H, W, B = 480, 640, 10
+DEVICE = "cuda"  # the card every phase runs on (the reference checks add the CPU)
 F_PX = 600.0
 TH, TW = 16, 32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -98,9 +102,10 @@ def _time_ms(fn, reps: int, warm: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def build_scene(device, H=H, W=W, B=B, max_edge=0.008, cap=1664, nc=256):
+def build_scene(device, H=H, W=W, B=B, max_edge=0.008, cap=1664, nc=256, fused=True,
+                th=TH, tw=TW):
     """The bench workload's scene on `device`: (renderer, lp, K, xi_gt, qs).
-    nc = 0 selects the dense route."""
+    nc = 0 selects the dense route, fused=False the unfused one (K5)."""
     import numpy as np
     import torch
 
@@ -115,9 +120,10 @@ def build_scene(device, H=H, W=W, B=B, max_edge=0.008, cap=1664, nc=256):
     meshes = load_link_meshes(model, link_names=names)
     mesh_list = [subdivide_to_max_edge(meshes[n], max_edge) for n in names]
     tile = TileConfig(
-        tile_h=TH, tile_w=TW, capacity=cap, binner="count", rect_y=5, rect_x=3,
-        margin=2.0, cull_backfaces=True, fused=True, bwd_band_only=True,
-        bin_big_k=6144, bin_subsort_rows=True, compact_chunks=nc, bwd_chunks=0,
+        tile_h=th, tile_w=tw, capacity=cap, binner="count", rect_y=5, rect_x=3,
+        margin=2.0, cull_backfaces=True, fused=fused, bwd_band_only=True,
+        bin_big_k=6144, bin_subsort_rows=True, compact_chunks=nc if fused else 0,
+        bwd_chunks=0,
     )
     renderer = RobotRenderer(mesh_list, H, W, tile=tile, device=device)
     f = F_PX * W / 640.0
@@ -464,6 +470,219 @@ def dense_kernel_phase(renderer, lp, K, xi, target):
     ]
 
 
+def _k5_records(r, lp, K, Tc, state=None):
+    """Tile-local edge records of the unfused route at pose Tc: (rec [B, T,
+    16, cap], BinState); differentiable in Tc through the record pack."""
+    from easyhec_torch.ops.tile_raster import TRI_RECORD
+    from easyhec_torch.render.binning import fields_and_bins, pack_records_counted
+    from easyhec_torch.render.tiled import _edge_fields_soa
+
+    import torch
+
+    tris = r._triangles_soa(r.camera_link_poses(Tc, lp), K)
+    if state is None:
+        fields, state = fields_and_bins(tris, r.H, r.W, r.tile)
+    else:
+        fields = torch.stack(_edge_fields_soa(tris), dim=-2)
+    cfg = r.tile
+    rec = pack_records_counted(fields, state.idx, state.q, -(-r.W // cfg.tile_w),
+                               cfg.tile_h, cfg.tile_w, TRI_RECORD)
+    return rec, state
+
+
+def _k5_work(rec, counts, gp, meta):
+    """The work that THIS data needs from K5, by the rule of _needed_work: a
+    lane-pixel pair counts when its slot is live and its band-dilated bbox
+    reaches the tile; forward chunks that the saturation early-out skips are
+    not counted; the backward visits only the live cotangent pixels of its
+    tile (gp [B, T, P] = g·1{acc <= 1}). Returns {"fwd": [pairs, chunks],
+    "bwd": [pairs, chunks], "bwd_tiles": tiles with a live pixel}."""
+    import torch
+
+    from easyhec_torch.ops.pose_raster import pix_grids
+    from easyhec_torch.ops.tile_raster import CHUNK, TRI_RECORD, _blocks, _chunk_coverage, \
+        _used_chunks
+
+    B, T, _, cap = rec.shape
+    P = meta.th * meta.tw
+    flat = rec.reshape(B * T, TRI_RECORD, cap // CHUNK, CHUNK)
+    tile, j, rem = _used_chunks(counts.reshape(-1), cap)
+    blk = flat[tile, :, j]
+    dev = rec.device
+    reach = 0.5 / meta.sharpness + 1.0
+    live = torch.arange(CHUNK, device=dev)[None, :] < rem[:, None]
+    ok = (live & (blk[:, 11] + reach > 0) & (blk[:, 9] - reach < meta.tw)
+          & (blk[:, 12] + reach > 0) & (blk[:, 10] - reach < meta.th))
+    nok = ok.sum(-1)
+    px, py = pix_grids(meta.th, meta.tw, dev)
+    delta = torch.cat([_chunk_coverage(blk[a:b], rem[a:b], px, py, meta.sharpness)[0].sum(1)
+                       for a, b in _blocks(tile.numel(), P)])
+    n = tile.numel()
+    ar = torch.arange(n, device=dev)
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = tile[1:] != tile[:-1]
+    start = torch.cummax(torch.where(first, ar, 0), 0)[0]
+    cs = torch.cumsum(delta, dim=0)
+    base = torch.where((start > 0)[:, None], cs[(start - 1).clamp(min=0)], 0.0)
+    run = ~((cs - delta - base).amin(dim=-1) >= 2.0)
+    live_px = (gp.reshape(B * T, P) != 0).sum(-1)[tile]
+    use = live_px > 0
+    return {"fwd": [int((nok * P * run).sum()), int(run.sum())],
+            "bwd": [int((nok * live_px * use).sum()), int(use.sum())],
+            "bwd_tiles": int((gp.reshape(B * T, P) != 0).any(-1).sum())}
+
+
+def unfused_kernel_phase(r, lp, K, xi, target):
+    """K5f and K5b against their plain versions at the full shapes of the
+    unfused route, on the records at the start pose; K5b also through
+    autograd on RobotRenderer.silhouette down to dTc, against the plain
+    K5b's dtri chained through the same record pack. Returns the rows."""
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.ops import tile_raster as tr
+    from easyhec_torch.ops.pose_raster import tile_image
+    from easyhec_torch.render.tiled import _untile
+
+    cfg = r.tile
+    Tc = se3.exp(xi + 0.01).detach()
+    with torch.no_grad():
+        rec, st = _k5_records(r, lp, K, Tc)
+    if bool(st.overflow.any()):
+        raise AssertionError("unfused bin overflow at the start pose")
+    rec, counts = rec.contiguous(), st.counts.contiguous()
+    T = counts.shape[1]
+    print(f"[unfused] start-pose loads: max tile count {int(counts.max())} (cap "
+          f"{cfg.capacity}), {int((counts > 0).sum())} of {B * T} tiles visited; records "
+          f"{rec.numel() * 4} bytes")
+    meta = tr.TileMeta(TH, TW, 1.0)
+    ok_, acck = tr.tile_fwd_cuda(rec, counts, meta)
+    op_, accp = tr.tile_fwd_plain(rec, counts, meta)
+    torch.cuda.synchronize()
+    img_err = (ok_ - op_).abs().max().item()
+    acc_err = (acck.clamp(max=2) - accp.clamp(max=2)).abs().max().item()
+    print(f"[kernels] K5f image: max abs err {img_err:.3e}; min(acc,2) max abs err "
+          f"{acc_err:.3e} (tol 1e-3 each, as K1f/K2f: summation order over slots, FMA "
+          "contraction of the edge functions)")
+    if not (img_err <= 1e-3 and acc_err <= 1e-3):
+        raise AssertionError("K5f disagrees with its plain version")
+
+    g_img = 2.0 * (_untile(ok_, H, W, cfg) - target) / B  # d mean Σ(sil − target)²
+    g_t = tile_image(g_img, TH, TW).contiguous()
+    bargs = (rec, counts, acck, g_t, meta)
+    dk, dp = tr.tile_bwd_cuda(*bargs), tr.tile_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    scale = dp.abs().max().item()
+    d_err = (dk - dp).abs().max().item()
+    print(f"[kernels] K5b dtri: max abs err {d_err:.3e}, max|dtri| {scale:.3e} (tol "
+          "1e-3*max|dtri|). Reason: summation order over pixels")
+    if not (scale > 0 and d_err <= 1e-3 * scale):
+        raise AssertionError("K5b disagrees with its plain version")
+    Tk = Tc.clone().requires_grad_()
+    n0 = tr.tile_bwd_cuda.launches
+    (gk,) = torch.autograd.grad(r.silhouette(Tk, lp, K, bin_state=st), Tk, g_img)
+    Tp = Tc.clone().requires_grad_()
+    (gp_,) = torch.autograd.grad(_k5_records(r, lp, K, Tp, st)[0], Tp, dp)
+    torch.cuda.synchronize()
+    if tr.tile_bwd_cuda.launches != n0 + 1:
+        raise AssertionError("autograd through RobotRenderer.silhouette did not launch K5b")
+    want = gp_[:3, :4]
+    ag_err = (gk[:3, :4] - want).abs().max().item()
+    print(f"[kernels] dTc through autograd on RobotRenderer.silhouette (K5b) vs the plain "
+          f"K5b's dtri through the same record pack: {ag_err:.3e} of max "
+          f"{want.abs().max().item():.3e} (tol 1e-3*max). Reason: summation order")
+    if not ag_err <= 1e-3 * want.abs().max().item():
+        raise AssertionError("K5b through autograd disagrees with its plain version")
+
+    P = TH * TW
+    gp = (g_t * (acck <= 1.0).float()).reshape(B, T, P)
+    w = _k5_work(rec, counts, gp, meta)
+    print(f"[kernels] unfused work at the start pose: forward {w['fwd'][0]} lane-pixel pairs "
+          f"over {w['fwd'][1]} chunks; backward {w['bwd'][0]} live pairs over {w['bwd'][1]} "
+          f"chunks in {w['bwd_tiles']} tiles")
+    chunk13 = 13 * CHUNK_BYTES // 12  # the 13 field rows of one 128-slot chunk
+    img = B * T * P * 4
+    src = "easyhec_torch/ops/csrc/tile_raster.cu"
+    return [
+        # records of the chunks run and counts in; clip(acc) and acc out
+        _row("tile_fwd", "K5f", src, "easyhec_tpu/ops/tile_raster.py:95", max(img_err, acc_err),
+             lambda: tr.tile_fwd_cuda(rec, counts, meta),
+             lambda: tr.tile_fwd_plain(rec, counts, meta),
+             w["fwd"][1] * chunk13 + B * T * 4 + 2 * img, w["fwd"][0] * OPS_FWD_PAIR),
+        # records of the live chunks, acc and g of the live tiles in; dtri out
+        _row("tile_bwd", "K5b", src, "easyhec_tpu/ops/tile_raster.py:121", d_err,
+             lambda: tr.tile_bwd_cuda(*bargs), lambda: tr.tile_bwd_plain(*bargs),
+             w["bwd"][1] * chunk13 + w["bwd_tiles"] * 2 * P * 4 + B * T * 4 + rec.numel() * 4,
+             w["bwd"][0] * OPS_BWD_PAIR),
+    ]
+
+
+def large_tile_phase():
+    """The repair: K1, K2 and K4 on 32×128 tiles (4096 pixels, four pixel
+    sub-blocks per tile) at the bench scene, against their plain versions,
+    with a cap above the measured tile loads."""
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.models.calib import tile_masks
+    from easyhec_torch.ops import pose_raster as pr
+    from easyhec_torch.ops import pose_raster_compact as prc
+    from easyhec_torch.render.fused import build_fused_state, cam_rows
+
+    th, tw = 32, 128
+    probe, lp, K, xi, _ = build_scene(DEVICE, cap=16384, nc=0, th=th, tw=tw)
+    d0 = xi + 0.01
+    loads = build_fused_state(probe, se3.exp(d0), lp, K).counts
+    cap = (int(loads.max()) // 128 + 1) * 128
+    nc = int((-(-loads.long() // 128)).sum(-1).max()) + 8
+    del probe
+    dense, _, _, _, _ = build_scene(DEVICE, cap=cap, nc=0, th=th, tw=tw)
+    comp, _, _, _, _ = build_scene(DEVICE, cap=cap, nc=nc, th=th, tw=tw)
+    with torch.no_grad():
+        target = (dense.silhouette(se3.exp(xi), lp, K) > 0.5).float()
+    print(f"[kernels 32x128] tiles of {th}x{tw} ({th * tw} pixels, "
+          f"{pr.n_sub(pr.Meta(th, tw, 1, H, W))} pixel sub-blocks); start-pose max load "
+          f"{int(loads.max())} -> cap {cap}, compact budget {nc} chunks")
+    meta = pr.Meta(th, tw, -(-W // tw), H, W, 1.0, 0.001, 10.0, True)
+    cam = cam_rows(se3.exp(d0), K, B).contiguous()
+    ref = tile_masks(target, dense).contiguous()
+    gb = torch.full((B,), 1.0 / B, device=cam.device)
+    st = dense.bin_state(se3.exp(d0), lp, K)
+    cst = comp.bin_state(se3.exp(d0), lp, K)
+    if bool(st.overflow.any()) or bool(cst.overflow):
+        raise AssertionError("bin overflow on 32x128 tiles")
+    rec, counts = pr._pad_records(st.rec, st.counts), pr.i32(st.counts)
+    times = {}
+    fa = (cam, rec, counts, ref, meta)
+    got = pr.loss_fwd_cuda(*fa)
+    _check_loss_fwd("K1f 32x128", got, pr.loss_fwd_plain(*fa))
+    ba = (cam, rec, counts, ref, got[1], gb, meta)
+    _check_dcam("K1b 32x128", pr.loss_bwd_cuda(*ba).sum(1), pr.loss_bwd_plain(*ba).sum(1))
+    sk, acc_s = pr.sil_fwd_cuda(cam, rec, counts, meta)
+    e4 = (sk - pr.sil_fwd_plain(cam, rec, counts, meta)[0]).abs().max().item()
+    print(f"[kernels] K4f 32x128 image: max abs err {e4:.3e} (tol 1e-3)")
+    if not e4 <= 1e-3:
+        raise AssertionError("K4f on 32x128 tiles disagrees with its plain version")
+    g = torch.randn(sk.shape, generator=torch.Generator(device=DEVICE).manual_seed(0),
+                    device=DEVICE)
+    ga = (cam, rec, counts, acc_s, g, meta)
+    _check_dcam("K4b 32x128", pr.sil_bwd_cuda(*ga).sum(1), pr.sil_bwd_plain(*ga).sum(1))
+    ca = (cam, cst.rec, cst.nlive, cst.ctmap, cst.ncu, ref, meta)
+    got = prc.loss_fwd_compact_cuda(*ca)
+    _check_loss_fwd("K2f 32x128", got, prc.loss_fwd_compact_plain(*ca))
+    cb = (cam, cst.rec, cst.bwd_nlive, cst.bwd_ctmap, cst.bwd_cpos, ref, got[1], gb, meta)
+    _check_dcam("K2b 32x128", prc.loss_bwd_compact_cuda(*cb).sum(1),
+                prc.loss_bwd_compact_plain(*cb).sum(1))
+    for name, fn in (("K1f", lambda: pr.loss_fwd_cuda(*fa)), ("K1b", lambda: pr.loss_bwd_cuda(*ba)),
+                     ("K4f", lambda: pr.sil_fwd_cuda(cam, rec, counts, meta)),
+                     ("K4b", lambda: pr.sil_bwd_cuda(*ga)),
+                     ("K2f", lambda: prc.loss_fwd_compact_cuda(*ca)),
+                     ("K2b", lambda: prc.loss_bwd_compact_cuda(*cb))):
+        times[name] = _time_ms(fn, 20)
+    print("[kernels 32x128] CUDA-event ms (mean of 20): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+
+
 def _reset(kernels):
     for fn in kernels.values():
         fn.launches = 0
@@ -582,6 +801,183 @@ def trainer_phase(lp, K, xi, qs, target, steps):
     return launches, wall / steps * 1e3
 
 
+def search_phase(renderer, lp, K, xi, target):
+    """global_search_init at its defaults on frame 0 (3072 candidates scored
+    at 1/8 resolution in batches of 64, moments, 200 Adam steps on the top
+    16): one K5f per batch, per moment iteration and per step, plus the
+    final IoU; one K5b per step. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.models.calib import pose_metrics
+    from easyhec_torch.models.pose_init import global_search_init
+    from easyhec_torch.ops import tile_raster as tr
+
+    kernels = {"tile_fwd": tr.tile_fwd_cuda, "tile_bwd": tr.tile_bwd_cuda}
+    torch.cuda.synchronize()
+    _reset(kernels)
+    t0 = time.perf_counter()
+    res = global_search_init(renderer, lp[0].cpu().numpy(), K.cpu().numpy(),
+                             target[0].cpu().numpy())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    gt = se3.exp(xi).cpu().numpy()
+    err = pose_metrics(se3.log(torch.from_numpy(res.Tc_c2b)).numpy(), gt)
+
+    def center(T):  # camera center in the base frame, unit
+        c = -T[:3, :3].T @ T[:3, 3]
+        return c / np.linalg.norm(c)
+
+    cos = float(center(res.Tc_c2b) @ center(gt))
+    print(f"[search] global_search_init at its defaults on frame 0: {dt:.3f} s, "
+          f"{res.scores.size} candidates, best IoU {res.score:.4f} (best sweep score "
+          f"{res.scores.max():.4f}); launches {json.dumps(launches)}; share of scoring "
+          f"tiles at cap {res.tiles_at_cap:.4f}; view direction cos to GT {cos:.4f} (the "
+          f"JAX package's own search test asks > 0.5); pose error {json.dumps(err)}")
+    if not (np.isfinite(res.Tc_c2b).all() and 0 < res.score <= 1):
+        raise AssertionError("global search gave no finite pose")
+    if launches != {"tile_fwd": 48 + 2 + 200 + 1, "tile_bwd": 200}:
+        raise AssertionError(f"K5 launches {launches} in the global search")
+    return launches
+
+
+def trainer_search_phase(lp, K, xi, qs, target, steps):
+    """run_offline_calibration on the compact route with
+    init_method="global_search": the overflow pre-check (one K5f), the
+    search (251 K5f, 200 K5b), then calibrate (K2f/K2b)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from easyhec_torch.config import Config
+    from easyhec_torch.data import CalibBatch
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.ops import pose_raster_compact as prc
+    from easyhec_torch.ops import tile_raster as tr
+    from easyhec_torch.trainer import offline
+
+    cfg = Config()
+    m, r, s = cfg.model, cfg.render, cfg.solver
+    m.urdf_path = str(ROOT / "assets" / "mini_arm.urdf")
+    m.use_links = ["base", "upper", "fore"]
+    m.H, m.W, m.subdivide_max_edge = H, W, 0.008
+    m.init_method = "global_search"
+    r.tile_h, r.tile_w, r.capacity, r.rect_y, r.rect_x = TH, TW, 1664, 5, 3
+    r.margin, r.cull_backfaces, r.bin_big_k, r.bin_subsort_rows = 2.0, True, 6144, True
+    r.compact_chunks = 256
+    s.num_epochs, s.max_lr, s.rebin_every = steps, 3e-3, 0
+    batch = CalibBatch(
+        rgb=np.zeros((B, H, W, 3), np.uint8), masks=target.cpu().numpy(),
+        qpos=qs.astype(np.float32), link_poses=lp.cpu().numpy(), K=K.cpu().numpy(),
+        Tc_c2b_gt=se3.exp(xi).cpu().numpy(),
+    )
+    kernels = {"tile_fwd": tr.tile_fwd_cuda, "tile_bwd": tr.tile_bwd_cuda,
+               "loss_fwd_compact": prc.loss_fwd_compact_cuda,
+               "loss_bwd_compact": prc.loss_bwd_compact_cuda}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.output_dir = tmp
+        torch.cuda.synchronize()
+        _reset(kernels)
+        t0 = time.perf_counter()
+        res = offline.run_offline_calibration(cfg, batch=batch, device=DEVICE)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        out = Path(tmp)
+        want = ["Tc_c2b.txt", "metrics.json", "eval.json", "config.yaml",
+                "checkpoints/final.npz", "metrics.jsonl"]
+        missing = [f for f in want if not (out / f).is_file()]
+        wall = json.loads((out / "checkpoints" / "final.json").read_text())["wall_time_s"]
+    print(f"[trainer search] run_offline_calibration, compact route, init_method="
+          f"global_search: {dt:.3f} s in all, calibrate {wall:.3f} s for {steps} steps; "
+          f"loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}; {res.rebins} rebins; launches "
+          f"{json.dumps(launches)}; pose error {json.dumps(res.metrics)}")
+    if missing:
+        raise AssertionError(f"trainer artifacts missing: {missing}")
+    if not (np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]):
+        raise AssertionError("trainer loss did not fall")
+    # K5f: the pre-check's one launch and the search's 251; K5b: the search's
+    if launches["tile_fwd"] != 1 + 251 or launches["tile_bwd"] != 200:
+        raise AssertionError(f"K5 launches {launches} in the global-search trainer run")
+    if launches["loss_bwd_compact"] < steps:
+        raise AssertionError(f"K2 launches {launches} for {steps} steps")
+    return launches
+
+
+def reference_search():
+    """A small global search on the card vs the plain CPU path (96×128, 3
+    frames, 24×32 scoring renders, 128 candidates, top 4, 20 Adam steps).
+
+    Held to the calibration reference's limits: the sweep's scores as its
+    first loss (1e-5), the top-k order where the scores are separated, and
+    the refinement's gradient at identical poses (the CPU's top-k
+    candidates and its final pose) to 2e-3 of each pose's max|g|. The final poses are printed, not
+    held: Adam at the search's lr 2e-2 steps each component by about lr
+    whatever its gradient's size (its first step is sign(g)), so a
+    component whose gradient is near zero takes a ±lr step on one device
+    and the other's step from the first step on, ~7x calibrate's lr."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.models.calib import downscale_K
+    from easyhec_torch.models.pose_init import _scoring_renderer, global_search_init
+    from easyhec_torch.render.fused import silhouette_compact
+
+    out, target, scenes = [], None, {}
+    ds, k = 4, 4
+    for dev in (DEVICE, "cpu"):
+        r, lp, K, xi, _ = build_scene(dev, H=96, W=128, B=3, max_edge=0.04, cap=512, nc=32)
+        if target is None:  # one target for both runs, rendered on the card
+            with torch.no_grad():
+                st = r.bin_state(se3.exp(xi), lp, K)
+                target = (silhouette_compact(r, se3.exp(xi), K, st) > 0.5).float().cpu().numpy()
+        scenes[dev] = (r, lp, K)
+        out.append(global_search_init(r, lp.cpu().numpy(), K.cpu().numpy(), target,
+                                      radii=(0.8, 1.3), n_dirs=16, n_roll=4, downscale=ds,
+                                      topk=k, refine_steps=20))
+    a, b = out
+    s_err = np.abs(a.scores - b.scores).max()
+    order = np.argsort(-b.scores, kind="stable")
+    gaps = -np.diff(b.scores[order[: k + 1]])
+    same = np.array_equal(np.argsort(-a.scores, kind="stable")[:k], order[:k])
+    Hs, Ws = 96 // ds, 128 // ds
+    lo = target.reshape(3, Hs, ds, Ws, ds).mean((2, 4))
+    poses = np.concatenate([b.poses[order[:k]], b.Tc_c2b[None]])
+    dofs = se3.log(torch.from_numpy(poses))
+
+    def grads(dev):  # the refinement's gradient (sum of per-pose mask losses)
+        r, lp, K = scenes[dev]
+        sr = _scoring_renderer(r, Hs, Ws)
+        Ks = torch.tensor(downscale_K(K.cpu().numpy(), ds), device=dev)
+        d = dofs.to(dev).clone().requires_grad_()
+        sil = sr.silhouette(se3.exp(d)[:, None], lp.expand((d.shape[0],) + lp.shape), Ks)
+        loss = ((sil - torch.tensor(lo, device=dev)) ** 2).sum((-2, -1)).mean(-1).sum()
+        return torch.autograd.grad(loss, d)[0].cpu().numpy()
+
+    gk, gp = grads(DEVICE), grads("cpu")
+    print(f"[reference search] refinement gradients at the CPU's top-{k} and final poses: "
+          + np.array2string(gp, precision=3))
+    gmax = np.maximum(np.abs(gp).max(axis=1, keepdims=True), 1e-30)
+    g_gap = (np.abs(gk - gp) / gmax).max()  # a pose with a zero gradient must stay zero
+    d_gap = np.abs(se3.log(torch.from_numpy(a.Tc_c2b)).numpy() - dofs[-1].numpy()).max()
+    print(f"[reference search] small global search cuda vs cpu: sweep scores max abs "
+          f"{s_err:.3e} (tol 1e-5), top-{k} order equal {same} (smallest gap among the top "
+          f"{k + 1} {gaps.min():.3e}); refinement gradient at identical poses "
+          f"{g_gap:.3e} of max|g| (tol 2e-3; smallest |g_i|/max|g| "
+          f"{(np.abs(gp) / gmax).min():.3e}); final IoU {a.score:.6f} vs {b.score:.6f}, "
+          f"final dof max abs {d_gap:.3e} (not held: Adam's sign-like steps at lr 2e-2)")
+    if not (np.isfinite(a.Tc_c2b).all() and 0 < a.score <= 1):
+        raise AssertionError("the card's global search gave no finite pose")
+    if not (s_err <= 1e-5 and g_gap <= 2e-3):
+        raise AssertionError("cuda and cpu global searches disagree")
+    if gaps.min() > 1e-5 and not same:
+        raise AssertionError("the top-k order differs where the scores are separated")
+
+
 def silhouette_path(renderer, lp, K, xi, target, steps=20):
     """Adam steps on mean Σ(RobotRenderer.silhouette − mask)² through
     autograd: the image-route loss (easyhec_tpu's sharded calibration
@@ -688,9 +1084,10 @@ def _profile(renderer, lp, K, d0, target, steps, main_rebins, out, tag, fwd_pat,
         f"ms per rebin; post-processing {time.perf_counter() - t0:.1f} s")
 
 
-def reference_check(nc):
+def reference_check(nc, fused=True):
     """A small calibration on the card vs the plain CPU path, on the compact
-    route (nc > 0 chunks) or the dense one (nc = 0)."""
+    route (nc > 0 chunks), the dense one (nc = 0) or the unfused one
+    (fused=False, K5)."""
     import numpy as np
     import torch
 
@@ -698,13 +1095,14 @@ def reference_check(nc):
     from easyhec_torch.models.calib import calibrate
     from easyhec_torch.render.fused import silhouette_compact
 
-    route = "compact" if nc else "dense"
+    route = "unfused" if not fused else ("compact" if nc else "dense")
     out, scenes, target = [], {}, None
-    for dev in ("cuda", "cpu"):
-        r, lp, K, xi, _ = build_scene(dev, H=96, W=128, B=3, max_edge=0.04, cap=512, nc=nc)
+    for dev in (DEVICE, "cpu"):
+        r, lp, K, xi, _ = build_scene(dev, H=96, W=128, B=3, max_edge=0.04, cap=512, nc=nc,
+                                      fused=fused)
         if target is None:  # one target for both runs, rendered on the card
             with torch.no_grad():
-                if nc:
+                if nc and fused:
                     st = r.bin_state(se3.exp(xi), lp, K)
                     sil = silhouette_compact(r, se3.exp(xi), K, st)
                 else:
@@ -759,7 +1157,7 @@ def _divergence(a, b, scenes) -> float:
         return g.cpu().numpy()
 
     grads = {dev: np.stack([grad(s, h) for h in b.history]) for dev, s in scenes.items()}
-    gc, gp = grads["cuda"], grads["cpu"]
+    gc, gp = grads[DEVICE], grads["cpu"]
     gmax = np.abs(gp).max(axis=1, keepdims=True)
     # Rounding sensitivity of the loss surface itself: the CPU gradient at
     # the first pose with one pose component moved by one ulp.
@@ -826,10 +1224,11 @@ def main() -> int:
     from easyhec_torch.geometry import se3
     from easyhec_torch.ops import pose_raster as pr
     from easyhec_torch.ops import pose_raster_compact as prc
+    from easyhec_torch.ops import tile_raster as tr
     from easyhec_torch.render import RobotRenderer
     from easyhec_torch.render.fused import silhouette_compact
 
-    renderer, lp, K, xi, qs = build_scene("cuda")
+    renderer, lp, K, xi, qs = build_scene(DEVICE)
     print(f"[scene] {renderer.n_faces} triangles, {B} frames of {W}x{H}")
     st_gt = renderer.bin_state(se3.exp(xi), lp, K)
     if bool(st_gt.overflow):
@@ -838,15 +1237,24 @@ def main() -> int:
     print(f"[scene] target masks: {float(target.mean()):.4f} of pixels set; GT-pose "
           f"loads max tile {int(st_gt.counts.max())}, max ncu {int(st_gt.ncu.max())}")
     dense = RobotRenderer(renderer.meshes, H, W,
-                          tile=renderer.tile._replace(compact_chunks=0), device="cuda")
+                          tile=renderer.tile._replace(compact_chunks=0), device=DEVICE)
     with torch.no_grad():  # RobotRenderer.silhouette (K4f) at the GT pose
         target_d = (dense.silhouette(se3.exp(xi), lp, K) > 0.5).float()
     print(f"[scene] dense target masks: {float(target_d.mean()):.4f} of pixels set, "
           f"{float((target_d != target).float().mean()):.2e} differ from the compact ones")
 
+    unfused = RobotRenderer(renderer.meshes, H, W, device=DEVICE,
+                            tile=renderer.tile._replace(fused=False, compact_chunks=0))
+    with torch.no_grad():  # RobotRenderer.silhouette on the unfused route (K5f)
+        target_u = (unfused.silhouette(se3.exp(xi), lp, K) > 0.5).float()
+    print(f"[scene] unfused target masks: {float(target_u.mean()):.4f} of pixels set, "
+          f"{float((target_u != target_d).float().mean()):.2e} differ from the dense ones")
+
     check_tile_acc(renderer, K, xi, st_gt)
     kernels = kernel_phase(renderer, lp, K, xi, target)
     kernels += dense_kernel_phase(dense, lp, K, xi, target_d)
+    kernels += unfused_kernel_phase(unfused, lp, K, xi, target_u)
+    large_tile_phase()
 
     compact_k = {"loss_fwd_compact": prc.loss_fwd_compact_cuda,
                  "loss_bwd_compact": prc.loss_bwd_compact_cuda}
@@ -855,24 +1263,36 @@ def main() -> int:
     _, ms_d, rebins_d = main_path(dense, lp, K, xi, target_d, args.steps,
                                   {"loss_fwd": pr.loss_fwd_cuda, "loss_bwd": pr.loss_bwd_cuda},
                                   "main dense")
-    print(f"[main] dense against compact, same call: {ms_d:.3f} against {ms_c:.3f} "
-          f"ms/step ({ms_d / ms_c:.3f}x)")
+    unf_launches, ms_u, rebins_u = main_path(unfused, lp, K, xi, target_u, args.steps,
+                                      {"tile_fwd": tr.tile_fwd_cuda,
+                                       "tile_bwd": tr.tile_bwd_cuda}, "main unfused")
+    if unf_launches != {"tile_fwd": args.steps, "tile_bwd": args.steps}:
+        raise AssertionError(f"K5 launches {unf_launches}: not one K5f and one K5b per step")
+    launches.update(unf_launches)
+    print(f"[main] dense and unfused against compact, same call: {ms_d:.3f} and {ms_u:.3f} "
+          f"against {ms_c:.3f} ms/step ({ms_d / ms_c:.3f}x, {ms_u / ms_c:.3f}x)")
     if args.profile:
         d0 = (xi + 0.01).cpu().numpy()
         _profile(renderer, lp, K, d0, target, args.steps, rebins_c, Path(args.profile),
                  "compact", "loss_fwd_compact_kernel", "loss_bwd_compact_kernel")
         _profile(dense, lp, K, d0, target_d, args.steps, rebins_d, Path(args.profile),
                  "dense", "pose_fwd_kernel<true>", "pose_bwd_kernel<true>")
+        _profile(unfused, lp, K, d0, target_u, args.steps, rebins_u, Path(args.profile),
+                 "unfused", "tile_fwd_kernel", "tile_bwd_kernel")
     trainer_launches, _ = trainer_phase(lp, K, xi, qs, target_d, args.steps)
     sil_launches = silhouette_path(dense, lp, K, xi, target_d)
     launches.update({k: trainer_launches[k] for k in ("loss_fwd", "loss_bwd", "sil_fwd")})
     launches["sil_bwd"] = sil_launches["sil_bwd"]
+    search_phase(renderer, lp, K, xi, target)
+    trainer_search_phase(lp, K, xi, qs, target, args.steps)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on its path")
     reference_check(32)
     reference_check(0)
+    reference_check(0, fused=False)
+    reference_search()
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]

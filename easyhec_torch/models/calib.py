@@ -1,10 +1,14 @@
 """Pose calibration model — mask-loss optimization of the camera pose.
 
 Torch counterpart of easyhec_tpu/models/calib.py. ``calibrate`` runs Adam
-on the 6-dof se(3) camera pose; each step is one fused loss kernel call
-(forward plus analytic backward to Tc[:3,:4]: ops/pose_raster.py on the
-dense route, ops/pose_raster_compact.py on the compact one) on bin states that are rebuilt only when the projected drift of the probe
-points exceeds the margin budget (adaptive rebinning, ``opt_scan``).
+on the 6-dof se(3) camera pose. On the fused route each step is one fused
+loss kernel call (forward plus analytic backward to Tc[:3,:4]:
+ops/pose_raster.py on the dense route, ops/pose_raster_compact.py on the
+compact one); on the unfused route (``tile.fused=False``) it renders the
+silhouette through K5 (ops/tile_raster.py) and autograd carries the
+gradient through the record pack and the triangle setup to the pose. Bin
+states are rebuilt only when the projected drift of the probe points
+exceeds the margin budget (adaptive rebinning, ``opt_scan``).
 
 Where the JAX package runs ``lax.scan`` over a chunk of steps, this runs a
 Python loop: PyTorch executes eagerly, and a rebin decision is one host
@@ -32,6 +36,7 @@ __all__ = [
     "mask_loss",
     "mask_loss_per_frame",
     "tile_masks",
+    "reuse_bins_ok",
     "pose_metrics",
     "adaptive_drift_budget",
     "drift_probe_points",
@@ -78,23 +83,27 @@ def mask_loss(
     return _robust_mean(per_frame, masks_ref, robust_delta)
 
 
+def _use_fused_loss(renderer: RobotRenderer) -> bool:
+    return renderer.tile.fused and renderer.tile.use_pallas and renderer.mode != "brute"
+
+
 def mask_loss_per_frame(
     dof, renderer: RobotRenderer, link_poses, K, masks_ref,
     sharpness: float = 1.0, bin_state=None, ref_tiles=None,
 ) -> torch.Tensor:
-    """Per-frame Σ_pixels (rendered − ref)² [..B] through the fused loss
-    kernels, dense or compact as the bin state (or the tile config) says;
-    the fused route is the only one ported."""
-    if not renderer.tile.fused:
-        raise NotImplementedError(
-            "only the fused loss route is ported to easyhec_torch (ROADMAP.md)"
-        )
-    from ..render.fused import loss_fused
+    """Per-frame Σ_pixels (rendered − ref)² [..B]: through the fused loss
+    kernels (dense or compact, as the bin state or the tile config says) on
+    the fused route, else through RobotRenderer.silhouette (K5)."""
+    if _use_fused_loss(renderer):
+        from ..render.fused import CompactState, FusedState, loss_fused
 
-    return loss_fused(
-        renderer, se3.exp(dof), link_poses, K, masks_ref, sharpness,
-        state=bin_state, ref_tiles=ref_tiles,
-    )
+        if bin_state is None or isinstance(bin_state, (FusedState, CompactState)):
+            return loss_fused(
+                renderer, se3.exp(dof), link_poses, K, masks_ref, sharpness,
+                state=bin_state, ref_tiles=ref_tiles,
+            )
+    sil = renderer.silhouette(se3.exp(dof), link_poses, K, sharpness, bin_state=bin_state)
+    return torch.sum((sil - masks_ref) ** 2, dim=(-2, -1))
 
 
 def _robust_mean(per_frame, masks_ref, robust_delta: float):
@@ -109,7 +118,9 @@ def _robust_mean(per_frame, masks_ref, robust_delta: float):
 
 def tile_masks(masks_ref, renderer: RobotRenderer):
     """Pre-tiled reference masks for the fused loss kernel (pass as
-    mask_loss(..., ref_tiles=...))."""
+    mask_loss(..., ref_tiles=...)); None off the fused route."""
+    if not _use_fused_loss(renderer):
+        return None
     cfg = renderer.tile
     m = torch.as_tensor(masks_ref, dtype=torch.float32, device=renderer.device)
     return tile_image(m.reshape((-1,) + m.shape[-2:]), cfg.tile_h, cfg.tile_w)
@@ -138,6 +149,13 @@ def pose_metrics(dof, Tc_c2b_gt: np.ndarray) -> dict[str, float]:
         "err_trans_geodesic_cm": trans_geo,
         "err_rot_geodesic_deg": float(np.degrees(np.arccos(cos))),
     }
+
+
+def reuse_bins_ok(renderer: RobotRenderer) -> bool:
+    """Whether the renderer supports amortized rebinning (the counting
+    binner, or the fused kernels, on the tiled route)."""
+    return (renderer.mode == "tiled" and renderer.tile.use_pallas
+            and (renderer.tile.binner == "count" or renderer.tile.fused))
 
 
 def adaptive_drift_budget(tile, sharpness: float) -> float:
@@ -246,18 +264,23 @@ def _calibrate_chunk(dof, opt_state, opt, link_poses, K, masks_ref, ref_tiles,
     def bin_state_of(d):
         return renderer.bin_state(se3.exp(d), link_poses, K, sharpness=sharpness)
 
-    # The compact fused route always reuses bin states, so even at
-    # rebin_every=1 every step goes through an explicit state and its
-    # overflow flag. rebin_every == 0 selects adaptive rebinning; a
-    # non-positive drift budget makes it rebin every step instead.
+    # Renderers with reusable bin states always go through an explicit state,
+    # even at rebin_every=1, so every step's overflow flag is seen.
+    # rebin_every == 0 selects adaptive rebinning; a non-positive drift
+    # budget makes it rebin every step instead. Other renderers (the top-k
+    # binner) run stateless.
     probe_fn = None
     budget = 0.0
-    if rebin_every == 0:
-        budget = max(adaptive_drift_budget(renderer.tile, sharpness), 0.0)
-        if budget > 0:
-            probe_fn = make_drift_probe_fn(drift_probe_points(renderer, link_poses), K)
-    return opt_scan(dof, opt_state, opt, loss_of, bin_state_of, chunk,
-                    max(1, rebin_every), probe_fn=probe_fn, drift_budget=budget)
+    if not reuse_bins_ok(renderer):
+        eff = 0
+    else:
+        eff = max(1, rebin_every)
+        if rebin_every == 0:
+            budget = max(adaptive_drift_budget(renderer.tile, sharpness), 0.0)
+            if budget > 0:
+                probe_fn = make_drift_probe_fn(drift_probe_points(renderer, link_poses), K)
+    return opt_scan(dof, opt_state, opt, loss_of, bin_state_of, chunk, eff,
+                    probe_fn=probe_fn, drift_budget=budget)
 
 
 def _calibrate_scan(

@@ -1,18 +1,33 @@
 """Initial-pose estimation.
 
-Counterpart of easyhec_tpu/models/pose_init.py. The port carries the
-look-at path, ``lookat_init``. ``global_search_init`` (the render-and-score
-search) waits for the tiled rasterizer: its scoring renderer runs the
-unfused route (K5), ROADMAP.md queue item 12.
+Counterpart of easyhec_tpu/models/pose_init.py:
+
+- ``lookat_init``: the manual look-at path;
+- ``global_search_init``: the render-and-score global search that replaces
+  the reference's PVNet initializer. Candidate camera poses on a view
+  sphere render at low resolution through a scoring renderer on the
+  unfused route (K5), are scored by soft IoU against the observed masks,
+  and the best ones are refined by mask moments and by Adam on the
+  low-resolution mask loss (K5 forward and backward).
+
+``ransac_pnp`` is not ported yet (it draws its samples with jax.random;
+ROADMAP.md queue item 12).
 """
 from __future__ import annotations
+
+import copy
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..geometry import camera, se3
+from ..render.tiled import TileConfig
+from ..solver.optim import make_optimizer
 
-__all__ = ["lookat_init"]
+__all__ = ["lookat_init", "global_search_init", "GlobalSearchResult"]
+
+_SCORE_BATCH = 64  # candidates per scoring render
 
 
 def lookat_init(eye, target, up=(0.0, 0.0, 1.0)) -> np.ndarray:
@@ -22,3 +37,193 @@ def lookat_init(eye, target, up=(0.0, 0.0, 1.0)) -> np.ndarray:
         return torch.as_tensor(np.asarray(x, np.float32))
 
     return se3.inverse(camera.look_at(t(eye), t(target), t(up))).numpy()
+
+
+@dataclasses.dataclass
+class GlobalSearchResult:
+    Tc_c2b: np.ndarray  # [4, 4] best pose
+    score: float  # IoU of the best candidate after refinement
+    scores: np.ndarray  # [n_candidates] IoU of every candidate
+    poses: np.ndarray  # [n_candidates, 4, 4]
+    # Share of the scoring renders' tile bins filled to the capacity
+    # (triangles beyond it are dropped, as in the JAX package).
+    tiles_at_cap: float = 0.0
+
+
+def _fibonacci_hemisphere(n: int, min_elev: float = 0.1) -> np.ndarray:
+    """Quasi-uniform directions on the upper hemisphere (z >= sin(min_elev))."""
+    i = np.arange(n, dtype=np.float64) + 0.5
+    zlo = np.sin(min_elev)
+    z = zlo + (1.0 - zlo) * (i / n)
+    phi = i * (np.pi * (3.0 - np.sqrt(5.0)))
+    r = np.sqrt(np.maximum(0.0, 1.0 - z * z))
+    return np.stack([r * np.cos(phi), r * np.sin(phi), z], -1).astype(np.float32)
+
+
+def _mask_moments(mask: torch.Tensor):
+    """(area, centroid u, centroid v) of a soft mask [..., H, W]."""
+    H, W = mask.shape[-2:]
+    area = mask.sum((-2, -1))
+    us = torch.arange(W, dtype=torch.float32, device=mask.device) + 0.5
+    vs = torch.arange(H, dtype=torch.float32, device=mask.device) + 0.5
+    a = torch.clamp(area, min=1e-6)
+    cu = (mask * us[None, :]).sum((-2, -1)) / a
+    cv = (mask * vs[:, None]).sum((-2, -1)) / a
+    return area, cu, cv
+
+
+def _candidate_poses(target: np.ndarray, radii, n_dirs: int, n_roll: int) -> torch.Tensor:
+    """[len(radii) * n_dirs * n_roll, 4, 4] camera-from-base candidates:
+    look-at poses from a Fibonacci hemisphere of eyes around ``target``,
+    each rolled about its optical axis, eye-major as the JAX package orders
+    them (computed on the CPU in f32)."""
+    dirs = _fibonacci_hemisphere(n_dirs)
+    eyes = np.concatenate([target + float(r) * dirs for r in radii])
+    rolls = np.linspace(0.0, 2 * np.pi, n_roll, endpoint=False, dtype=np.float32)
+    tgt = torch.from_numpy(target)
+    up = torch.tensor([0.0, 0.0, 1.0])
+    out = []
+    for eye in eyes:
+        T = se3.inverse(camera.look_at(torch.from_numpy(eye), tgt, up))
+        for roll in torch.from_numpy(rolls):
+            c, s = torch.cos(roll), torch.sin(roll)
+            z, o = torch.zeros(()), torch.ones(())
+            Rz = torch.stack([torch.stack([c, -s, z]), torch.stack([s, c, z]),
+                              torch.stack([z, z, o])])
+            Tr = T.clone()
+            Tr[:3, :3] = Rz @ T[:3, :3]
+            Tr[:3, 3] = Rz @ T[:3, 3]
+            out.append(Tr)
+    return torch.stack(out)
+
+
+def global_search_init(
+    renderer,
+    link_poses: np.ndarray,  # [B, L, 4, 4] FK per frame (or [L, 4, 4])
+    K: np.ndarray,
+    masks: np.ndarray,  # [B, H, W] observed masks (or [H, W])
+    radii=(0.6, 1.0, 1.5),
+    n_dirs: int = 128,
+    n_roll: int = 8,
+    target: np.ndarray | None = None,
+    downscale: int = 8,
+    moment_iters: int = 2,
+    topk: int = 16,
+    refine_steps: int = 200,
+    refine_lr: float = 2e-2,
+    max_score_frames: int = 4,
+) -> GlobalSearchResult:
+    """Render-and-score global pose search, on the renderer's device.
+
+    1. Sweep: candidates = view directions (Fibonacci hemisphere) × radii ×
+       rolls about the optical axis, looking at the arm centroid. Each
+       candidate renders at 1/downscale resolution over up to
+       max_score_frames frames, 64 candidates per render (the JAX
+       package's lax.map batch); score = mean soft IoU.
+    2. Moment refine: the topk candidates get closed-form translation
+       updates matching mask area (depth) and centroid (image offset), all
+       at once, moment_iters times.
+    3. Gradient refine: Adam (optax.adam(refine_lr): b1 0.9, b2 0.999, eps
+       1e-8) on all topk se(3) poses at once, on the gradient of the sum of
+       their multi-frame low-resolution mask losses; the best final IoU
+       wins.
+    """
+    from .calib import downscale_K
+
+    dev = renderer.device
+    link_poses = np.asarray(link_poses, np.float32)
+    masks = np.asarray(masks, np.float32)
+    if link_poses.ndim == 3:
+        link_poses = link_poses[None]
+    if masks.ndim == 2:
+        masks = masks[None]
+    Bs = min(masks.shape[0], max_score_frames)
+    lp = torch.tensor(link_poses[:Bs], device=dev)
+    H, W = masks.shape[-2:]
+    Hs, Ws = H // downscale, W // downscale
+    Ks = torch.tensor(downscale_K(np.asarray(K), downscale), device=dev)
+    m = masks[:Bs, : Hs * downscale, : Ws * downscale]
+    masks_lo = torch.tensor(m.reshape(Bs, Hs, downscale, Ws, downscale).mean((2, 4)),
+                            device=dev)
+
+    if target is None:
+        target = link_poses[:Bs, :, :3, 3].mean((0, 1))
+    target = np.asarray(target, np.float32)
+    poses = _candidate_poses(target, radii, n_dirs, n_roll).to(dev)
+    score_renderer = _scoring_renderer(renderer, Hs, Ws)
+    cap = score_renderer.tile.capacity
+
+    def iou(sil):  # [..., Bs, Hs, Ws] -> [...]
+        inter = torch.minimum(sil, masks_lo).sum((-2, -1))
+        union = torch.maximum(sil, masks_lo).sum((-2, -1))
+        return (inter / torch.clamp(union, min=1e-6)).mean(-1)
+
+    # 1. sweep
+    scores, full, tiles = [], 0, 0
+    with torch.no_grad():
+        for s in range(0, poses.shape[0], _SCORE_BATCH):
+            T = poses[s:s + _SCORE_BATCH, None]  # [n, 1, 4, 4] against [Bs] frames
+            lpb = lp.expand((T.shape[0],) + lp.shape)
+            st = score_renderer.bin_state(T, lpb, Ks)
+            full += int((st.counts >= cap).sum())
+            tiles += st.counts.numel()
+            scores.append(iou(score_renderer.silhouette(T, lpb, Ks, bin_state=st)))
+    scores = torch.cat(scores)
+    order = torch.argsort(-scores, stable=True)[:topk]
+
+    # 2. moment refine, all candidates at once (frame 0)
+    Tc = poses[order]
+    tgt = torch.from_numpy(target).to(dev)
+    fx, fy, cx, cy = Ks[0, 0], Ks[1, 1], Ks[0, 2], Ks[1, 2]
+    with torch.no_grad():
+        a_o, cu_o, cv_o = _mask_moments(masks_lo[0])
+        for _ in range(moment_iters):
+            a_r, _, _ = _mask_moments(score_renderer.silhouette(Tc, lp[0], Ks))
+            sc = torch.sqrt(torch.clamp(a_r, min=1e-6) / torch.clamp(a_o, min=1e-6))
+            c_c = Tc[:, :3, :3] @ tgt + Tc[:, :3, 3]  # [k, 3]
+            z_new = c_c[:, 2] * sc
+            x_new = (cu_o - cx) * z_new / fx
+            y_new = (cv_o - cy) * z_new / fy
+            t_new = Tc[:, :3, 3] + (torch.stack([x_new, y_new, z_new], dim=-1) - c_c)
+            Tc = Tc.clone()
+            Tc[:, :3, 3] = t_new
+
+    # 3. gradient refine: Adam on every candidate at once
+    dofs = se3.log(Tc).detach()
+    opt = make_optimizer("adam", max_lr=refine_lr, total_steps=refine_steps)
+    state = opt.init(dofs)
+    for _ in range(refine_steps):
+        d = dofs.detach().requires_grad_(True)
+        sil = score_renderer.silhouette(se3.exp(d)[:, None], lp.expand((d.shape[0],) + lp.shape),
+                                        Ks)
+        loss = ((sil - masks_lo) ** 2).sum((-2, -1)).mean(-1).sum()
+        (g,) = torch.autograd.grad(loss, d)
+        upd, state = opt.update(g, state, dofs)
+        dofs = (dofs + upd).detach()
+    with torch.no_grad():
+        ious = iou(score_renderer.silhouette(se3.exp(dofs)[:, None],
+                                             lp.expand((dofs.shape[0],) + lp.shape), Ks))
+    best = int(torch.argmax(ious))
+    return GlobalSearchResult(
+        Tc_c2b=se3.exp(dofs[best]).cpu().numpy(),
+        score=float(ious[best]),
+        scores=scores.cpu().numpy(),
+        poses=poses.cpu().numpy(),
+        tiles_at_cap=full / max(tiles, 1),
+    )
+
+
+def _scoring_renderer(renderer, Hs: int, Ws: int):
+    """Low-resolution renderer sharing the packed meshes of ``renderer``,
+    with the raw TileConfig defaults beyond tile size, capacity and
+    use_pallas, as in the JAX package: the unfused route (K5), margin 1.0,
+    no backface culling, the auto rect window and no big-span class."""
+    r = copy.copy(renderer)
+    r.H, r.W = Hs, Ws
+    r.tile = TileConfig(
+        min(renderer.tile.tile_h, Hs),
+        min(renderer.tile.tile_w, max(Ws, 8)),
+        renderer.tile.capacity,
+        renderer.tile.use_pallas,
+    )
+    return r

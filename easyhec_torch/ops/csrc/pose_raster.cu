@@ -22,21 +22,24 @@
 // 13-way reduction and the chain to dTc per triangle.
 //
 // Design:
-// - One block per (tile, frame), grid (T, B), one thread per pixel, as the
-//   Pallas grid has it. The block walks the tile's ceil(count/128) chunks
+// - One block per (tile, frame, pixel sub-block), grid (T, B, S), one
+//   thread per pixel. A sub-block holds at most 1024 pixels of its tile
+//   (S = ceil(th*tw / 1024), 1 for the shipped 16x32 and 16x64 tiles), so
+//   any tile size runs. The block walks the tile's ceil(count/128) chunks
 //   itself, keeping acc in a register per pixel: no atomics, and every
 //   output of every tile is written exactly once. Unvisited tiles (count 0)
 //   still write acc = 0, the clipped image 0 and (K1f) Σ(0 - ref)² over the
-//   crop.
+//   crop. Loss and dTc partials are written per sub-block ([B, T, S] and
+//   [B, T, S, 12]); the wrapper sums them over S in a fixed order.
 // - Per chunk, threads set up the 128 lanes (projection, validity,
 //   normalized edges, bbox) into shared memory once. A lane takes part only
 //   if it is valid and its bbox, dilated by the soft band 0.5/sharpness and
 //   one pixel of slack, reaches the tile: other lanes have exactly zero
 //   coverage on every pixel of the tile, so skipping them is exact (the
 //   Pallas kernel's row sub-block guards rest on the same fact).
-// - The saturation early-out is a block vote (__syncthreads_and(acc >= 2)),
-//   as in the compact kernel: it changes only acc values >= 2, never
-//   clip(acc), acc <= 1 or 0 < acc < 1.
+// - The saturation early-out is a block vote (__syncthreads_and(acc >= 2))
+//   over the sub-block, as in the compact kernel: it changes only acc values
+//   >= 2, never clip(acc), acc <= 1 or 0 < acc < 1.
 // - The per-tile loss is a fixed-order block reduction (deterministic).
 // - Backward: the masked cotangent of the tile (K1b: 2·gb·e·1{acc<=1}·crop;
 //   K4b: g·1{acc<=1}; both ·1{0<acc<1} under band_only) is compacted into a
@@ -45,8 +48,9 @@
 //   every 32nd live pixel, the 13 pixel sums are reduced by warp shuffle
 //   (skipped when no thread of the warp touched the triangle's band), and
 //   lane 0 chains them to the 12 dTc terms. Warps sum their triangles in
-//   order, then the warps are summed in order into parts[b, t, 0..11]; the
-//   wrapper sums over t in a fixed order. No float atomics anywhere.
+//   order, then the warps are summed in order into parts[b, t, s, 0..11];
+//   the wrapper sums over s and t in a fixed order. No float atomics
+//   anywhere.
 // Not carried over from Pallas: the 8-row sub-block guards, the full-block
 // ref stores, the (1,1) loss blocks and the MXU/factored reduction switch
 // (EASYHEC_BWD_REDUCE), all Mosaic workarounds.
@@ -64,8 +68,9 @@ __device__ __forceinline__ bool reaches_tile(const Lane& L, int th, int tw,
 }
 
 // --------------------------------------------------------------------------
-// Forward: grid (T, B), block = th*tw pixels rounded up to a warp multiple.
-// kLoss: K1f (loss_tiles and acc); else K4f (clip(acc) and acc).
+// Forward: grid (T, B, S), block = min(th*tw, 1024) pixels rounded up to a
+// warp multiple. kLoss: K1f (loss_tiles and acc); else K4f (clip(acc) and
+// acc).
 // --------------------------------------------------------------------------
 template <bool kLoss>
 __global__ void __launch_bounds__(MAX_THREADS) pose_fwd_kernel(
@@ -74,7 +79,7 @@ __global__ void __launch_bounds__(MAX_THREADS) pose_fwd_kernel(
     float* __restrict__ acc_out, float* __restrict__ sil_out,
     float* __restrict__ loss_tiles, int T, int cap, int th, int tw, int n_tx,
     int H, int W, float sharp, float near, float far) {
-  const int t = blockIdx.x, b = blockIdx.y;
+  const int t = blockIdx.x, b = blockIdx.y, sb = blockIdx.z;
   const int64_t tb = (int64_t)b * T + t;
   const int count = min(counts[tb], cap);
 
@@ -85,8 +90,9 @@ __global__ void __launch_bounds__(MAX_THREADS) pose_fwd_kernel(
 
   const int tid = threadIdx.x;
   const int P = th * tw;
-  const bool active = tid < P;
-  const int ix = tid % tw, iy = tid / tw;
+  const int pix = sb * MAX_THREADS + tid;  // pixel of the tile
+  const bool active = pix < P;
+  const int ix = pix % tw, iy = pix / tw;
   const float px = ix + 0.5f, py = iy + 0.5f;
   const float x0 = (float)((t % n_tx) * tw), y0 = (float)((t / n_tx) * th);
   const float* camb = cam + (int64_t)b * 16;
@@ -132,24 +138,25 @@ __global__ void __launch_bounds__(MAX_THREADS) pose_fwd_kernel(
 
   const float clipped = fminf(fmaxf(acc, 0.f), 1.f);
   if (active) {
-    acc_out[tb * P + tid] = acc;
-    if (!kLoss) sil_out[tb * P + tid] = clipped;
+    acc_out[tb * P + pix] = acc;
+    if (!kLoss) sil_out[tb * P + pix] = clipped;
   }
   if (kLoss) {
     float sq = 0.f;
     if (active) {
-      const float e = clipped - ref[tb * P + tid];
+      const float e = clipped - ref[tb * P + pix];
       const bool in_img = (y0 + iy < H) && (x0 + ix < W);
       sq = in_img ? e * e : 0.f;
     }
     const float tot = block_sum(sq, s_red);
-    if (tid == 0) loss_tiles[tb] = tot;
+    if (tid == 0) loss_tiles[tb * gridDim.z + sb] = tot;
   }
 }
 
 // --------------------------------------------------------------------------
-// Backward: grid (T, B), block = th*tw pixels rounded up to a warp multiple.
-// kLoss: K1b (cotangent from ref and gb); else K4b (image cotangent gimg).
+// Backward: grid (T, B, S), block = min(th*tw, 1024) pixels rounded up to a
+// warp multiple. kLoss: K1b (cotangent from ref and gb); else K4b (image
+// cotangent gimg).
 // --------------------------------------------------------------------------
 template <bool kLoss>
 __global__ void __launch_bounds__(MAX_THREADS) pose_bwd_kernel(
@@ -159,7 +166,7 @@ __global__ void __launch_bounds__(MAX_THREADS) pose_bwd_kernel(
     const float* __restrict__ gimg, float* __restrict__ parts, int T, int cap,
     int th, int tw, int n_tx, int H, int W, float sharp, float near,
     float far, int band_only) {
-  const int t = blockIdx.x, b = blockIdx.y;
+  const int t = blockIdx.x, b = blockIdx.y, sb = blockIdx.z;
   const int64_t tb = (int64_t)b * T + t;
   const int count = min(counts[tb], cap);
 
@@ -173,17 +180,19 @@ __global__ void __launch_bounds__(MAX_THREADS) pose_bwd_kernel(
   const int P = th * tw;
   const float x0 = (float)((t % n_tx) * tw), y0 = (float)((t / n_tx) * th);
 
-  // Masked cotangent (_loss_bwd_kernel's gp2 / _masked_cotangent).
+  // Masked cotangent (_loss_bwd_kernel's gp2 / _masked_cotangent) of this
+  // sub-block's pixels.
+  const int pix = sb * MAX_THREADS + tid;
   float g = 0.f;
-  if (tid < P) {
-    const float a = acc_in[tb * P + tid];
+  if (pix < P) {
+    const float a = acc_in[tb * P + pix];
     if (kLoss) {
-      const float e = fminf(fmaxf(a, 0.f), 1.f) - ref[tb * P + tid];
+      const float e = fminf(fmaxf(a, 0.f), 1.f) - ref[tb * P + pix];
       g = 2.f * gb[b] * e * (a <= 1.f ? 1.f : 0.f);
-      const bool in_img = (y0 + tid / tw < H) && (x0 + tid % tw < W);
+      const bool in_img = (y0 + pix / tw < H) && (x0 + pix % tw < W);
       g = g * (in_img ? 1.f : 0.f);
     } else {
-      g = gimg[tb * P + tid] * (a <= 1.f ? 1.f : 0.f);
+      g = gimg[tb * P + pix] * (a <= 1.f ? 1.f : 0.f);
     }
     if (band_only) g = g * ((a > 0.f && a < 1.f) ? 1.f : 0.f);
   }
@@ -200,10 +209,10 @@ __global__ void __launch_bounds__(MAX_THREADS) pose_bwd_kernel(
   if (g != 0.f) {
     const int pos = off + __popc(bal & ((1u << lane) - 1u));
     s_g[pos] = g;
-    s_pix[pos] = tid;
+    s_pix[pos] = pix;
   }
   __syncthreads();
-  float* out = parts + tb * REC;
+  float* out = parts + (tb * gridDim.z + sb) * REC;
   if (n_live == 0 || count <= 0) {  // uniform over the block
     if (tid < REC) out[tid] = 0.f;
     return;
@@ -327,15 +336,16 @@ __global__ void __launch_bounds__(MAX_THREADS) pose_bwd_kernel(
 
 int check_dims(int B, int T, int cap, int th, int tw) {
   const int P = th * tw;
-  if (P <= 0 || P > MAX_THREADS || B <= 0 || B > 65535 || T <= 0 || cap <= 0 ||
-      cap % CHUNK != 0)
+  if (P <= 0 || B <= 0 || B > 65535 || T <= 0 || cap <= 0 || cap % CHUNK != 0 ||
+      n_sub(P) > 65535)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
 }  // namespace
 
-// loss_mode 1: K1f (ref -> loss_tiles, acc); 0: K4f (sil = clip(acc), acc).
+// loss_mode 1: K1f (ref -> loss_tiles [B, T, S], acc); 0: K4f (sil = clip(acc),
+// acc). S = ceil(th*tw / 1024) pixel sub-blocks per tile.
 extern "C" int easyhec_pose_fwd(int loss_mode, const int* counts,
                                 const float* cam, const float* rec,
                                 const float* ref, float* acc, float* sil,
@@ -344,8 +354,8 @@ extern "C" int easyhec_pose_fwd(int loss_mode, const int* counts,
                                 float sharp, float near, float far,
                                 void* stream) {
   if (int err = check_dims(B, T, cap, th, tw)) return err;
-  const int threads = (th * tw + 31) / 32 * 32;
-  const dim3 grid(T, B);
+  const int threads = sub_threads(th * tw);
+  const dim3 grid(T, B, n_sub(th * tw));
   if (loss_mode)
     pose_fwd_kernel<true><<<grid, threads, 0, (cudaStream_t)stream>>>(
         counts, cam, rec, ref, acc, sil, loss_tiles, T, cap, th, tw, n_tx, H,
@@ -358,6 +368,7 @@ extern "C" int easyhec_pose_fwd(int loss_mode, const int* counts,
 }
 
 // loss_mode 1: K1b (cotangent from ref, gb); 0: K4b (image cotangent gimg).
+// -> parts [B, T, S, 12].
 extern "C" int easyhec_pose_bwd(int loss_mode, const int* counts,
                                 const float* cam, const float* rec,
                                 const float* acc, const float* ref,
@@ -367,8 +378,8 @@ extern "C" int easyhec_pose_bwd(int loss_mode, const int* counts,
                                 float near, float far, int band_only,
                                 void* stream) {
   if (int err = check_dims(B, T, cap, th, tw)) return err;
-  const int threads = (th * tw + 31) / 32 * 32;
-  const dim3 grid(T, B);
+  const int threads = sub_threads(th * tw);
+  const dim3 grid(T, B, n_sub(th * tw));
   if (loss_mode)
     pose_bwd_kernel<true><<<grid, threads, 0, (cudaStream_t)stream>>>(
         counts, cam, rec, acc, ref, gb, gimg, parts, T, cap, th, tw, n_tx, H,

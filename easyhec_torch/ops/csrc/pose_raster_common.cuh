@@ -83,6 +83,14 @@ __device__ __forceinline__ void lane_setup(const float* __restrict__ slot,
   L.valid = valid;
 }
 
+// Pixel sub-blocks of a tile: each block takes at most MAX_THREADS pixels
+// (one thread each), so a tile of P pixels runs as n_sub(P) blocks.
+inline int n_sub(int P) { return (P + MAX_THREADS - 1) / MAX_THREADS; }
+inline int sub_threads(int P) {
+  const int p = P < MAX_THREADS ? P : MAX_THREADS;
+  return (p + 31) / 32 * 32;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);

@@ -20,24 +20,27 @@
 // live (band pixels), plus a 13-way reduction per triangle.
 //
 // Design:
-// - Blocks run in no order, so ONE BLOCK OWNS ONE TILE: the forward grid is
-//   (nc, B) and only the block of a tile's first chunk proceeds; it walks the
-//   tile's consecutive chunks itself, keeping acc in a register per pixel
-//   (one thread per pixel). No atomics, no cross-block accumulation, and the
-//   acc tile is written exactly once.
+// - Blocks run in no order, so ONE BLOCK OWNS ONE TILE (or one pixel
+//   sub-block of it): the forward grid is (nc, B, S) and only the blocks of
+//   a tile's first chunk proceed; each walks the tile's consecutive chunks
+//   itself, keeping acc in a register per pixel (one thread per pixel, at
+//   most 1024 pixels per sub-block, S = ceil(th*tw / 1024)). No atomics, no
+//   cross-block accumulation, and the acc tile is written exactly once. The
+//   loss is written per sub-block, loss_tiles [B, T, S]; the wrapper sums
+//   over S in a fixed order.
 // - Per chunk, threads build the per-triangle setup (projection, validity,
 //   normalized edges, poisoned bbox) into shared memory once; every pixel
 //   thread then sweeps the chunk's live lanes from shared memory, so the
 //   inner loop is pure FP32 arithmetic on broadcast operands.
-// - The saturation early-out is a block vote (__syncthreads_and(acc >= 2)),
-//   which changes only acc values >= 2, never clip(acc).
+// - The saturation early-out is a block vote (__syncthreads_and(acc >= 2))
+//   over the sub-block, which changes only acc values >= 2, never clip(acc).
 // - The per-tile loss is a fixed-order block reduction (deterministic).
-// - Backward: one block per backward chunk, grid (ncb, B); each block writes
-//   its own parts[b, c, 0..11], so again no atomics. The cotangent tile is
-//   built once into shared memory; a block with no live pixel exits at once.
-//   Then one warp per triangle: each thread covers P/32 pixels, the 13 pixel
-//   sums are reduced by warp shuffle, and lane 0 chains them to the 12 dTc
-//   terms. Warps sum their triangles in order, then the warps are summed in
+// - Backward: one block per (backward chunk, pixel sub-block), grid
+//   (ncb, B, S); each block writes its own parts[b, c, s, 0..11], so again no
+//   atomics. The sub-block's cotangent is built once into shared memory; a
+//   block with no live pixel exits at once. Then one warp per triangle: each
+//   thread covers every 32nd pixel of the sub-block, the 13 pixel sums are
+//   reduced by warp shuffle, and lane 0 chains them to the 12 dTc terms. Warps sum their triangles in order, then the warps are summed in
 //   order: the result does not depend on scheduling.
 // Not carried over from Pallas: the full-block ref stores, the per-8-row
 // sub-block guards (exact culls; a later change may add them back), the
@@ -48,7 +51,8 @@
 namespace {
 
 // --------------------------------------------------------------------------
-// Forward: grid (nc, B), block = th*tw pixels rounded up to a warp multiple.
+// Forward: grid (nc, B, S), block = min(th*tw, 1024) pixels rounded up to a
+// warp multiple.
 // --------------------------------------------------------------------------
 __global__ void __launch_bounds__(MAX_THREADS) loss_fwd_compact_kernel(
     const int* __restrict__ nlive, const int* __restrict__ ctmap,
@@ -57,7 +61,7 @@ __global__ void __launch_bounds__(MAX_THREADS) loss_fwd_compact_kernel(
     float* __restrict__ acc_out, float* __restrict__ loss_tiles, int nc,
     int T, int th, int tw, int n_tx, int H, int W, float sharp, float near,
     float far) {
-  const int c = blockIdx.x, b = blockIdx.y;
+  const int c = blockIdx.x, b = blockIdx.y, sb = blockIdx.z;
   const int* ct = ctmap + (int64_t)b * nc;
   const int t = ct[c];
   if (c > 0 && ct[c - 1] == t) return;  // not the first chunk of its tile
@@ -68,8 +72,9 @@ __global__ void __launch_bounds__(MAX_THREADS) loss_fwd_compact_kernel(
 
   const int tid = threadIdx.x;
   const int P = th * tw;
-  const bool active = tid < P;
-  const int ix = tid % tw, iy = tid / tw;
+  const int pix = sb * MAX_THREADS + tid;  // pixel of the tile
+  const bool active = pix < P;
+  const int ix = pix % tw, iy = pix / tw;
   const float px = ix + 0.5f, py = iy + 0.5f;
   const float x0 = (float)((t % n_tx) * tw), y0 = (float)((t / n_tx) * th);
   const float* camb = cam + (int64_t)b * 16;
@@ -111,17 +116,18 @@ __global__ void __launch_bounds__(MAX_THREADS) loss_fwd_compact_kernel(
   const int64_t tb = (int64_t)b * T + t;
   float sq = 0.f;
   if (active) {
-    acc_out[tb * P + tid] = acc;
-    const float e = fminf(fmaxf(acc, 0.f), 1.f) - ref[tb * P + tid];
+    acc_out[tb * P + pix] = acc;
+    const float e = fminf(fmaxf(acc, 0.f), 1.f) - ref[tb * P + pix];
     const bool in_img = (y0 + iy < H) && (x0 + ix < W);
     sq = in_img ? e * e : 0.f;
   }
   const float tot = block_sum(sq, s_red);
-  if (tid == 0 && ncu[b] > 0) loss_tiles[tb] = tot;
+  if (tid == 0 && ncu[b] > 0) loss_tiles[tb * gridDim.z + sb] = tot;
 }
 
 // --------------------------------------------------------------------------
-// Backward: grid (ncb, B), block = th*tw pixels rounded up to a warp multiple.
+// Backward: grid (ncb, B, S), block = min(th*tw, 1024) pixels rounded up to
+// a warp multiple.
 // --------------------------------------------------------------------------
 __global__ void __launch_bounds__(MAX_THREADS) loss_bwd_compact_kernel(
     const int* __restrict__ bnl, const int* __restrict__ bct,
@@ -131,7 +137,7 @@ __global__ void __launch_bounds__(MAX_THREADS) loss_bwd_compact_kernel(
     float* __restrict__ parts, int ncb, int nc, int T, int th, int tw,
     int n_tx, int H, int W, float sharp, float near, float far,
     int band_only) {
-  const int c = blockIdx.x, b = blockIdx.y;
+  const int c = blockIdx.x, b = blockIdx.y, sb = blockIdx.z;
   const int64_t bc = (int64_t)b * ncb + c;
   const int t = bct[bc], nl = bnl[bc], cp = bcp[bc];
 
@@ -143,19 +149,23 @@ __global__ void __launch_bounds__(MAX_THREADS) loss_bwd_compact_kernel(
   const float x0 = (float)((t % n_tx) * tw), y0 = (float)((t / n_tx) * th);
   const int64_t tb = (int64_t)b * T + t;
 
-  // Masked cotangent 2·gb·e·1{acc<=1}·crop [·1{0<acc<1}].
+  // Masked cotangent 2·gb·e·1{acc<=1}·crop [·1{0<acc<1}] of this
+  // sub-block's pixels (s_g is indexed by the pixel within the sub-block).
+  const int p0 = sb * MAX_THREADS;
+  const int np = min(P - p0, MAX_THREADS);
   float g = 0.f;
-  if (tid < P) {
-    const float a = acc_in[tb * P + tid];
-    const float e = fminf(fmaxf(a, 0.f), 1.f) - ref[tb * P + tid];
+  if (tid < np) {
+    const int pix = p0 + tid;
+    const float a = acc_in[tb * P + pix];
+    const float e = fminf(fmaxf(a, 0.f), 1.f) - ref[tb * P + pix];
     g = 2.f * gb[b] * e * (a <= 1.f ? 1.f : 0.f);
-    const bool in_img = (y0 + tid / tw < H) && (x0 + tid % tw < W);
+    const bool in_img = (y0 + pix / tw < H) && (x0 + pix % tw < W);
     g = g * (in_img ? 1.f : 0.f);
     if (band_only) g = g * ((a > 0.f && a < 1.f) ? 1.f : 0.f);
     s_g[tid] = g;
   }
   const int live = __syncthreads_or(g != 0.f);
-  float* out = parts + bc * REC;
+  float* out = parts + (bc * gridDim.z + sb) * REC;
   if (!live || nl <= 0) {
     if (tid < REC) out[tid] = 0.f;
     return;
@@ -180,9 +190,10 @@ __global__ void __launch_bounds__(MAX_THREADS) loss_bwd_compact_kernel(
     float s13[13];
 #pragma unroll
     for (int k = 0; k < 13; ++k) s13[k] = 0.f;
-    for (int p = lane; p < P; p += 32) {
-      float gp = s_g[p];
+    for (int k = lane; k < np; k += 32) {
+      float gp = s_g[k];
       if (gp == 0.f) continue;
+      const int p = p0 + k;
       const float px = (p % tw) + 0.5f, py = (p / tw) + 0.5f;
       const float d0 = L.a[0] * px + L.b[0] * py + L.c[0];
       const float d1 = L.a[1] * px + L.b[1] * py + L.c[1];
@@ -282,10 +293,11 @@ extern "C" int easyhec_loss_fwd_compact(
     int nc, int T, int th, int tw, int n_tx, int H, int W, float sharp,
     float near, float far, void* stream) {
   const int P = th * tw;
-  if (P <= 0 || P > MAX_THREADS || B <= 0 || B > 65535 || nc <= 0)
+  if (P <= 0 || B <= 0 || B > 65535 || nc <= 0 || n_sub(P) > 65535)
     return (int)cudaErrorInvalidValue;
-  const int threads = (P + 31) / 32 * 32;
-  loss_fwd_compact_kernel<<<dim3(nc, B), threads, 0, (cudaStream_t)stream>>>(
+  const int threads = sub_threads(P);
+  loss_fwd_compact_kernel<<<dim3(nc, B, n_sub(P)), threads, 0,
+                            (cudaStream_t)stream>>>(
       nlive, ctmap, ncu, cam, rec, ref, acc, loss_tiles, nc, T, th, tw, n_tx,
       H, W, sharp, near, far);
   return (int)cudaGetLastError();
@@ -298,10 +310,11 @@ extern "C" int easyhec_loss_bwd_compact(
     int H, int W, float sharp, float near, float far, int band_only,
     void* stream) {
   const int P = th * tw;
-  if (P <= 0 || P > MAX_THREADS || B <= 0 || B > 65535 || ncb <= 0)
+  if (P <= 0 || B <= 0 || B > 65535 || ncb <= 0 || n_sub(P) > 65535)
     return (int)cudaErrorInvalidValue;
-  const int threads = (P + 31) / 32 * 32;
-  loss_bwd_compact_kernel<<<dim3(ncb, B), threads, 0, (cudaStream_t)stream>>>(
+  const int threads = sub_threads(P);
+  loss_bwd_compact_kernel<<<dim3(ncb, B, n_sub(P)), threads, 0,
+                            (cudaStream_t)stream>>>(
       bnl, bct, bcp, cam, gb, rec, ref, acc, parts, ncb, nc, T, th, tw, n_tx,
       H, W, sharp, near, far, band_only);
   return (int)cudaGetLastError();

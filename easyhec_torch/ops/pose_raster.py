@@ -435,11 +435,20 @@ def check_tensor(name, t, dtype, shape, dev):
         )
 
 
+MAX_THREADS = 1024  # pixels per block: csrc/pose_raster_common.cuh
+
+
+def n_sub(meta: Meta) -> int:
+    """Pixel sub-blocks per tile: the kernels take one thread per pixel and
+    at most MAX_THREADS pixels per block, so a larger tile runs as several
+    blocks, each writing its own loss or dTc partials."""
+    return -(-meta.th * meta.tw // MAX_THREADS)
+
+
 def check_tile(meta: Meta):
-    """The kernels take one thread per tile pixel, at most 1024."""
-    if not 0 < meta.th * meta.tw <= 1024:
-        raise ValueError(f"tile of {meta.th * meta.tw} pixels: the kernels take "
-                         "one thread per pixel, at most 1024")
+    """Raise unless the tile has pixels."""
+    if meta.th <= 0 or meta.tw <= 0:
+        raise ValueError(f"empty tile {meta.th}x{meta.tw}")
 
 
 def raise_on(err: int, what: str):
@@ -478,7 +487,7 @@ def _fwd_launch(loss_mode, cam, rec, counts, ref_tiles, meta: Meta):
     if loss_mode:
         check_tensor("ref_tiles", ref_tiles, torch.float32, shape, dev)
         sil = None
-        loss_tiles = torch.empty((B, T), dtype=torch.float32, device=dev)
+        loss_tiles = torch.empty((B, T, n_sub(meta)), dtype=torch.float32, device=dev)
     else:
         sil = torch.empty(shape, dtype=torch.float32, device=dev)
         loss_tiles = None
@@ -489,7 +498,8 @@ def _fwd_launch(loss_mode, cam, rec, counts, ref_tiles, meta: Meta):
         meta.sharpness, meta.near, meta.far, _stream(dev),
     )
     raise_on(err, "pose_fwd kernel")
-    return (loss_tiles if loss_mode else sil), acc
+    # per-sub-block partials, summed in a fixed order
+    return (loss_tiles.sum(dim=-1) if loss_mode else sil), acc
 
 
 def _bwd_launch(loss_mode, cam, rec, counts, acc, ref_tiles, gb, g, meta: Meta):
@@ -501,7 +511,8 @@ def _bwd_launch(loss_mode, cam, rec, counts, acc, ref_tiles, gb, g, meta: Meta):
         check_tensor("gb", gb, torch.float32, (B,), dev)
     else:
         check_tensor("g", g, torch.float32, shape, dev)
-    parts = torch.empty((B, T, POSE_RECORD), dtype=torch.float32, device=dev)
+    parts = torch.empty((B, T, n_sub(meta), POSE_RECORD), dtype=torch.float32,
+                        device=dev)
     err = _lib().easyhec_pose_bwd(
         int(loss_mode), counts.data_ptr(), cam.data_ptr(), rec.data_ptr(),
         acc.data_ptr(), _ptr(ref_tiles), _ptr(gb), _ptr(g), parts.data_ptr(),
@@ -509,11 +520,11 @@ def _bwd_launch(loss_mode, cam, rec, counts, acc, ref_tiles, gb, g, meta: Meta):
         meta.sharpness, meta.near, meta.far, int(meta.band_only), _stream(dev),
     )
     raise_on(err, "pose_bwd kernel")
-    return parts
+    return parts.sum(dim=2)  # per-sub-block partials, summed in a fixed order
 
 
 def loss_fwd_cuda(cam, rec, counts, ref_tiles, meta: Meta):
-    """K1f (one block per tile, one thread per pixel):
+    """K1f (one block per tile and pixel sub-block, one thread per pixel):
     -> (loss_tiles [B, T], acc [B, T, th, tw])."""
     out = _fwd_launch(True, cam, rec, counts, ref_tiles, meta)
     loss_fwd_cuda.launches += 1
@@ -521,7 +532,8 @@ def loss_fwd_cuda(cam, rec, counts, ref_tiles, meta: Meta):
 
 
 def loss_bwd_cuda(cam, rec, counts, ref_tiles, acc, gb, meta: Meta):
-    """K1b (one block per tile, one warp per triangle): -> parts [B, T, 12]."""
+    """K1b (one block per tile and pixel sub-block, one warp per triangle):
+    -> parts [B, T, 12]."""
     parts = _bwd_launch(True, cam, rec, counts, acc, ref_tiles, gb, None, meta)
     loss_bwd_cuda.launches += 1
     return parts

@@ -47,6 +47,7 @@ from .pose_raster import (
     dispatch,
     i32,
     loss_cotangent,
+    n_sub,
     pix_grids,
     raise_on,
     tile_origin,
@@ -146,7 +147,8 @@ def _lib():
 
 
 def loss_fwd_compact_cuda(cam, rec, nlive, ctmap, ncu, ref_tiles, meta: Meta):
-    """CUDA forward (one block per visited tile, one thread per pixel):
+    """CUDA forward (one block per visited tile and pixel sub-block, one
+    thread per pixel):
     -> (loss_tiles [B, T], acc [B, T, th, tw])."""
     dev = cam.device
     B, nc = nlive.shape
@@ -159,7 +161,7 @@ def loss_fwd_compact_cuda(cam, rec, nlive, ctmap, ncu, ref_tiles, meta: Meta):
     check_tensor("ncu", ncu, torch.int32, (B,), dev)
     check_tensor("ref_tiles", ref_tiles, torch.float32, (B, T, meta.th, meta.tw), dev)
     acc = torch.zeros((B, T, meta.th, meta.tw), dtype=torch.float32, device=dev)
-    loss_tiles = torch.zeros((B, T), dtype=torch.float32, device=dev)
+    loss_tiles = torch.zeros((B, T, n_sub(meta)), dtype=torch.float32, device=dev)
     err = _lib().easyhec_loss_fwd_compact(
         nlive.data_ptr(), ctmap.data_ptr(), ncu.data_ptr(), cam.data_ptr(),
         rec.data_ptr(), ref_tiles.data_ptr(), acc.data_ptr(),
@@ -170,11 +172,13 @@ def loss_fwd_compact_cuda(cam, rec, nlive, ctmap, ncu, ref_tiles, meta: Meta):
     )
     raise_on(err, "loss_fwd_compact kernel")
     loss_fwd_compact_cuda.launches += 1
-    return loss_tiles, acc
+    # per-pixel-sub-block partials, summed in a fixed order
+    return loss_tiles.sum(dim=-1), acc
 
 
 def loss_bwd_compact_cuda(cam, rec, bnl, bct, bcp, ref_tiles, acc, gb, meta: Meta):
-    """CUDA backward (one block per backward chunk, one warp per triangle):
+    """CUDA backward (one block per backward chunk and pixel sub-block, one
+    warp per triangle):
     -> parts [B, ncb, 12]."""
     dev = cam.device
     B, ncb = bnl.shape
@@ -188,7 +192,8 @@ def loss_bwd_compact_cuda(cam, rec, bnl, bct, bcp, ref_tiles, acc, gb, meta: Met
     check_tensor("ref_tiles", ref_tiles, torch.float32, (B, T, meta.th, meta.tw), dev)
     check_tensor("acc", acc, torch.float32, (B, T, meta.th, meta.tw), dev)
     check_tensor("gb", gb, torch.float32, (B,), dev)
-    parts = torch.empty((B, ncb, POSE_RECORD), dtype=torch.float32, device=dev)
+    parts = torch.empty((B, ncb, n_sub(meta), POSE_RECORD), dtype=torch.float32,
+                        device=dev)
     err = _lib().easyhec_loss_bwd_compact(
         bnl.data_ptr(), bct.data_ptr(), bcp.data_ptr(), cam.data_ptr(),
         gb.data_ptr(), rec.data_ptr(), ref_tiles.data_ptr(), acc.data_ptr(),
@@ -199,7 +204,7 @@ def loss_bwd_compact_cuda(cam, rec, bnl, bct, bcp, ref_tiles, acc, gb, meta: Met
     )
     raise_on(err, "loss_bwd_compact kernel")
     loss_bwd_compact_cuda.launches += 1
-    return parts
+    return parts.sum(dim=2)  # per-pixel-sub-block partials, fixed order
 
 
 loss_fwd_compact_cuda.launches = 0

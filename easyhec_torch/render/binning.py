@@ -1,6 +1,6 @@
-"""Counting-sort tile binning.
+"""Counting-sort tile binning and the gather-only record pack.
 
-Torch counterpart of easyhec_tpu/render/binning.py::bin_count. The tiles
+Torch counterpart of easyhec_tpu/render/binning.py. The tiles
 overlapped by a triangle's (margin-dilated) bbox form an axis-aligned
 rectangle, so the (triangle, tile) incidence is enumerated densely as static
 "rect slots" per triangle; sorting the enumerated keys then yields the
@@ -11,16 +11,30 @@ rank of an entry within its key (per-chunk histograms + a triangular
 matmul). A stable ``torch.sort`` on the keys produces exactly those ranks,
 so ``idx``, ``counts``, ``q`` and ``overflow`` agree bit for bit given the
 same bboxes.
+
+The unfused silhouette route (``silhouette_counted``) packs tile-local edge
+records from the bins with ``pack_records_counted``, a
+``torch.autograd.Function`` whose backward is a pure gather at ``q``
+(``dfields[f] = Σ_r drec[q[f, r]]``): autograd of the forward's index would
+scatter-add, which on CUDA uses float atomics and is not deterministic.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import math
+
 import torch
 
-from .tiled import _cdiv, _topk_compact
+from .tiled import _cdiv, _edge_fields_soa, _topk_compact, _untile
 
-__all__ = ["BinState", "bin_count"]
+__all__ = [
+    "BinState",
+    "bin_count",
+    "pack_records_counted",
+    "fields_and_bins",
+    "silhouette_counted",
+]
 
 
 class BinState(NamedTuple):
@@ -196,3 +210,153 @@ def bin_count(
         q=st.q.reshape(batch + st.q.shape[1:]),
         overflow=st.overflow.reshape(batch),
     )
+
+
+# ---------------------------------------------------------------------------
+# Record packing with an analytic (gather-only) backward. Flat batch [B, ...].
+# ---------------------------------------------------------------------------
+
+
+def _tile_origins(K: int, n_tx: int, th: int, tw: int, device=None):
+    t = torch.arange(K, dtype=torch.float32, device=device)
+    return (t % n_tx) * tw, torch.div(t, n_tx, rounding_mode="floor") * th  # x0, y0
+
+
+def _shift_rows(g, x0b, y0b, n_rec):
+    """[B, 13, K, cap] gathered fields -> [B, K, n_rec, cap] tile-local."""
+    a0, b0, c0, a1, b1, c1, a2, b2, c2 = (g[:, k] for k in range(9))
+    rows = [
+        a0, b0, c0 + a0 * x0b + b0 * y0b,
+        a1, b1, c1 + a1 * x0b + b1 * y0b,
+        a2, b2, c2 + a2 * x0b + b2 * y0b,
+        g[:, 9] - x0b, g[:, 10] - y0b, g[:, 11] - x0b, g[:, 12] - y0b,
+    ]
+    zero = torch.zeros_like(a0)
+    rec = torch.stack(rows + [zero] * (n_rec - 13), dim=1)  # [B, n_rec, K, cap]
+    return rec.transpose(1, 2)
+
+
+class _PackRecords(torch.autograd.Function):
+    """fields [B, 13, F] -> records [B, K, n_rec, cap]; backward gathers."""
+
+    @staticmethod
+    def forward(ctx, fields, idx, q, n_tx, tile_h, tile_w, n_rec):
+        B, _, F = fields.shape
+        K, cap = idx.shape[-2:]
+        x0, y0 = _tile_origins(K, n_tx, tile_h, tile_w, fields.device)
+        fpad = torch.cat([fields, fields.new_zeros((B, 13, 1))], dim=-1)
+        # One frame at a time: an index expanded over the 13 fields would be
+        # a [B, 13, K*cap] int64 temporary.
+        g = torch.stack([fpad[b].index_select(1, idx[b].reshape(-1).long())
+                         for b in range(B)]).reshape(B, 13, K, cap)
+        ctx.save_for_backward(q)
+        ctx.meta = (F, n_tx, tile_h, tile_w)
+        return _shift_rows(g, x0[:, None], y0[:, None], n_rec)
+
+    @staticmethod
+    def backward(ctx, drec):
+        (q,) = ctx.saved_tensors
+        F, n_tx, tile_h, tile_w = ctx.meta
+        B, K, _, cap = drec.shape
+        x0, y0 = _tile_origins(K, n_tx, tile_h, tile_w, drec.device)
+        x0b, y0b = x0[:, None], y0[:, None]
+        d = drec.transpose(1, 2)  # [B, n_rec, K, cap]
+        # Transpose of the tile-local shift: c' = c + a*x0 + b*y0 contributes
+        # dc'*x0 to da and dc'*y0 to db; the bbox shift is a constant.
+        rows = []
+        for e in range(3):
+            da, db, dc = d[:, 3 * e], d[:, 3 * e + 1], d[:, 3 * e + 2]
+            rows += [da + dc * x0b, db + dc * y0b, dc]
+        rows += [d[:, 9], d[:, 10], d[:, 11], d[:, 12]]
+        dg = torch.stack(rows, dim=1).reshape(B, 13, K * cap)
+        dgp = torch.cat([dg, dg.new_zeros((B, 13, 1))], dim=-1)
+        # Gather-only transpose: dfields[b, :, f] = Σ_r dgp[b, :, q[b, f, r]]
+        # (q = K*cap, the zero column, where the entry is unused).
+        dfields = torch.stack([
+            dgp[b].index_select(1, q[b].reshape(-1).long()).reshape(13, F, -1).sum(-1)
+            for b in range(B)
+        ])
+        return dfields, None, None, None, None, None, None
+
+
+def pack_records_counted(fields, idx, q, n_tx, tile_h, tile_w, n_rec):
+    """fields [B, 13, F] + bins -> records [B, n_tiles, n_rec, cap].
+
+    idx: [B, n_tiles, cap] int (BinState.idx), q: [B, F, R] int
+    (BinState.q). Field rows: a0 b0 c0 a1 b1 c1 a2 b2 c2 lox loy hix hiy
+    (tiled._edge_fields_soa), shifted into tile-local pixel coordinates,
+    zero-padded to n_rec rows. Linear in ``fields``; the backward is a pure
+    gather at ``q`` (deterministic, no atomics)."""
+    return _PackRecords.apply(fields, idx, q, int(n_tx), int(tile_h), int(tile_w),
+                              int(n_rec))
+
+
+# ---------------------------------------------------------------------------
+# Full silhouette path (fields -> bins -> records -> K5)
+# ---------------------------------------------------------------------------
+
+
+def _rect_window(H: int, W: int, cfg):
+    """(ry, rx): the static tile-rect window; rect 0 = auto, the full grid on
+    small grids (exact for any triangle size), a bounded window on large
+    ones (bboxes beyond it set the overflow flag)."""
+    n_ty, n_tx = _cdiv(H, cfg.tile_h), _cdiv(W, cfg.tile_w)
+    if n_ty * n_tx <= 64:
+        auto_ry, auto_rx = n_ty, n_tx
+    else:
+        auto_ry = min(n_ty, max(2, 64 // cfg.tile_h + 1))
+        auto_rx = min(n_tx, max(2, 64 // cfg.tile_w + 1))
+    ry = min(cfg.rect_y, n_ty) if cfg.rect_y else auto_ry
+    rx = min(cfg.rect_x, n_tx) if cfg.rect_x else auto_rx
+    return ry, rx
+
+
+def fields_and_bins(soa, H, W, cfg, margin: float | None = None):
+    """Edge-field setup + counting binning for flat-batched SoA triangles.
+
+    soa: TrianglesSoA with ONE leading batch axis ([B, 3, F] / [B, F]).
+    Returns (fields [B, 13, F], BinState with [B, ...] leaves)."""
+    m = cfg.margin if margin is None else margin
+    fl = _edge_fields_soa(soa)
+    fields = torch.stack(fl, dim=-2)
+    lox, loy, hix, hiy = (f.detach() for f in fl[9:13])
+    ry, rx = _rect_window(H, W, cfg)
+    state = bin_count(
+        lox - m, loy - m, hix + m, hiy + m, soa.valid,
+        H=H, W=W, tile_h=cfg.tile_h, tile_w=cfg.tile_w, cap=cfg.capacity,
+        ry=ry, rx=rx, big_k=cfg.bin_big_k,
+    )
+    return fields, state
+
+
+def silhouette_counted(
+    soa,
+    H: int,
+    W: int,
+    cfg,
+    sharpness: float = 1.0,
+    state: BinState | None = None,
+    return_overflow: bool = False,
+):
+    """Soft silhouette via counting-sort binning and K5 (TrianglesSoA, any
+    batch), differentiable in the triangles' pixel coordinates.
+
+    Pass a precomputed ``state`` (from fields_and_bins on the FLATTENED
+    batch) to reuse bins across optimizer steps while the triangles stay
+    within the binning margin of where it was built."""
+    from ..ops.tile_raster import TRI_RECORD, tile_silhouette
+
+    batch = soa.valid.shape[:-1]
+    n = math.prod(batch)
+    flat = type(soa)(*(a.reshape((n,) + a.shape[len(batch):]) for a in soa))
+    if state is None:
+        fields, state = fields_and_bins(flat, H, W, cfg)
+    else:
+        fields = torch.stack(_edge_fields_soa(flat), dim=-2)
+    n_tx = _cdiv(W, cfg.tile_w)
+    rec = pack_records_counted(fields, state.idx, state.q, n_tx, cfg.tile_h,
+                               cfg.tile_w, TRI_RECORD)
+    tiles = tile_silhouette(rec, state.counts, cfg.tile_h, cfg.tile_w, sharpness)
+    img = _untile(tiles, H, W, cfg).reshape(batch + (H, W))
+    ov = torch.any(state.overflow)
+    return (img, ov) if return_overflow else img

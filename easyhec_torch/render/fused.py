@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from ..geometry import camera
 from ..ops.pose_raster import CHUNK, pose_tile_loss, pose_tile_silhouette, tile_image
 from ..ops.pose_raster_compact import compact_tile_acc, pose_tile_loss_compact
-from .binning import BinState, bin_count
+from .binning import BinState, _rect_window, bin_count
 from .projection import setup_triangles_corners
 from .tiled import _cdiv, _untile
 
@@ -133,14 +133,7 @@ def _fused_bins_and_fields(renderer, Tc_c2b, link_poses, K):
     loy = tris.v.amin(dim=-2)
     hiy = tris.v.amax(dim=-2)
 
-    n_ty, n_tx = _cdiv(H, cfg.tile_h), _cdiv(W, cfg.tile_w)
-    if n_ty * n_tx <= 64:
-        auto_ry, auto_rx = n_ty, n_tx
-    else:
-        auto_ry = min(n_ty, max(2, 64 // cfg.tile_h + 1))
-        auto_rx = min(n_tx, max(2, 64 // cfg.tile_w + 1))
-    ry = min(cfg.rect_y, n_ty) if cfg.rect_y else auto_ry
-    rx = min(cfg.rect_x, n_tx) if cfg.rect_x else auto_rx
+    ry, rx = _rect_window(H, W, cfg)
     m = cfg.margin
     suby = 0.5 * (loy + hiy) if cfg.bin_subsort_rows else None
     state: BinState = bin_count(

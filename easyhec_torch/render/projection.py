@@ -1,8 +1,11 @@
-"""Triangle setup from statically face-expanded vertices.
+"""Vertex transform and triangle setup.
 
-Torch counterpart of easyhec_tpu/render/projection.py::setup_triangles_corners:
-all links of all frames are transformed in one batched computation and
-projected straight to OpenCV pixel coordinates.
+Torch counterpart of easyhec_tpu/render/projection.py: all links of all
+frames are transformed in one batched computation and projected straight to
+OpenCV pixel coordinates. ``setup_triangles_corners`` (SoA, from statically
+face-expanded vertices) feeds the fused and unfused silhouettes;
+``transform_verts`` + ``setup_triangles`` (AoS ``Triangles2D``) feed the
+tiled depth pass.
 """
 from __future__ import annotations
 
@@ -12,7 +15,28 @@ import torch
 
 from ..geometry import camera
 
-__all__ = ["TrianglesSoA", "setup_triangles_corners"]
+__all__ = [
+    "Triangles2D",
+    "TrianglesSoA",
+    "soa_from_aos",
+    "to_aos",
+    "setup_triangles_corners",
+    "transform_verts",
+    "setup_triangles",
+]
+
+
+class Triangles2D(NamedTuple):
+    """Screen-space triangle records (AoS), batched over leading axes.
+
+    uv:    [..., F, 3, 2] pixel-space vertex positions
+    z:     [..., F, 3] camera-space depths
+    valid: [..., F] bool
+    """
+
+    uv: torch.Tensor
+    z: torch.Tensor
+    valid: torch.Tensor
 
 
 class TrianglesSoA(NamedTuple):
@@ -91,3 +115,46 @@ def setup_triangles_corners(
         nz = e1[0] * e2[1] - e1[1] * e2[0]
         valid = valid & (nx * x0 + ny * y0 + nz * z0 < 0.0)
     return TrianglesSoA(u=u, v=v, z=z, valid=valid)
+
+
+def soa_from_aos(t: Triangles2D) -> TrianglesSoA:
+    return TrianglesSoA(u=t.uv[..., 0].transpose(-1, -2), v=t.uv[..., 1].transpose(-1, -2),
+                        z=t.z.transpose(-1, -2), valid=t.valid)
+
+
+def to_aos(t: TrianglesSoA) -> Triangles2D:
+    uv = torch.stack([t.u.transpose(-1, -2), t.v.transpose(-1, -2)], dim=-1)
+    return Triangles2D(uv=uv, z=t.z.transpose(-1, -2), valid=t.valid)
+
+
+def transform_verts(verts: torch.Tensor, vert_mesh_id: torch.Tensor,
+                    mesh_poses: torch.Tensor) -> torch.Tensor:
+    """Pose packed multi-mesh vertices.
+
+    verts [V, 3]; vert_mesh_id [V] int; mesh_poses [..., M, 4, 4] per-mesh
+    rigid transforms. -> [..., V, 3]."""
+    idx = vert_mesh_id.long()
+    R = mesh_poses[..., :3, :3].index_select(-3, idx)  # [..., V, 3, 3]
+    t = mesh_poses[..., :3, 3].index_select(-2, idx)  # [..., V, 3]
+    return (R * verts[:, None, :]).sum(-1) + t
+
+
+def setup_triangles(
+    verts_cam: torch.Tensor,
+    faces: torch.Tensor,
+    K: torch.Tensor,
+    near: float = camera.NEAR_DEFAULT,
+    far: float = camera.FAR_DEFAULT,
+) -> Triangles2D:
+    """Project camera-frame vertices [..., V, 3] and gather per-triangle
+    screen records; faces [F, 3] int, K [3, 3]. A triangle is valid when
+    every corner lies in (near, far) and its screen area is not degenerate."""
+    uv, z = camera.project_points(K, verts_cam)
+    f = faces.long()
+    tri_uv = uv[..., f, :]  # [..., F, 3, 2]
+    tri_z = z[..., f]  # [..., F, 3]
+    in_frustum = torch.all((tri_z > near) & (tri_z < far), dim=-1)
+    e01 = tri_uv[..., 1, :] - tri_uv[..., 0, :]
+    e02 = tri_uv[..., 2, :] - tri_uv[..., 0, :]
+    area2 = e01[..., 0] * e02[..., 1] - e01[..., 1] * e02[..., 0]
+    return Triangles2D(uv=tri_uv, z=tri_z, valid=in_frustum & (area2.abs() > 1e-12))

@@ -1,21 +1,33 @@
-"""High-level robot renderer: static mesh arrays and the bin-state entry.
+"""High-level robot renderer: static mesh arrays, silhouettes and depth.
 
 Torch counterpart of easyhec_tpu/render/renderer.py::RobotRenderer. All
-links of all frames render in one batched call. The port carries the fused
-route (``tile.fused``): the static arrays, ``camera_link_poses``,
-``link_aabb_corners``, ``bin_state`` (dense or compact) and ``silhouette``
-(the dense silhouette kernels, K4). ``depth``, ``link_silhouettes`` and the
-unfused silhouette need the tiled rasterizer (K5) and raise until it is
-ported.
+links of all frames render in one batched call:
+
+- the fused route (``tile.fused``): ``bin_state`` packs dense or compact
+  base-frame records, ``silhouette`` runs the dense silhouette kernels (K4),
+  differentiable in Tc_c2b;
+- the unfused route (``tile.fused=False``): ``silhouette`` sets up the
+  triangles, bins them (counting sort, or top-k with ``binner="topk"``),
+  packs tile-local edge records and rasterizes them with K5, differentiable
+  through the record pack and the triangle setup; ``bin_state`` returns a
+  detached ``BinState`` to reuse across steps;
+- ``depth`` (hard z and link ids, plain PyTorch) and ``link_silhouettes``
+  (K5 per link) on the tiled route.
+
+``mode="brute"`` (the oracle rasterizer) and ``use_pallas=False`` (the
+pure-XLA tiled rasterizer) are not ported.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..robot.mesh import TriMesh, pack_meshes
-from .tiled import TileConfig
+from .projection import setup_triangles, setup_triangles_corners, transform_verts
+from .tiled import TileConfig, depth_tiled, silhouette_tiled
 
 __all__ = ["RobotRenderer"]
 
@@ -38,7 +50,7 @@ class RobotRenderer:
     ):
         if mode != "tiled":
             raise NotImplementedError(
-                f"mode={mode!r}: only the tiled fused route is ported (ROADMAP.md)"
+                f"mode={mode!r}: only the tiled routes are ported (ROADMAP.md)"
             )
         self.device = resolve_device(device)
         packed = pack_meshes(link_meshes)
@@ -47,6 +59,10 @@ class RobotRenderer:
         self.H, self.W = int(H), int(W)
         self.tile = tile or TileConfig()
         self.mode = mode
+        self.vertices = torch.as_tensor(packed.vertices, dtype=torch.float32,
+                                        device=self.device)  # [V, 3]
+        self.faces = torch.as_tensor(packed.faces, device=self.device)  # [F, 3]
+        self.vert_link_id = torch.as_tensor(packed.vert_mesh_id, device=self.device)
         self.face_link_id = torch.as_tensor(packed.face_mesh_id, device=self.device)
         # Static face-corner expansion (projection.setup_triangles_corners).
         vc = packed.vertices[packed.faces]  # [F, 3, 3]
@@ -87,48 +103,82 @@ class RobotRenderer:
         link_poses [..., L, 4, 4] base-from-link -> [..., L, 4, 4]."""
         return torch.einsum("...ij,...ljk->...lik", Tc_c2b, link_poses)
 
-    def _require_fused(self, what: str):
-        if not self.tile.fused:
-            raise NotImplementedError(
-                f"RobotRenderer.{what} with tile.fused=False needs the tiled "
-                "rasterizer (K5), not ported to easyhec_torch yet (ROADMAP.md)"
-            )
+    def _triangles(self, Tc_c2l, K):
+        """AoS screen triangles (Triangles2D) of the packed vertices."""
+        return setup_triangles(transform_verts(self.vertices, self.vert_link_id, Tc_c2l),
+                               self.faces, K)
+
+    def _triangles_soa(self, Tc_c2l, K):
+        """SoA screen triangles from the static face corners."""
+        return setup_triangles_corners(self.corners_rest, self.face_link_onehot, Tc_c2l,
+                                       K, cull_backfaces=self.tile.cull_backfaces)
 
     def bin_state(self, Tc_c2b, link_poses, K, sharpness: float = 1.0):
         """Rebin state for the current pose (leaves carry the flattened frame
         batch); reuse it while the pose stays within tile.margin px of where
-        it was built: a CompactState when tile.compact_chunks > 0, else a
-        FusedState. sharpness must match the loss kernel's when
-        tile.bwd_chunks > 0 (it sizes the boundary-prefix band dilation)."""
-        self._require_fused("bin_state")
-        from .fused import build_compact_state, build_fused_state
+        it was built. Fused route: a CompactState when tile.compact_chunks >
+        0, else a FusedState (sharpness must match the loss kernel's when
+        tile.bwd_chunks > 0). Unfused route: the counting binner's BinState,
+        detached."""
+        if self.tile.fused:
+            from .fused import build_compact_state, build_fused_state
 
-        if self.tile.compact_chunks > 0:
-            return build_compact_state(self, Tc_c2b, link_poses, K, sharpness=sharpness)
-        return build_fused_state(self, Tc_c2b, link_poses, K)
+            if self.tile.compact_chunks > 0:
+                return build_compact_state(self, Tc_c2b, link_poses, K,
+                                           sharpness=sharpness)
+            return build_fused_state(self, Tc_c2b, link_poses, K)
+        from .binning import fields_and_bins
+
+        with torch.no_grad():
+            tris = self._triangles_soa(self.camera_link_poses(Tc_c2b, link_poses), K)
+            batch = tris.valid.shape[:-1]
+            n = math.prod(batch)
+            flat = type(tris)(*(a.reshape((n,) + a.shape[len(batch):]) for a in tris))
+            _, state = fields_and_bins(flat, self.H, self.W, self.tile)
+        return state
 
     def silhouette(self, Tc_c2b, link_poses, K, sharpness: float = 1.0,
                    bin_state=None):
         """Soft silhouette of the whole arm (union of links) in [0, 1]:
         Tc_c2b [..., 4, 4], link_poses [..., L, 4, 4], K [3, 3] -> [..., H, W].
-        Differentiable in Tc_c2b. bin_state: an optional FusedState (from
-        self.bin_state); a CompactState drives the loss only, so it is
-        dropped and the bins are rebuilt densely."""
-        self._require_fused("silhouette")
-        from .fused import CompactState, silhouette_fused
 
-        if isinstance(bin_state, CompactState):
-            bin_state = None
-        return silhouette_fused(self, Tc_c2b, link_poses, K, sharpness, state=bin_state)
+        Fused route: differentiable in Tc_c2b; bin_state an optional
+        FusedState (a CompactState drives the loss only, so it is dropped and
+        the bins are rebuilt densely). Unfused route: differentiable in
+        Tc_c2b and link_poses through K5; bin_state an optional BinState
+        (from self.bin_state) to reuse the bins across optimizer steps."""
+        if self.tile.fused:
+            from .fused import CompactState, silhouette_fused
 
-    def _later(self, name):
-        raise NotImplementedError(
-            f"RobotRenderer.{name} is not ported to easyhec_torch yet "
-            "(ROADMAP.md queue item 7; it needs the tiled rasterizer, K5)"
-        )
+            if isinstance(bin_state, CompactState):
+                bin_state = None
+            return silhouette_fused(self, Tc_c2b, link_poses, K, sharpness,
+                                    state=bin_state)
+        tris = self._triangles_soa(self.camera_link_poses(Tc_c2b, link_poses), K)
+        if self.tile.use_pallas and (bin_state is not None or self.tile.binner == "count"):
+            from .binning import silhouette_counted
 
-    def depth(self, *args, **kwargs):
-        self._later("depth")
+            return silhouette_counted(tris, self.H, self.W, self.tile, sharpness,
+                                      state=bin_state)
+        return silhouette_tiled(tris, self.H, self.W, self.tile, sharpness)
 
-    def link_silhouettes(self, *args, **kwargs):
-        self._later("link_silhouettes")
+    @torch.no_grad()
+    def depth(self, Tc_c2b, link_poses, K):
+        """-> (depth [..., H, W] metric z, link_id [..., H, W] int32, -1 = bg)."""
+        tris = self._triangles(self.camera_link_poses(Tc_c2b, link_poses), K)
+        z, tid = depth_tiled(tris, self.H, self.W, self.tile)
+        face_ids = torch.cat([self.face_link_id.to(torch.int32),
+                              torch.full((1,), -1, dtype=torch.int32, device=self.device)])
+        link_id = face_ids[torch.where(tid >= 0, tid, self.faces.shape[0]).long()]
+        return z, link_id
+
+    def link_silhouettes(self, Tc_c2b, link_poses, K, sharpness: float = 1.0):
+        """Per-link masks [..., L, H, W] through the tiled route (K5), one
+        render per link."""
+        tris = self._triangles_soa(self.camera_link_poses(Tc_c2b, link_poses), K)
+
+        def one(link):
+            masked = tris._replace(valid=tris.valid & (self.face_link_id == link))
+            return silhouette_tiled(masked, self.H, self.W, self.tile, sharpness)
+
+        return torch.stack([one(l) for l in range(self.n_links)], dim=-3)

@@ -5,9 +5,10 @@ dataset from the config, run ``calibrate``, and write the artifacts (solved
 pose, metrics, loss trace, evaluators, checkpoints, error maps). Runs on
 CUDA unless the caller passes ``device="cpu"``.
 
-Unlike the JAX trainer, rendering and the evaluators run outside any
-catch-all: a failing silhouette kernel stops the run. Only the matplotlib
-panels are optional (skipped with a warning when matplotlib is absent).
+Unlike the JAX trainer, the overflow pre-check, rendering and the
+evaluators run outside any catch-all: a failing kernel stops the run. Only
+the matplotlib panels are optional (skipped with a warning when matplotlib
+is absent).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from ..evaluators import build_evaluators
 from ..geometry import se3
 from ..models.calib import BinOverflowError, CalibResult, calibrate, render_outputs
 from ..render.renderer import RobotRenderer
-from ..render.tiled import TileConfig
+from ..render.tiled import TileConfig, silhouette_tiled
 from ..robot import build_chain, load_link_meshes, load_mesh, parse_urdf
 from ..robot.mesh import decimate_vertex_clustering, subdivide_to_max_edge
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
@@ -82,17 +83,24 @@ def build_runtime(cfg: Config, device=None) -> Runtime:
 
 
 def _warn_if_bins_overflow(rt: Runtime, batch: CalibBatch, init_dof) -> None:
-    """Log a warning when frame 0's bin state at the initial pose overflows
-    (a saturated tile bin, or a triangle rect beyond the static window), as
-    the JAX trainer checks frame 0. calibrate itself checks every frame at
-    every rebin of the trajectory and escalates."""
+    """One render of frame 0 at the initial pose with overflow reporting, as
+    the JAX trainer does: silhouette_tiled with the run's tile config (the
+    counting binner and K5f on every route, fused or not; the image is
+    discarded). A saturated tile bin or a triangle rect beyond the static
+    window logs a warning with the knobs to fix; calibrate itself checks
+    every frame at every rebin and escalates. No catch-all: a kernel
+    failure here stops the run."""
     r = rt.renderer
+    if r.mode != "tiled":
+        return
     dev = r.device
     Tc = se3.exp(torch.as_tensor(np.asarray(init_dof), dtype=torch.float32, device=dev))
     lp = torch.as_tensor(batch.link_poses[:1], dtype=torch.float32, device=dev)
     K = torch.as_tensor(batch.K, dtype=torch.float32, device=dev)
-    st = r.bin_state(Tc, lp, K, sharpness=rt.cfg.render.sharpness)
-    if bool(torch.any(st.overflow)):
+    with torch.no_grad():
+        soa = r._triangles_soa(r.camera_link_poses(Tc, lp), K)
+        _, ov = silhouette_tiled(soa, r.H, r.W, r.tile, return_overflow=True)
+    if bool(ov):
         logging.getLogger(LOGGER).warning(
             "rasterizer bin overflow at the initial pose: some triangles would be "
             "dropped. Raise render.capacity / compact_chunks, set "
@@ -115,11 +123,12 @@ def escalate_render_budgets(cfg: Config) -> None:
         r.bin_big_k *= 2
 
 
-def _init_dof(cfg: Config, batch: CalibBatch) -> np.ndarray:
+def _init_dof(cfg: Config, batch: CalibBatch, rt: Runtime | None = None) -> np.ndarray:
     """Initial se(3) pose per cfg.model.init_method: "manual" / "auto" from
     init_Tc_c2b, "lookat" from init_lookat_eye/target, "gt" / "auto" from the
-    dataset's ground truth. The render-and-score search ("global_search", and
-    "auto" with neither a pose nor GT) is not ported: it raises."""
+    dataset's ground truth, and the render-and-score global search
+    ("global_search", and "auto" with neither a pose nor GT) on frame 0 with
+    rt's renderer."""
     method = cfg.model.init_method
     T = None
     if method in ("manual", "auto") and cfg.model.init_Tc_c2b is not None:
@@ -132,16 +141,15 @@ def _init_dof(cfg: Config, batch: CalibBatch) -> np.ndarray:
         T = lookat_init(cfg.model.init_lookat_eye, cfg.model.init_lookat_target)
     elif method in ("gt", "auto") and batch.has_gt:
         T = batch.Tc_c2b_gt
-    if T is None and method in ("global_search", "auto"):
-        raise NotImplementedError(
-            f"init_method={method!r} needs global_search_init, which is not ported "
-            "to easyhec_torch yet (ROADMAP.md queue item 12, pose init): set "
-            "model.init_Tc_c2b, use init_method=lookat, or provide dataset GT"
-        )
+    if T is None and method in ("global_search", "auto") and rt is not None:
+        from ..models.pose_init import global_search_init
+
+        T = global_search_init(rt.renderer, batch.link_poses[0], batch.K,
+                               batch.masks[0]).Tc_c2b
     if T is None:
         raise ValueError(
-            f"no initial pose for init_method={method!r}: set model.init_Tc_c2b "
-            "or provide dataset GT"
+            f"no initial pose for init_method={method!r}: set model.init_Tc_c2b, "
+            "provide dataset GT, or use init_method=global_search"
         )
     return se3.log(torch.as_tensor(np.asarray(T, np.float32))).numpy()
 
@@ -164,7 +172,7 @@ def run_offline_calibration(
     logger.info("dataset: %d frames %dx%d, links=%s", batch.n_frames, cfg.model.H,
                 cfg.model.W, rt.link_names)
     if init_dof is None:
-        init_dof = _init_dof(cfg, batch)
+        init_dof = _init_dof(cfg, batch, rt)
     _warn_if_bins_overflow(rt, batch, init_dof)
 
     ckpt_dir = out / "checkpoints"

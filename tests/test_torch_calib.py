@@ -237,3 +237,36 @@ def test_calibrate_multires_two_scales(dense_rig):
     np.testing.assert_allclose(tres.dof, jres.dof, atol=1e-4)
     np.testing.assert_allclose(tres.Tc_c2b, jres.Tc_c2b, atol=1e-5)
     assert tres.metrics.keys() == jres.metrics.keys()
+
+
+# ---------------------------------------------------------------------------
+# The unfused route (tile.fused=False): the silhouette through K5, autograd
+# through the record pack and the triangle setup, BinState rebinning.
+# ---------------------------------------------------------------------------
+
+UNFUSED = dict(CFG, fused=False, compact_chunks=0)
+
+
+@pytest.fixture(scope="module")
+def unfused_rig(rig):
+    _, tr, lp, gt, target = rig
+    jr = JR(tr.meshes, H, W, tile=JTC(**UNFUSED))
+    tru = TR(tr.meshes, H, W, tile=TTC(**UNFUSED), device="cpu")
+    return jr, tru, lp, gt, target
+
+
+def test_calibrate_30_steps_adaptive_unfused(unfused_rig):
+    jr, tr, lp, gt, target = unfused_rig
+    assert tc.reuse_bins_ok(tr) and tc.tile_masks(target, tr) is None
+    init = gt + OFFSET
+    jres = jc.calibrate(init, jr, lp, K, target, num_steps=30, rebin_every=0)
+    tres = tc.calibrate(init, tr, lp, K, target, num_steps=30, rebin_every=0)
+    assert tres.rebins == jres.rebins and not tres.overflow
+    np.testing.assert_allclose(tres.losses, jres.losses, rtol=1e-3)
+    np.testing.assert_allclose(tres.history, jres.history, atol=1e-4)
+    np.testing.assert_allclose(tres.dof, jres.dof, atol=1e-4)
+    assert tres.losses[-1] < tres.losses[0]
+    oj = jc.render_outputs(tres.dof, jr, lp, K, target)
+    ot = tc.render_outputs(tres.dof, tr, lp, K, target)
+    for k in oj:
+        np.testing.assert_allclose(ot[k], oj[k], atol=1e-5, err_msg=k)

@@ -7,7 +7,7 @@ disabled:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the kernels sum over 128 lanes and 512 pixels in another order
+Tolerances: the kernels sum over 128 lanes and a tile's pixels in another order
 than the plain versions (and nvcc contracts multiply-adds into FMAs), so
 the loss agrees to rtol 1e-5 and the pose partials to 1e-4 of their
 largest magnitude; the integer bin state agrees exactly. acc at or above 2
@@ -194,3 +194,121 @@ def test_dense_route_counts_launches(dev):
     assert torch.isfinite(xi.grad).all() and xi.grad.abs().max() > 0
     after = [getattr(pr, n).launches for n in names]
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+
+
+# Tiles above one block of threads (32×128 = 4096 pixels, 4 pixel
+# sub-blocks): the dense and compact kernels against their plain versions.
+# Tile-local edge offsets reach the tile width (128 px, ulp 1.5e-5), so FMA
+# contraction moves acc and the image by up to a few such ulps: atol 1e-4.
+BIG = TileConfig(32, 128, 256, binner="count", fused=True, margin=2.0,
+                 compact_chunks=16)
+HB, WB = 80, 200  # 3×2 tiles, both cropped
+
+
+@pytest.mark.parametrize("band_only", [False, True])
+def test_kernels_large_tiles_match_plain(dev, band_only):
+    meshes = [make_box((0.15, 0.15, 0.3)), make_cylinder(0.05, 0.4, sections=12)]
+    rng = np.random.default_rng(4)
+    B = 2
+    lp = np.tile(np.eye(4, dtype=np.float32), (B, 2, 1, 1))
+    lp[:, 1, 2, 3] = 0.3
+    lp[1:, 1, :3, 3] += rng.uniform(-0.2, 0.2, (B - 1, 3)).astype(np.float32)
+    K = torch.tensor([[150.0, 0, 100], [0, 150.0, 40], [0, 0, 1]], device=dev)
+    xi = torch.tensor([0.02, -0.03, 1.2, 0.05, -0.08, 0.03], device=dev)
+    lpt = torch.from_numpy(lp).to(dev)
+    target = torch.from_numpy((rng.random((B, HB, WB)) > 0.6).astype(np.float32)).to(dev)
+    tile = BIG._replace(bwd_band_only=band_only)
+    cam = cam_rows(se3.exp(xi + 0.01), K, B).contiguous()
+    ref = tile_image(target, 32, 128).contiguous()
+    meta = pr.Meta(32, 128, 2, HB, WB, 1.0, 0.001, 10.0, band_only)
+    assert pr.n_sub(meta) == 4
+    gb = torch.linspace(0.5, 1.5, B, device=dev)
+
+    def close(a, b, **kw):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **kw)
+
+    # compact K2f / K2b
+    st = build_compact_state(RobotRenderer(meshes, HB, WB, tile=tile, device=dev),
+                             se3.exp(xi), lpt, K)
+    assert not bool(st.overflow)
+    args = (cam, st.rec, st.nlive, st.ctmap, st.ncu, ref, meta)
+    lk, acck = prc.loss_fwd_compact_cuda(*args)
+    lp_, accp = prc.loss_fwd_compact_plain(*args)
+    close(lk, lp_, rtol=1e-5, atol=1e-3)
+    close(acck.clamp(max=2), accp.clamp(max=2), atol=1e-4)
+    bargs = (cam, st.rec, st.bwd_nlive, st.bwd_ctmap, st.bwd_cpos, ref, acck, gb, meta)
+    pk, pp = prc.loss_bwd_compact_cuda(*bargs), prc.loss_bwd_compact_plain(*bargs)
+    close(pk, pp, rtol=0, atol=1e-4 * pp.abs().max().item())
+
+    # dense K1f / K1b / K4f / K4b
+    dst = build_fused_state(RobotRenderer(meshes, HB, WB, tile=tile._replace(compact_chunks=0),
+                                          device=dev), se3.exp(xi), lpt, K)
+    rec, counts = pr._pad_records(dst.rec, dst.counts), pr.i32(dst.counts)
+    lk, acck = pr.loss_fwd_cuda(cam, rec, counts, ref, meta)
+    lp_, accp = pr.loss_fwd_plain(cam, rec, counts, ref, meta)
+    close(lk, lp_, rtol=1e-5, atol=1e-3)
+    close(acck.clamp(max=2), accp.clamp(max=2), atol=1e-4)
+    pk = pr.loss_bwd_cuda(cam, rec, counts, ref, acck, gb, meta)
+    pp = pr.loss_bwd_plain(cam, rec, counts, ref, acck, gb, meta)
+    assert pp.abs().max() > 0
+    close(pk, pp, rtol=0, atol=1e-4 * pp.abs().max().item())
+    sk, acc_s = pr.sil_fwd_cuda(cam, rec, counts, meta)
+    close(sk, pr.sil_fwd_plain(cam, rec, counts, meta)[0], atol=1e-4)
+    g = torch.randn(sk.shape, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    qk = pr.sil_bwd_cuda(cam, rec, counts, acc_s, g, meta)
+    qp = pr.sil_bwd_plain(cam, rec, counts, acc_s, g, meta)
+    close(qk, qp, rtol=0, atol=1e-4 * qp.abs().max().item())
+
+
+# The unfused tile rasterizer (K5) on real records of the unfused route.
+UNFUSED = TileConfig(16, 32, 200, binner="count", margin=2.0)
+
+
+@pytest.mark.parametrize("th,tw", [(16, 32), (32, 48)])
+def test_tile_raster_matches_plain(dev, th, tw):
+    from easyhec_torch.ops import tile_raster as tr_
+    from easyhec_torch.render.binning import fields_and_bins, pack_records_counted
+
+    r, _, t = _dense_scene(dev, False)
+    r.tile = UNFUSED._replace(tile_h=th, tile_w=tw)
+    B = t["lp"].shape[0]
+    tris = r._triangles_soa(r.camera_link_poses(se3.exp(t["xi"]), t["lp"]), t["K"])
+    fields, st = fields_and_bins(tris, HD, WD, r.tile)
+    assert not bool(st.overflow.any())
+    rec = pack_records_counted(fields, st.idx, st.q, -(-WD // tw), th, tw, 16)
+    rec = torch.nn.functional.pad(rec, (0, 56)).contiguous()  # cap 200 -> 256
+    counts = st.counts.contiguous()
+    meta = tr_.TileMeta(th, tw, 1.0)
+    ok, acck = tr_.tile_fwd_cuda(rec, counts, meta)
+    op, accp = tr_.tile_fwd_plain(rec, counts, meta)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(ok.cpu(), op.cpu(), atol=1e-5)
+    np.testing.assert_allclose(acck.clamp(max=2).cpu(), accp.clamp(max=2).cpu(), atol=1e-5)
+    g = torch.randn(ok.shape, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    dk = tr_.tile_bwd_cuda(rec, counts, acck, g, meta)
+    dp = tr_.tile_bwd_plain(rec, counts, acck, g, meta)
+    torch.cuda.synchronize()
+    scale = dp.abs().max().item()
+    assert scale > 0 and B == 3
+    np.testing.assert_allclose(dk.cpu(), dp.cpu(), rtol=0, atol=1e-4 * scale)
+    assert (dk[..., 13:, :] == 0).all()
+
+
+def test_unfused_silhouette_cuda_matches_cpu_and_counts_launches(dev):
+    from easyhec_torch.ops import tile_raster as tr_
+
+    out = []
+    for d in (dev, torch.device("cpu")):
+        r, _, t = _dense_scene(d, False)
+        r.tile = UNFUSED
+        xi = (t["xi"] + 0.01).requires_grad_()
+        f0, b0 = tr_.tile_fwd_cuda.launches, tr_.tile_bwd_cuda.launches
+        img = r.silhouette(se3.exp(xi), t["lp"], t["K"])
+        ((img - t["target"]) ** 2).sum().backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert (tr_.tile_fwd_cuda.launches, tr_.tile_bwd_cuda.launches) == (f0 + 1, b0 + 1)
+        out.append((img.detach().cpu().numpy(), xi.grad.cpu().numpy()))
+    (ik, gk), (ip, gp) = out
+    np.testing.assert_allclose(ik, ip, atol=1e-4)
+    np.testing.assert_allclose(gk, gp, rtol=1e-3, atol=1e-3 * np.abs(gp).max())

@@ -48,9 +48,15 @@ def test_every_module_imports_without_jax():
     assert int(r.stdout.strip()) == expected >= 20
 
 
-# Modules added with the dense route and the offline trainer.
+# Modules added with the dense route and the offline trainer, and with the
+# unfused route (K5), the global search, the tiled depth pass and the
+# simulator.
 NEW_MODULES = (
     "easyhec_torch.cli.run",
+    "easyhec_torch.cli.simulate",
+    "easyhec_torch.data.synthetic",
+    "easyhec_torch.ops.tile_raster",
+    "easyhec_torch.render.raster_core",
     "easyhec_torch.config.config",
     "easyhec_torch.data.dataset",
     "easyhec_torch.evaluators.evaluators",

@@ -10,6 +10,7 @@ interpret mode). Tolerances as in test_torch_calib.py: the loss trace rtol
 1e-3 and the pose atol 1e-4 (summation order, renormalized by Adam).
 """
 import dataclasses
+import functools
 import json
 import logging
 import os
@@ -20,6 +21,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from easyhec_torch.cli import run as t_run
 from easyhec_torch.config import load_config as t_load
@@ -161,35 +163,76 @@ def test_init_dof_methods(sim_data):
     T = t_lookat([1, 0.7, 0.8], [0, 0, 0.3])
     np.testing.assert_allclose(t_off._init_dof(cfg, Batch),
                                np.asarray(jse3.log(jnp.asarray(T))), atol=1e-5)
-    for method in ("global_search", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue item 12"):
+    for method in ("global_search", "auto"):  # the search needs a runtime
+        with pytest.raises(ValueError, match="global_search"):
             t_off._init_dof(t_load(SIM, [f"model.init_method={method}"]), Batch)
     with pytest.raises(ValueError):
         t_off._init_dof(t_load(SIM, ["model.init_method=gt"]), Batch)
 
 
-@pytest.mark.parametrize("capacity,warns", [(256, False), (8, True)])
-def test_overflow_precheck_bins_frame0(sim_data, monkeypatch, caplog, capacity, warns):
-    """The pre-check bins frame 0 only at the initial pose (the JAX trainer
-    renders frame 0) and warns when those bins overflow."""
+# A small search (30×40 scoring renders, 32 candidates, top 2, 5 Adam steps)
+# in both packages, so the comparison stays quick; the full-size defaults
+# run on the card (chip_smoke.py).
+SMALL_SEARCH = dict(radii=(0.9, 1.6), n_dirs=8, n_roll=2, downscale=4, topk=2,
+                    refine_steps=5)
+
+
+def test_init_dof_global_search_matches_jax(sim_data, monkeypatch):
+    from easyhec_torch.models import pose_init as tpi
+    from easyhec_tpu.models import pose_init as jpi
+    from easyhec_tpu.trainer import offline as j_off
+
     monkeypatch.chdir(ROOT)
     d, opts = sim_data
-    cfg = t_load(SIM, opts + [f"render.capacity={capacity}"])
+    for mod in (tpi, jpi):
+        monkeypatch.setattr(mod, "global_search_init",
+                            functools.partial(mod.global_search_init, **SMALL_SEARCH))
+    o = [x for x in opts if not x.startswith("model.init_Tc_c2b")]
+    jcfg = j_load(SIM, o + ["model.init_method=global_search"])
+    jrt = j_build_runtime(jcfg)
+    jb = j_load_data(d / "data", jrt.chain, jrt.link_names)
+    tcfg = t_load(SIM, o + ["model.init_method=auto"])
+    trt = t_off.build_runtime(tcfg, device="cpu")
+    tb = t_load_data(d / "data", trt.chain, trt.link_names)
+    tb = dataclasses.replace(tb, Tc_c2b_gt=np.eye(4, dtype=np.float32))  # no GT: search
+    assert not tb.has_gt
+    dj = np.asarray(j_off._init_dof(jcfg, jb, jrt))
+    dt = t_off._init_dof(tcfg, tb, trt)
+    np.testing.assert_allclose(dt, dj, atol=1e-4)
+
+
+@pytest.mark.parametrize("capacity,warns", [(256, False), (8, True)])
+def test_overflow_precheck_bins_frame0(sim_data, monkeypatch, caplog, capacity, warns):
+    """The pre-check renders frame 0 only, at the initial pose, through
+    silhouette_tiled (the counting binner and K5f, whatever the route) and
+    warns when its bins overflow, as the JAX trainer does."""
+    from easyhec_tpu.trainer import offline as j_off
+
+    monkeypatch.chdir(ROOT)
+    d, opts = sim_data
+    o = opts + [f"render.capacity={capacity}"]
+    cfg = t_load(SIM, o)
     rt = t_off.build_runtime(cfg, device="cpu")
     batch = t_load_data(d / "data", rt.chain, rt.link_names)
-    frames, real = [], rt.renderer.bin_state
+    frames, real = [], t_off.silhouette_tiled
 
-    def spy(Tc, lp, K, **kw):
-        frames.append(lp.shape[0])
-        return real(Tc, lp, K, **kw)
+    def spy(tris, H, W, tile, **kw):
+        frames.append(tuple(tris.valid.shape[:-1]))
+        return real(tris, H, W, tile, **kw)
 
-    monkeypatch.setattr(rt.renderer, "bin_state", spy)
-    logger = logging.getLogger("easyhec_torch")
-    monkeypatch.setattr(logger, "propagate", True)
-    with caplog.at_level(logging.WARNING, logger="easyhec_torch"):
+    monkeypatch.setattr(t_off, "silhouette_tiled", spy)
+    for name in ("easyhec_torch", "easyhec_tpu"):
+        monkeypatch.setattr(logging.getLogger(name), "propagate", True)
+    with caplog.at_level(logging.WARNING):
         t_off._warn_if_bins_overflow(rt, batch, t_off._init_dof(cfg, batch))
-    assert frames == [1]
-    assert any("bin overflow" in r.message for r in caplog.records) == warns
+        jcfg = j_load(SIM, o)
+        jrt = j_build_runtime(jcfg)
+        jb = j_load_data(d / "data", jrt.chain, jrt.link_names)
+        j_off._warn_if_bins_overflow(jrt, jb, j_off._init_dof(jcfg, jb))
+    assert frames == [(1,)]
+    for name in ("easyhec_torch", "easyhec_tpu"):
+        assert any("bin overflow" in r.message for r in caplog.records
+                   if r.name == name) == warns, name
 
 
 def test_cli_refuses_unported_modes(monkeypatch):
@@ -231,3 +274,81 @@ def test_setup_logger_follows_output_dir(tmp_path):
     assert "hello from run_a" in (tmp_path / "run_a" / "log.txt").read_text()
     assert "hello from run_b" in (tmp_path / "run_b" / "log.txt").read_text()
     assert "run_b" not in (tmp_path / "run_a" / "log.txt").read_text()
+
+
+def test_generate_dataset_matches_jax(tmp_path, monkeypatch):
+    """The port's generator against JAX's for the same explicit qposes (the
+    two packages draw random qposes from different generators): masks, RGB,
+    depth and link ids; JAX's loader reads the port's files."""
+    from easyhec_torch.data import synthetic as tsyn
+
+    monkeypatch.chdir(ROOT)
+    o = [f"model.H={H}", f"model.W={W}"]
+    jrt = j_build_runtime(j_load(SIM, o))
+    trt = t_off.build_runtime(t_load(SIM, o), device="cpu")
+    fx = 1.2 * max(H, W)
+    K = np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1]], np.float32)
+    Tc = default_camera()
+    np.testing.assert_allclose(tsyn.default_camera(), Tc, atol=1e-6)
+    qs = np.array([[0.2, -0.5], [-0.6, 0.9], [0.0, 0.3]], np.float32)
+    dj = generate_dataset(tmp_path / "j", jrt.chain, jrt.renderer, jrt.link_names, Tc, K,
+                          qposes=qs, write_depth=True)
+    dt = tsyn.generate_dataset(tmp_path / "t", trt.chain, trt.renderer, trt.link_names, Tc,
+                               K, qposes=qs, write_depth=True)
+    # sim_mini's 16×64 tiles: edge offsets up to 64 px (ulp 7.6e-6), summed
+    np.testing.assert_allclose(dt["masks"], dj["masks"], atol=1e-4)
+    np.testing.assert_allclose(dt["depth"], dj["depth"], rtol=1e-5)
+    assert (dt["link_id"] != dj["link_id"]).mean() <= 0.01  # ties at equal depth
+    assert (np.abs(dt["rgb"].astype(int) - dj["rgb"].astype(int)) > 1).mean() <= 0.01
+    assert (dj["link_id"] >= 0).mean() > 0.02
+    jb = j_load_data(tmp_path / "t", jrt.chain, jrt.link_names)
+    jref = j_load_data(tmp_path / "j", jrt.chain, jrt.link_names)
+    np.testing.assert_array_equal(jb.qpos, jref.qpos)
+    assert (jb.masks != jref.masks).mean() <= 1e-3
+    np.testing.assert_array_equal(jb.Tc_c2b_gt, jref.Tc_c2b_gt)
+    assert sorted(p.name for p in (tmp_path / "t" / "depth").iterdir()) == [
+        "000000.npy", "000001.npy", "000002.npy"]
+    g = torch.Generator().manual_seed(0)
+    q = tsyn.sample_qposes(g, trt.chain, 64, 0.5)
+    lim = trt.chain.joint_limits * 0.5
+    assert q.shape == (64, 2) and (q.numpy() >= lim[:, 0] - 1e-6).all() \
+        and (q.numpy() <= lim[:, 1] + 1e-6).all()
+
+
+_NO_JAX = """
+import runpy, sys
+for k in ("jax", "jaxlib", "optax", "easyhec_tpu", "__graft_entry__"):
+    sys.modules[k] = None  # any import of it now raises ImportError
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__")
+"""
+
+
+def test_simulate_then_run_without_jax(tmp_path):
+    """The port's simulate CLI writes a dataset and its run CLI calibrates on
+    it, with every JAX module blocked; JAX's loader reads the dataset."""
+    data = tmp_path / "data"
+    size = [f"model.H={H}", f"model.W={W}"]
+    r = subprocess.run([sys.executable, "-c", _NO_JAX, "easyhec_torch.cli.simulate",
+                        "-c", SIM, "--out", str(data), "--n-frames", "3", "--device", "cpu",
+                        *size], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "wrote 3 frames" in r.stdout
+    r = subprocess.run([sys.executable, "-c", _NO_JAX, "easyhec_torch.cli.run", "-c", SIM,
+                        "--device", "cpu", *size, "solver.num_epochs=10",
+                        "solver.log_interval=10", f"dataset.data_dir={data}",
+                        f"output_dir={tmp_path / 'run'}"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "solved Tc_c2b" in r.stdout
+    fin = np.load(tmp_path / "run" / "checkpoints" / "final.npz")
+    assert np.isfinite(fin["losses"]).all()
+    cfg = j_load(SIM, size)
+    jrt = j_build_runtime(cfg)
+    jb = j_load_data(data, jrt.chain, jrt.link_names)
+    assert jb.n_frames == 3 and jb.has_gt and jb.masks.mean() > 0.01
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        from easyhec_torch.cli import simulate as t_sim
+
+        t_sim.main(["-c", SIM, "--out", str(tmp_path / "ring"), "--ring", "4",
+                    "--device", "cpu"])
