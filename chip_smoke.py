@@ -21,9 +21,14 @@ Phases, in order (any failure exits non-zero):
    forward and backward, K4b also through autograd on
    RobotRenderer.silhouette; the unfused rasterizer K5f (image, min(acc, 2))
    and K5b (dtri, and dTc through autograd on RobotRenderer.silhouette).
-   Each kernel's CUDA-event time, its plain version's, and its bound for
-   this data. Then K1, K2 and K4 on 32x128 tiles (four pixel sub-blocks per
-   tile) against their plain versions.
+   Each kernel's CUDA-event time (device time: the calls are queued behind
+   a device sleep), its plain version's, its bound for this data, and its
+   registers, stack and spill bytes from nvcc's -Xptxas -v log (the
+   backwards K2b, K1b and K4b must not spill). K2b, K1b and K4b run twice
+   on the same inputs and must give bit-identical dcam. Then K1,
+   K2 and K4 on 32x128 tiles (the forwards in four pixel sub-blocks per
+   tile, the backwards over one 4096-pixel live list) against their plain
+   versions.
 3. Main paths: ``calibrate`` at the bench scene on the compact, dense and
    unfused routes, 1000 steps each. Asserts no overflow, a falling loss, and
    one loss (or K5) kernel pair launch per step.
@@ -49,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -87,6 +93,11 @@ def _gpu_line() -> str:
 
 
 def _time_ms(fn, reps: int, warm: int = 2) -> float:
+    """Mean device time of fn over reps calls, by CUDA events. A device-side
+    sleep of ~10 ms goes first, so the host queues the calls while the card
+    waits and the events read the card's time, not the wrapper's Python
+    overhead (which exceeds a fast kernel's time); a call that synchronizes
+    the host inside is paced by the host all the same."""
     import torch
 
     for _ in range(warm):
@@ -94,6 +105,7 @@ def _time_ms(fn, reps: int, warm: int = 2) -> float:
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # clock cycles
     t0.record()
     for _ in range(reps):
         fn()
@@ -248,14 +260,56 @@ def _check_dcam(tag, dk, dp):
     return err
 
 
-def _row(name, tag, source, replaces, err, run, plain, nbytes, ops):
+def _ptxas(source, kernel):
+    """{regs, stack, spill_st, spill_ld} of the entry function whose mangled
+    name holds `kernel`, from the -Xptxas -v log of csrc/<source>.cu."""
+    from easyhec_torch.ops import _build
+
+    info, cur = {}, None
+    for line in _build.build_log(source).splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            cur = info.setdefault(m.group(1), {})
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            cur.update(stack=int(m.group(1)), spill_st=int(m.group(2)),
+                       spill_ld=int(m.group(3)))
+        elif m := re.search(r"Used (\d+) registers", line):
+            cur["regs"] = int(m.group(1))
+    hits = [v for k, v in info.items() if kernel in k]
+    if len(hits) != 1 or len(hits[0]) != 4:
+        raise AssertionError(f"no single ptxas report for {kernel} in {source}.cu")
+    return hits[0]
+
+
+def _check_repeat(tag, run):
+    """Two launches of a backward on the same inputs: bit-identical dcam
+    (fixed-order sums, no atomics)."""
+    import torch
+
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    same = torch.equal(a, b)
+    print(f"[kernels] {tag} twice on the same inputs: bit-identical {same}")
+    if not same:
+        raise AssertionError(f"{tag} is not deterministic")
+
+
+def _row(name, tag, source, replaces, err, run, plain, nbytes, ops, kernel,
+         spill_free=False):
     """Time a kernel (CUDA events, mean of 50 launches) and its plain
-    version (3), bound its work, print them and return its kernels-line row."""
+    version (3), bound its work, print them with the kernel's ptxas report
+    (`kernel`: a piece of its mangled name) and return its kernels-line row.
+    spill_free: fail unless ptxas reports no stack frame and no spills."""
     ms = _time_ms(run, 50)
     plain_ms = _time_ms(plain, 3, warm=1)
     bms, bby = _bound(nbytes, ops)
+    px = _ptxas(Path(source).stem, kernel)
     print(f"[kernels] {tag} {ms:.4f} ms (plain {plain_ms:.3f} ms), needs {nbytes} "
-          f"bytes, {ops} operations -> bound {bms:.4f} ms ({bby})")
+          f"bytes, {ops} operations -> bound {bms:.4f} ms ({bby}); {px['regs']} "
+          f"registers, {px['stack']} bytes stack frame, {px['spill_st']} / "
+          f"{px['spill_ld']} bytes spill stores / loads")
+    if spill_free and px["stack"] + px["spill_st"] + px["spill_ld"]:
+        raise AssertionError(f"{tag} spills to local memory: {px}")
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=bby, library_ms=None)
@@ -295,6 +349,7 @@ def kernel_phase(renderer, lp, K, xi, target):
     bargs = (cam, st.rec, st.bwd_nlive, st.bwd_ctmap, st.bwd_cpos, ref, acck, gb, meta)
     b_err = _check_dcam("K2b", prc.loss_bwd_compact_cuda(*bargs).sum(1),
                         prc.loss_bwd_compact_plain(*bargs).sum(1))
+    _check_repeat("K2b", lambda: prc.loss_bwd_compact_cuda(*bargs).sum(1))
     print(f"[kernels] start-pose loads: max tile count {int(st.counts.max())} "
           f"(cap {cfg.capacity}), max ncu {int(st.ncu.max())} (budget {cfg.compact_chunks})")
 
@@ -313,13 +368,14 @@ def kernel_phase(renderer, lp, K, xi, target):
              f_err, lambda: prc.loss_fwd_compact_cuda(*fargs),
              lambda: prc.loss_fwd_compact_plain(*fargs),
              w["fwd"][2] * CHUNK_BYTES + w["tiles"] * P * 4 + B * T * (P + 1) * 4 + maps,
-             _ops(w["fwd"], OPS_FWD_PAIR, OPS_FWD_LANE)),
+             _ops(w["fwd"], OPS_FWD_PAIR, OPS_FWD_LANE), "loss_fwd_compact_kernel"),
         # records of the live chunks and acc + ref of visited tiles in; parts out
         _row("loss_bwd_compact", "K2b", src, "easyhec_tpu/ops/pose_raster_compact.py:105",
              b_err, lambda: prc.loss_bwd_compact_cuda(*bargs),
              lambda: prc.loss_bwd_compact_plain(*bargs),
              w["K2b"][2] * CHUNK_BYTES + w["tiles"] * 2 * P * 4 + maps + B * nc * (4 + 48),
-             _ops(w["K2b"], OPS_BWD_PAIR, OPS_BWD_LANE)),
+             _ops(w["K2b"], OPS_BWD_PAIR, OPS_BWD_LANE), "loss_bwd_compact_kernel",
+             spill_free=True),
     ]
 
 
@@ -405,6 +461,7 @@ def dense_kernel_phase(renderer, lp, K, xi, target):
     bargs = (cam, rec, counts, ref, acck, gb, meta)
     k1b_err = _check_dcam("K1b", pr.loss_bwd_cuda(*bargs).sum(1),
                           pr.loss_bwd_plain(*bargs).sum(1))
+    _check_repeat("K1b", lambda: pr.loss_bwd_cuda(*bargs).sum(1))
 
     # K4f: the clipped image (tolerance of min(acc, 2)).
     sargs = (cam, rec, counts, meta)
@@ -423,6 +480,7 @@ def dense_kernel_phase(renderer, lp, K, xi, target):
     gargs = (cam, rec, counts, acc_s, g_t, meta)
     qpl = pr.sil_bwd_plain(*gargs).sum(1)
     k4b_err = _check_dcam("K4b", pr.sil_bwd_cuda(*gargs).sum(1), qpl)
+    _check_repeat("K4b", lambda: pr.sil_bwd_cuda(*gargs).sum(1))
     Tc = se3.exp(d0).detach().requires_grad_()
     n0 = pr.sil_bwd_cuda.launches
     sil = renderer.silhouette(Tc, lp, K, bin_state=st)
@@ -458,15 +516,18 @@ def dense_kernel_phase(renderer, lp, K, xi, target):
     at = "easyhec_tpu/ops/pose_raster.py:"
     return [
         _row("loss_fwd", "K1f", src, at + "648", k1f_err, lambda: pr.loss_fwd_cuda(*fargs),
-             lambda: pr.loss_fwd_plain(*fargs), fwd_bytes + B * T * 4, fwd_ops),
+             lambda: pr.loss_fwd_plain(*fargs), fwd_bytes + B * T * 4, fwd_ops,
+             "pose_fwd_kernelILb1E"),
         _row("loss_bwd", "K1b", src, at + "681", k1b_err, lambda: pr.loss_bwd_cuda(*bargs),
              lambda: pr.loss_bwd_plain(*bargs), bwd_bytes("K1b") + B * 4,
-             _ops(w["K1b"], OPS_BWD_PAIR, OPS_BWD_LANE)),
+             _ops(w["K1b"], OPS_BWD_PAIR, OPS_BWD_LANE), "pose_bwd_kernelILb1E",
+             spill_free=True),
         _row("sil_fwd", "K4f", src, at + "167", k4f_err, lambda: pr.sil_fwd_cuda(*sargs),
-             lambda: pr.sil_fwd_plain(*sargs), fwd_bytes, fwd_ops),
+             lambda: pr.sil_fwd_plain(*sargs), fwd_bytes, fwd_ops, "pose_fwd_kernelILb0E"),
         _row("sil_bwd", "K4b", src, at + "490", k4b_err, lambda: pr.sil_bwd_cuda(*gargs),
              lambda: pr.sil_bwd_plain(*gargs), bwd_bytes("K4b"),
-             _ops(w["K4b"], OPS_BWD_PAIR, OPS_BWD_LANE)),
+             _ops(w["K4b"], OPS_BWD_PAIR, OPS_BWD_LANE), "pose_bwd_kernelILb0E",
+             spill_free=True),
     ]
 
 
@@ -608,19 +669,21 @@ def unfused_kernel_phase(r, lp, K, xi, target):
         _row("tile_fwd", "K5f", src, "easyhec_tpu/ops/tile_raster.py:95", max(img_err, acc_err),
              lambda: tr.tile_fwd_cuda(rec, counts, meta),
              lambda: tr.tile_fwd_plain(rec, counts, meta),
-             w["fwd"][1] * chunk13 + B * T * 4 + 2 * img, w["fwd"][0] * OPS_FWD_PAIR),
+             w["fwd"][1] * chunk13 + B * T * 4 + 2 * img, w["fwd"][0] * OPS_FWD_PAIR,
+             "tile_fwd_kernel"),
         # records of the live chunks, acc and g of the live tiles in; dtri out
         _row("tile_bwd", "K5b", src, "easyhec_tpu/ops/tile_raster.py:121", d_err,
              lambda: tr.tile_bwd_cuda(*bargs), lambda: tr.tile_bwd_plain(*bargs),
              w["bwd"][1] * chunk13 + w["bwd_tiles"] * 2 * P * 4 + B * T * 4 + rec.numel() * 4,
-             w["bwd"][0] * OPS_BWD_PAIR),
+             w["bwd"][0] * OPS_BWD_PAIR, "tile_bwd_kernel"),
     ]
 
 
 def large_tile_phase():
-    """The repair: K1, K2 and K4 on 32×128 tiles (4096 pixels, four pixel
-    sub-blocks per tile) at the bench scene, against their plain versions,
-    with a cap above the measured tile loads."""
+    """K1, K2 and K4 on 32×128 tiles (4096 pixels: the forwards in four
+    pixel sub-blocks per tile, the backwards over one live list of up to
+    4096 pixels) at the bench scene, against their plain versions, with a
+    cap above the measured tile loads."""
     import torch
 
     from easyhec_torch.geometry import se3
@@ -641,7 +704,8 @@ def large_tile_phase():
     with torch.no_grad():
         target = (dense.silhouette(se3.exp(xi), lp, K) > 0.5).float()
     print(f"[kernels 32x128] tiles of {th}x{tw} ({th * tw} pixels, "
-          f"{pr.n_sub(pr.Meta(th, tw, 1, H, W))} pixel sub-blocks); start-pose max load "
+          f"{pr.n_sub(pr.Meta(th, tw, 1, H, W))} pixel sub-blocks in the forwards); "
+          "start-pose max load "
           f"{int(loads.max())} -> cap {cap}, compact budget {nc} chunks")
     meta = pr.Meta(th, tw, -(-W // tw), H, W, 1.0, 0.001, 10.0, True)
     cam = cam_rows(se3.exp(d0), K, B).contiguous()

@@ -32,13 +32,16 @@ struct Lane {
   bool valid;
 };
 
-__device__ __forceinline__ void lane_setup(const float* __restrict__ slot,
-                                           int64_t fstride,
-                                           const float* __restrict__ cam,
-                                           float x0, float y0, float near,
-                                           float far, Lane& L) {
+__device__ __forceinline__ void lane_load(const float* __restrict__ slot,
+                                          int64_t fstride, Lane& L) {
 #pragma unroll
   for (int f = 0; f < REC; ++f) L.X[f] = slot[f * fstride];
+}
+
+// The setup of a slot whose record lane_load has read into L.X.
+__device__ __forceinline__ void lane_project(const float* __restrict__ cam,
+                                             float x0, float y0, float near,
+                                             float far, Lane& L) {
   const float fx = cam[12], fy = cam[13], cx = cam[14], cy = cam[15];
   bool valid = true;
 #pragma unroll
@@ -81,6 +84,15 @@ __device__ __forceinline__ void lane_setup(const float* __restrict__ slot,
   L.loy = fminf(fminf(L.v[0], L.v[1]), L.v[2]);
   L.hiy = fmaxf(fmaxf(L.v[0], L.v[1]), L.v[2]);
   L.valid = valid;
+}
+
+__device__ __forceinline__ void lane_setup(const float* __restrict__ slot,
+                                           int64_t fstride,
+                                           const float* __restrict__ cam,
+                                           float x0, float y0, float near,
+                                           float far, Lane& L) {
+  lane_load(slot, fstride, L);
+  lane_project(cam, x0, y0, near, far, L);
 }
 
 // Pixel sub-blocks of a tile: each block takes at most MAX_THREADS pixels

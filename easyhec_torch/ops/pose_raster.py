@@ -439,10 +439,11 @@ MAX_THREADS = 1024  # pixels per block: csrc/pose_raster_common.cuh
 
 
 def n_sub(meta: Meta) -> int:
-    """Pixel sub-blocks per tile: the kernels take one thread per pixel and
-    at most MAX_THREADS pixels per block, so a larger tile runs as several
-    blocks, each writing its own loss or dTc partials."""
+    """Pixel sub-blocks per tile of the forward kernels: they take one
+    thread per pixel and at most MAX_THREADS pixels per block, so a larger
+    tile runs as several blocks, each writing its own loss partial."""
     return -(-meta.th * meta.tw // MAX_THREADS)
+
 
 
 def check_tile(meta: Meta):
@@ -511,8 +512,7 @@ def _bwd_launch(loss_mode, cam, rec, counts, acc, ref_tiles, gb, g, meta: Meta):
         check_tensor("gb", gb, torch.float32, (B,), dev)
     else:
         check_tensor("g", g, torch.float32, shape, dev)
-    parts = torch.empty((B, T, n_sub(meta), POSE_RECORD), dtype=torch.float32,
-                        device=dev)
+    parts = torch.empty((B, T, POSE_RECORD), dtype=torch.float32, device=dev)
     err = _lib().easyhec_pose_bwd(
         int(loss_mode), counts.data_ptr(), cam.data_ptr(), rec.data_ptr(),
         acc.data_ptr(), _ptr(ref_tiles), _ptr(gb), _ptr(g), parts.data_ptr(),
@@ -520,7 +520,7 @@ def _bwd_launch(loss_mode, cam, rec, counts, acc, ref_tiles, gb, g, meta: Meta):
         meta.sharpness, meta.near, meta.far, int(meta.band_only), _stream(dev),
     )
     raise_on(err, "pose_bwd kernel")
-    return parts.sum(dim=2)  # per-sub-block partials, summed in a fixed order
+    return parts
 
 
 def loss_fwd_cuda(cam, rec, counts, ref_tiles, meta: Meta):
@@ -532,7 +532,7 @@ def loss_fwd_cuda(cam, rec, counts, ref_tiles, meta: Meta):
 
 
 def loss_bwd_cuda(cam, rec, counts, ref_tiles, acc, gb, meta: Meta):
-    """K1b (one block per tile and pixel sub-block, one warp per triangle):
+    """K1b (one block per tile, one thread per record slot):
     -> parts [B, T, 12]."""
     parts = _bwd_launch(True, cam, rec, counts, acc, ref_tiles, gb, None, meta)
     loss_bwd_cuda.launches += 1
@@ -547,7 +547,7 @@ def sil_fwd_cuda(cam, rec, counts, meta: Meta):
 
 
 def sil_bwd_cuda(cam, rec, counts, acc, g, meta: Meta):
-    """K4b: image cotangent g [B, T, th, tw] -> parts [B, T, 12]."""
+    """K4b (as K1b): image cotangent g [B, T, th, tw] -> parts [B, T, 12]."""
     parts = _bwd_launch(False, cam, rec, counts, acc, None, None, g, meta)
     sil_bwd_cuda.launches += 1
     return parts

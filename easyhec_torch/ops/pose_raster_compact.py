@@ -177,8 +177,8 @@ def loss_fwd_compact_cuda(cam, rec, nlive, ctmap, ncu, ref_tiles, meta: Meta):
 
 
 def loss_bwd_compact_cuda(cam, rec, bnl, bct, bcp, ref_tiles, acc, gb, meta: Meta):
-    """CUDA backward (one block per backward chunk and pixel sub-block, one
-    warp per triangle):
+    """CUDA backward (one block per backward chunk, one thread per record
+    slot):
     -> parts [B, ncb, 12]."""
     dev = cam.device
     B, ncb = bnl.shape
@@ -192,8 +192,7 @@ def loss_bwd_compact_cuda(cam, rec, bnl, bct, bcp, ref_tiles, acc, gb, meta: Met
     check_tensor("ref_tiles", ref_tiles, torch.float32, (B, T, meta.th, meta.tw), dev)
     check_tensor("acc", acc, torch.float32, (B, T, meta.th, meta.tw), dev)
     check_tensor("gb", gb, torch.float32, (B,), dev)
-    parts = torch.empty((B, ncb, n_sub(meta), POSE_RECORD), dtype=torch.float32,
-                        device=dev)
+    parts = torch.empty((B, ncb, POSE_RECORD), dtype=torch.float32, device=dev)
     err = _lib().easyhec_loss_bwd_compact(
         bnl.data_ptr(), bct.data_ptr(), bcp.data_ptr(), cam.data_ptr(),
         gb.data_ptr(), rec.data_ptr(), ref_tiles.data_ptr(), acc.data_ptr(),
@@ -204,7 +203,7 @@ def loss_bwd_compact_cuda(cam, rec, bnl, bct, bcp, ref_tiles, acc, gb, meta: Met
     )
     raise_on(err, "loss_bwd_compact kernel")
     loss_bwd_compact_cuda.launches += 1
-    return parts.sum(dim=2)  # per-pixel-sub-block partials, fixed order
+    return parts
 
 
 loss_fwd_compact_cuda.launches = 0

@@ -260,6 +260,93 @@ def test_kernels_large_tiles_match_plain(dev, band_only):
     close(qk, qp, rtol=0, atol=1e-4 * qp.abs().max().item())
 
 
+# The backward kernels (K2b, K1b, K4b: one thread per record slot, the tile's
+# live cotangent pixels listed in shared memory, swept in passes of 4096
+# pixels) on inputs that reach each of their branches. The box and cylinder
+# are subdivided to 5 cm edges (2,496 triangles), so tiles hold up to 20
+# chunks, walked by one block (cap 4096), most counts are no multiple of
+# 128, and the compact budget of
+# 64 chunks leaves padding chunks (nlive = 0). The reference is uniform in
+# [0.1, 0.9], so without band_only every pixel with acc <= 1 is live (over
+# 1024 pixels per 32x128 tile; 64x128 tiles take two passes of the list).
+# Frame 1 has no live pixel (its reference is its own clipped coverage, its
+# image cotangent zero); frame 2 looks away from the arm (every triangle
+# behind the near plane, every slot invalid). Tolerance: dcam within
+# 1e-3 of max|dcam| (summation order over slots and pixels); two launches
+# on the same inputs agree bit for bit (fixed-order sums, no atomics).
+@pytest.mark.parametrize("th,tw,band_only", [(16, 32, True), (32, 128, False),
+                                             (32, 128, True), (64, 128, False)])
+def test_bwd_kernels_branches(dev, th, tw, band_only):
+    from easyhec_torch.robot.mesh import subdivide_to_max_edge
+
+    meshes = [subdivide_to_max_edge(make_box((0.15, 0.15, 0.3)), 0.05),
+              subdivide_to_max_edge(make_cylinder(0.05, 0.4, sections=12), 0.05)]
+    rng = np.random.default_rng(4)
+    B = 3
+    lp = np.tile(np.eye(4, dtype=np.float32), (B, 2, 1, 1))
+    lp[:, 1, 2, 3] = 0.3
+    lp[1:, 1, :3, 3] += rng.uniform(-0.2, 0.2, (B - 1, 3)).astype(np.float32)
+    lpt = torch.from_numpy(lp).to(dev)
+    K = torch.tensor([[150.0, 0, 100], [0, 150.0, 40], [0, 0, 1]], device=dev)
+    xi = torch.tensor([0.02, -0.03, 1.2, 0.05, -0.08, 0.03], device=dev)
+    tile = TileConfig(th, tw, 4096, binner="count", fused=True, margin=2.0,
+                      compact_chunks=64, bwd_band_only=band_only)
+    n_tx = -(-WB // tw)
+    T = -(-HB // th) * n_tx
+    meta = pr.Meta(th, tw, n_tx, HB, WB, 1.0, 0.001, 10.0, band_only)
+    cam = cam_rows(se3.exp(xi + 0.01), K, B).clone()
+    cam[2, 8:12] = -cam[2, 8:12]  # frame 2: every camera z < 0
+    cam = cam.contiguous()
+    ref = torch.from_numpy(rng.uniform(0.1, 0.9, (B, T, th, tw)).astype(np.float32)).to(dev)
+    gb = torch.linspace(0.5, 1.5, B, device=dev)
+
+    def check(name, fn, plain_fn, args):
+        k1, k2 = fn(*args), fn(*args)
+        want = plain_fn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(k1, k2), f"{name}: two launches differ"
+        assert (k1[1:] == 0).all() and (want[1:] == 0).all(), name  # frames 1, 2
+        scale = want.sum(1).abs().max().item()
+        assert scale > 0
+        np.testing.assert_allclose(k1.sum(1).cpu().numpy(), want.sum(1).cpu().numpy(),
+                                   rtol=0, atol=1e-3 * scale, err_msg=name)
+        return k1
+
+    # dense K1b / K4b
+    dst = build_fused_state(RobotRenderer(meshes, HB, WB, tile=tile._replace(compact_chunks=0),
+                                          device=dev), se3.exp(xi), lpt, K)
+    assert not bool(dst.overflow.any())
+    rec, counts = pr._pad_records(dst.rec, dst.counts), pr.i32(dst.counts)
+    assert ((counts > 128) & (counts % 128 != 0)).any()
+    acc = pr.loss_fwd_cuda(cam, rec, counts, ref, meta)[1]
+    ref_d = ref.clone()
+    ref_d[1] = acc[1].clamp(0.0, 1.0)  # frame 1: e = 0 on every pixel
+    gp = pr.loss_cotangent(acc.reshape(B, T, -1), ref_d.reshape(B, T, -1), gb[:, None, None],
+                           torch.arange(T, device=dev), meta)
+    live = (gp != 0).sum(-1)
+    assert (live[1] == 0).all() and live[0].max() > 0
+    if not band_only and th * tw >= 4096:
+        assert live[0].max() > 1024
+    check("K1b", pr.loss_bwd_cuda, pr.loss_bwd_plain, (cam, rec, counts, ref_d, acc, gb, meta))
+    _, acc_s = pr.sil_fwd_cuda(cam, rec, counts, meta)
+    g = torch.randn(acc_s.shape, generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev)
+    g[1] = 0.0
+    check("K4b", pr.sil_bwd_cuda, pr.sil_bwd_plain, (cam, rec, counts, acc_s, g, meta))
+
+    # compact K2b, with padding chunks
+    cst = build_compact_state(RobotRenderer(meshes, HB, WB, tile=tile, device=dev),
+                              se3.exp(xi), lpt, K)
+    assert not bool(cst.overflow) and (cst.bwd_nlive == 0).any()
+    acc_c = prc.loss_fwd_compact_cuda(cam, cst.rec, cst.nlive, cst.ctmap, cst.ncu, ref,
+                                      meta)[1]
+    ref_c = ref.clone()
+    ref_c[1] = acc_c[1].clamp(0.0, 1.0)
+    cargs = (cam, cst.rec, cst.bwd_nlive, cst.bwd_ctmap, cst.bwd_cpos, ref_c, acc_c, gb, meta)
+    ck = check("K2b", prc.loss_bwd_compact_cuda, prc.loss_bwd_compact_plain, cargs)
+    assert (ck[cst.bwd_nlive == 0] == 0).all()
+
+
 # The unfused tile rasterizer (K5) on real records of the unfused route.
 UNFUSED = TileConfig(16, 32, 200, binner="count", margin=2.0)
 
