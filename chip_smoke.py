@@ -22,11 +22,15 @@ Phases, in order (any failure exits non-zero):
    RobotRenderer.silhouette; the unfused rasterizer K5f (image, min(acc, 2))
    and K5b (dtri, and dTc through autograd on RobotRenderer.silhouette).
    Each kernel's CUDA-event time (device time: the calls are queued behind
-   a device sleep), its plain version's, its bound for this data, and its
-   registers, stack and spill bytes from nvcc's -Xptxas -v log (the
-   backwards K2b, K1b and K4b must not spill). K2b, K1b and K4b run twice
-   on the same inputs and must give bit-identical dcam. Then K1,
-   K2 and K4 on 32x128 tiles (the forwards in four pixel sub-blocks per
+   a device sleep), its plain version's, its bound for this data (only the
+   lane-pixel pairs in each lane's band-dilated bbox, the whole-tile count
+   printed beside it, and the records of the live slots), and its
+   registers, stack and spill bytes from nvcc's -Xptxas -v log (the six
+   fused kernels must not spill). The six fused kernels run twice on the
+   same inputs and must repeat bit for bit; the forwards' min(acc, 2) is
+   compared bit for bit with the plain version's slot-order sum (printed).
+   K3 (compact_tile_acc) is checked at the GT pose. Then K1, K2 (with K3)
+   and K4 on 32x128 tiles (the forwards in 16 regions of 8x32 pixels per
    tile, the backwards over one 4096-pixel live list) against their plain
    versions.
 3. Main paths: ``calibrate`` at the bench scene on the compact, dense and
@@ -38,7 +42,8 @@ Phases, in order (any failure exits non-zero):
 5. Silhouette gradient path: Adam steps on Σ(RobotRenderer.silhouette −
    mask)² through autograd: one K4f and one K4b launch per step.
 6. Global search: ``global_search_init`` at its defaults on frame 0 (K5f
-   251 launches, K5b 200); then ``run_offline_calibration`` on the compact
+   251 launches, K5b 200), then K5f and K5b timed against their plain
+   versions at its shapes; then ``run_offline_calibration`` on the compact
    route with init_method="global_search" (the overflow pre-check adds one
    K5f).
 7. Reference checks on small inputs, compact, dense and unfused, and a
@@ -76,7 +81,8 @@ FP32_OPS_PER_S = 67e12  # H100 SXM, non-tensor FP32
 # (~40); per-lane setup ~120 ops, the backward's chain ~100 more.
 OPS_FWD_PAIR, OPS_BWD_PAIR = 27, 40
 OPS_FWD_LANE, OPS_BWD_LANE = 120, 220
-CHUNK_BYTES = 12 * 128 * 4  # one chunk of records
+SLOT_BYTES = 12 * 4  # one record slot of the fused kernels (12 fields)
+K5_SLOT_BYTES = 13 * 4  # the 13 fields of a K5 record slot that K5 reads
 
 
 def _fail(msg: str) -> int:
@@ -166,23 +172,31 @@ def _needed_work(cam, frames, gps, meta):
     frames: per frame, (blk [n, 12, 128] record chunks in tile order, ct [n]
     their tiles, nlive [n] their live slots); gps: {name: [B, T, P]} the
     masked cotangents of the backward kernels. A lane-pixel pair counts when
-    its lane is a live slot whose coverage can be nonzero in its tile (valid,
-    bbox within the soft band of the tile); lanes are the live slots set up.
-    Forward chunks that the saturation early-out skips, and backward chunks
-    with no live cotangent pixel, are not counted. A tile is visited when it
-    has a live slot: the backward needs acc and ref (or g) of visited tiles
-    only, since the parts of the others are zero. Returns {"fwd": [pairs,
-    lanes, chunks], name: [pairs, lanes, chunks], "tiles": visited tiles}."""
+    its lane is a live slot whose coverage can be nonzero at the pixel: the
+    pixel centre lies in the lane's bbox dilated by the soft band
+    0.5/sharpness (band_mask; every other pair has exactly zero coverage),
+    and, for a backward, the pixel's cotangent is live. The same pairs under
+    the earlier whole-tile rule (every pixel of the tile, or every live
+    pixel, for each lane whose band-dilated bbox reaches the tile) are kept
+    beside them. Lanes are the live slots set up: the records a kernel must
+    read (SLOT_BYTES each). Forward chunks that the
+    saturation early-out skips, and backward chunks with no live cotangent
+    pixel, are not counted. A tile is visited when it has a live slot: the
+    backward needs acc and ref (or g) of visited tiles only, since the parts
+    of the others are zero. Returns {"fwd": [pairs, lanes, chunks,
+    whole-tile pairs], name: [...], "tiles": visited tiles, "heavy": [lanes
+    reaching it, forward pairs] of the tile with the most such lanes}."""
     import torch
 
     from easyhec_torch.ops.pose_raster import (
-        CHUNK, _chunk_coverage, _chunk_setup, pix_grids, tile_origin,
+        CHUNK, _chunk_coverage, _chunk_setup, band_mask, pix_grids, tile_origin,
     )
 
     dev = cam.device
     px, py = pix_grids(meta.th, meta.tw, dev)
     reach = 0.5 / meta.sharpness + 1.0
-    work = {"fwd": [0, 0, 0], "tiles": 0, **{k: [0, 0, 0] for k in gps}}
+    work = {"fwd": [0, 0, 0, 0], "tiles": 0, "heavy": [0, 0],
+            **{k: [0, 0, 0, 0] for k in gps}}
     for b, (blk, ct, nl) in enumerate(frames):
         n = ct.numel()
         if n == 0:
@@ -193,6 +207,7 @@ def _needed_work(cam, frames, gps, meta):
         lox, loy, hix, hiy = s["bbox"]
         ok = (s["valid"] & live_slot & (hix + reach > 0) & (lox - reach < meta.tw)
               & (hiy + reach > 0) & (loy - reach < meta.th))
+        band = band_mask(s, px, py, meta.sharpness) & live_slot[..., None]  # [n, C, P]
         cov, *_ = _chunk_coverage(s, px, py, meta.sharpness)
         delta = torch.einsum("ncp,nc->np", cov, live_slot.float())
         ar = torch.arange(n, device=dev)
@@ -203,16 +218,27 @@ def _needed_work(cam, frames, gps, meta):
         base = torch.where((start > 0)[:, None], cs[(start - 1).clamp(min=0)], 0.0)
         run = (nl > 0) & ~((cs - delta - base).amin(dim=-1) >= 2.0)
         nok, nslot = ok.sum(-1), live_slot.sum(-1)
-        uses = {"fwd": (run, nok * meta.th * meta.tw)}  # (chunks run, pairs)
+        fwd_pairs = band.sum(dim=(-2, -1))
+        # (chunks run, pairs, whole-tile pairs)
+        uses = {"fwd": (run, fwd_pairs, nok * meta.th * meta.tw)}
         for k, gp in gps.items():
-            live_px = (gp[b][ct] != 0).sum(dim=-1)
-            uses[k] = ((nl > 0) & (live_px > 0), nok * live_px)
-        for k, (use, pairs) in uses.items():
+            live = gp[b][ct] != 0  # [n, P]
+            live_px = live.sum(dim=-1)
+            uses[k] = ((nl > 0) & (live_px > 0), (band & live[:, None, :]).sum(dim=(-2, -1)),
+                       nok * live_px)
+        for k, (use, pairs, tile_pairs) in uses.items():
             w = work[k]
             w[0] += int((pairs * use).sum())
             w[1] += int((nslot * use).sum())
             w[2] += int(use.sum())
+            w[3] += int((tile_pairs * use).sum())
         work["tiles"] += int(torch.unique(ct[nl > 0]).numel())
+        T = int(ct.max()) + 1
+        lanes_t = torch.zeros(T, dtype=torch.long, device=dev).index_add_(0, ct, nok)
+        pairs_t = torch.zeros(T, dtype=torch.long, device=dev).index_add_(0, ct, fwd_pairs)
+        h = int(torch.argmax(lanes_t))
+        if int(lanes_t[h]) > work["heavy"][0]:
+            work["heavy"] = [int(lanes_t[h]), int(pairs_t[h])]
     return work
 
 
@@ -232,14 +258,12 @@ def _check_loss_fwd(tag, got, want):
     frame_rel = ((fk - fp).abs() / fp.abs().clamp(min=1e-6)).max().item()
     acc_err = (acck.clamp(max=2) - accp.clamp(max=2)).abs().max().item()
     # Tolerances: the per-frame loss sums 512 pixels x ~600 tiles in another
-    # order (rtol 1e-4). acc sums up to ~1,300 lane coverages per pixel, and
-    # nvcc contracts each edge function a*px + b*py + c into FMAs, which
-    # rounds differently by ~1e-6 per term (|c| is up to the tile size):
-    # atol 1e-3 on min(acc, 2).
+    # order (rtol 1e-4). acc sums up to ~1,300 lane coverages per pixel in
+    # slot order, the plain version over each chunk's lanes first: atol 1e-3
+    # on min(acc, 2).
     print(f"[kernels] {tag} loss: max abs err per tile {err:.3e}, per frame rel "
           f"{frame_rel:.3e} (tol rtol 1e-4); min(acc,2) max abs err {acc_err:.3e} "
-          "(tol 1e-3). Reason: summation order over lanes, pixels and tiles; FMA "
-          "contraction of the edge functions")
+          "(tol 1e-3). Reason: summation order over lanes, pixels and tiles")
     if not (frame_rel <= 1e-4 and acc_err <= 1e-3):
         raise AssertionError(f"{tag} disagrees with its plain version")
     return err
@@ -282,8 +306,8 @@ def _ptxas(source, kernel):
 
 
 def _check_repeat(tag, run):
-    """Two launches of a backward on the same inputs: bit-identical dcam
-    (fixed-order sums, no atomics)."""
+    """Two launches of a kernel on the same inputs: bit-identical outputs
+    (fixed-order sums, no atomics); run returns one tensor."""
     import torch
 
     a, b = run(), run()
@@ -292,6 +316,64 @@ def _check_repeat(tag, run):
     print(f"[kernels] {tag} twice on the same inputs: bit-identical {same}")
     if not same:
         raise AssertionError(f"{tag} is not deterministic")
+
+
+def _fwd_out(out):
+    """A forward's (per-tile loss or image, acc) as one tensor, acc clamped
+    at 2 (acc >= 2 is unspecified): what two launches must repeat."""
+    import torch
+
+    return torch.cat([out[0].flatten(), out[1].clamp(max=2).flatten()])
+
+
+def _lane_order_acc(cam, frames, meta, T):
+    """The plain version's coverage summed lane after lane, in slot order
+    per tile (the order of the forward kernels' sums), each pair through
+    _chunk_setup and _chunk_coverage: [B, T, th, tw]. frames as for
+    _needed_work."""
+    import torch
+
+    from easyhec_torch.ops.pose_raster import CHUNK, _chunk_coverage, _chunk_setup, \
+        pix_grids, tile_origin
+
+    B, P = len(frames), meta.th * meta.tw
+    dev = cam.device
+    px, py = pix_grids(meta.th, meta.tw, dev)
+    acc = torch.zeros((B * T, P), dtype=torch.float32, device=dev)
+    for b, (blk, ct, nl) in enumerate(frames):
+        keep = nl > 0
+        blk, ct, nl = blk[keep], ct[keep], nl[keep]
+        n = ct.numel()
+        if n == 0:
+            continue
+        x0, y0 = tile_origin(ct, meta.n_tx, meta.th, meta.tw)
+        s = _chunk_setup(blk, cam[b].expand(n, 16), x0, y0, meta.near, meta.far)
+        cov, *_ = _chunk_coverage(s, px, py, meta.sharpness)  # [n, C, P]
+        cov = cov * (torch.arange(CHUNK, device=dev) < nl[:, None])[..., None]
+        first = torch.ones(n, dtype=torch.bool, device=dev)
+        first[1:] = ct[1:] != ct[:-1]
+        ar = torch.arange(n, device=dev)
+        j = ar - torch.cummax(torch.where(first, ar, 0), 0)[0]  # chunk index in its tile
+        for jj in range(int(j.max()) + 1):
+            sel = j == jj
+            rows, cj = b * T + ct[sel], cov[sel]
+            for lane in range(CHUNK):
+                acc[rows] = acc[rows] + cj[:, lane]
+    return acc.reshape(B, T, meta.th, meta.tw)
+
+
+def _check_lane_order(tag, acc_k, acc_lo):
+    """Whether min(acc, 2) of a forward kernel equals, bit for bit, the
+    plain version's slot-order sum (printed, not held: it holds if every
+    skipped pair is an exact zero and every kept pair rounds as the plain
+    version's ops do)."""
+    import torch
+
+    torch.cuda.synchronize()
+    a, b = acc_k.clamp(max=2), acc_lo.clamp(max=2)
+    same = torch.equal(a, b)
+    print(f"[kernels] {tag} min(acc, 2) bit-identical to the plain version's slot-order "
+          f"sum: {same} (max abs diff {(a - b).abs().max().item():.3e})")
 
 
 def _row(name, tag, source, replaces, err, run, plain, nbytes, ops, kernel,
@@ -317,9 +399,12 @@ def _row(name, tag, source, replaces, err, run, plain, nbytes, ops, kernel,
 
 def _print_work(route, w):
     print(f"[kernels] {route} work at the start pose: forward {w['fwd'][0]} lane-pixel "
-          f"pairs over {w['fwd'][2]} chunks; {w['tiles']} visited tiles; backward "
-          + ", ".join(f"{k} {v[0]} live pairs over {v[2]} chunks"
-                      for k, v in w.items() if k not in ("fwd", "tiles")))
+          f"pairs in the lanes' band-dilated bboxes (whole-tile rule {w['fwd'][3]}) over "
+          f"{w['fwd'][1]} live slots in {w['fwd'][2]} chunks; {w['tiles']} visited tiles; "
+          f"heaviest tile {w['heavy'][0]} lanes reaching it, {w['heavy'][1]} pairs; backward "
+          + ", ".join(f"{k} {v[0]} live pairs (whole-tile rule {v[3]}) over {v[1]} live slots "
+                      f"in {v[2]} chunks"
+                      for k, v in w.items() if k not in ("fwd", "tiles", "heavy")))
 
 
 def kernel_phase(renderer, lp, K, xi, target):
@@ -344,6 +429,7 @@ def kernel_phase(renderer, lp, K, xi, target):
     fargs = (cam, st.rec, st.nlive, st.ctmap, st.ncu, ref, meta)
     got = prc.loss_fwd_compact_cuda(*fargs)
     f_err = _check_loss_fwd("K2f", got, prc.loss_fwd_compact_plain(*fargs))
+    _check_repeat("K2f", lambda: _fwd_out(prc.loss_fwd_compact_cuda(*fargs)))
     acck = got[1]
     gb = torch.full((B,), 1.0 / B, device=cam.device)
     bargs = (cam, st.rec, st.bwd_nlive, st.bwd_ctmap, st.bwd_cpos, ref, acck, gb, meta)
@@ -356,6 +442,7 @@ def kernel_phase(renderer, lp, K, xi, target):
     T, P, nc = ref.shape[1], TH * TW, st.nlive.shape[1]
     frames = [(prc._chunks_of(st.rec[b]), st.ctmap[b].long(), st.nlive[b].long())
               for b in range(B)]
+    _check_lane_order("K2f", acck, _lane_order_acc(cam, frames, meta, T))
     gp = loss_cotangent(acck.reshape(B, T, P), ref.reshape(B, T, P), gb[:, None, None],
                         torch.arange(T, device=cam.device), meta)
     w = _needed_work(cam, frames, {"K2b": gp}, meta)
@@ -363,44 +450,43 @@ def kernel_phase(renderer, lp, K, xi, target):
     maps = B * (nc * 8 + 4 + 64)  # nlive and ctmap (or cpos), ncu (or gb), cam
     src = "easyhec_torch/ops/csrc/pose_raster_compact.cu"
     return [
-        # records of the chunks run and ref of visited tiles in; acc and loss out
+        # records of the live slots run and ref of visited tiles in; acc and loss out
         _row("loss_fwd_compact", "K2f", src, "easyhec_tpu/ops/pose_raster_compact.py:66",
              f_err, lambda: prc.loss_fwd_compact_cuda(*fargs),
              lambda: prc.loss_fwd_compact_plain(*fargs),
-             w["fwd"][2] * CHUNK_BYTES + w["tiles"] * P * 4 + B * T * (P + 1) * 4 + maps,
-             _ops(w["fwd"], OPS_FWD_PAIR, OPS_FWD_LANE), "loss_fwd_compact_kernel"),
-        # records of the live chunks and acc + ref of visited tiles in; parts out
+             w["fwd"][1] * SLOT_BYTES + w["tiles"] * P * 4 + B * T * (P + 1) * 4 + maps,
+             _ops(w["fwd"], OPS_FWD_PAIR, OPS_FWD_LANE), "loss_fwd_compact_kernel",
+             spill_free=True),
+        # records of the live slots and acc + ref of visited tiles in; parts out
         _row("loss_bwd_compact", "K2b", src, "easyhec_tpu/ops/pose_raster_compact.py:105",
              b_err, lambda: prc.loss_bwd_compact_cuda(*bargs),
              lambda: prc.loss_bwd_compact_plain(*bargs),
-             w["K2b"][2] * CHUNK_BYTES + w["tiles"] * 2 * P * 4 + maps + B * nc * (4 + 48),
+             w["K2b"][1] * SLOT_BYTES + w["tiles"] * 2 * P * 4 + maps + B * nc * (4 + 48),
              _ops(w["K2b"], OPS_BWD_PAIR, OPS_BWD_LANE), "loss_bwd_compact_kernel",
              spill_free=True),
     ]
 
 
-def check_tile_acc(renderer, K, xi, st):
-    """compact_tile_acc (the forward kernel with a zero reference, which
-    rendered the target masks) against the plain forward at the GT pose."""
+def check_tile_acc(tag, cam, st, th, tw):
+    """compact_tile_acc (K3: the compact forward kernel with a zero
+    reference, which renders the target masks) against the plain forward
+    on the compact bin state st of th x tw tiles."""
     import torch
 
-    from easyhec_torch.geometry import se3
     from easyhec_torch.ops import pose_raster_compact as prc
-    from easyhec_torch.render.fused import cam_rows
 
-    T = st.counts.shape[1]
-    cam = cam_rows(se3.exp(xi), K, B).contiguous()
-    acc_k = prc.compact_tile_acc(cam, st.rec, st.nlive, st.ctmap, st.ncu, T, TH, TW,
-                                 -(-W // TW), H, W)
+    T, n_tx = st.counts.shape[1], -(-W // tw)
+    acc_k = prc.compact_tile_acc(cam, st.rec, st.nlive, st.ctmap, st.ncu, T, th, tw,
+                                 n_tx, H, W)
     zeros = torch.zeros_like(acc_k)
-    meta = prc.Meta(TH, TW, -(-W // TW), H, W)
+    meta = prc.Meta(th, tw, n_tx, H, W)
     _, acc_p = prc.loss_fwd_compact_plain(cam, st.rec, st.nlive, st.ctmap, st.ncu,
                                           zeros, meta)
     err = (acc_k.clamp(max=2) - acc_p.clamp(max=2)).abs().max().item()
-    print(f"[kernels] compact_tile_acc (K2f, zero reference): min(acc,2) max abs "
+    print(f"[kernels] {tag} compact_tile_acc (K2f, zero reference): min(acc,2) max abs "
           f"err {err:.3e} (tol 1e-3, as for K2f)")
     if not err <= 1e-3:
-        raise AssertionError("compact_tile_acc disagrees with the plain forward")
+        raise AssertionError(f"{tag} compact_tile_acc disagrees with the plain forward")
 
 
 def _dense_frames(rec, counts):
@@ -456,6 +542,9 @@ def dense_kernel_phase(renderer, lp, K, xi, target):
     fargs = (cam, rec, counts, ref, meta)
     got = pr.loss_fwd_cuda(*fargs)
     k1f_err = _check_loss_fwd("K1f", got, pr.loss_fwd_plain(*fargs))
+    _check_repeat("K1f", lambda: _fwd_out(pr.loss_fwd_cuda(*fargs)))
+    frames = _dense_frames(rec, counts)
+    _check_lane_order("K1f", got[1], _lane_order_acc(cam, frames, meta, T))
     acck = got[1]
     gb = torch.full((B,), 1.0 / B, device=cam.device)
     bargs = (cam, rec, counts, ref, acck, gb, meta)
@@ -472,6 +561,9 @@ def dense_kernel_phase(renderer, lp, K, xi, target):
     print(f"[kernels] K4f image: max abs err {k4f_err:.3e} (tol 1e-3, as min(acc,2))")
     if not k4f_err <= 1e-3:
         raise AssertionError("K4f disagrees with its plain version")
+    _check_repeat("K4f", lambda: _fwd_out(pr.sil_fwd_cuda(*sargs)))
+    if not torch.equal(acc_s.clamp(max=2), acck.clamp(max=2)):
+        raise AssertionError("K4f's min(acc, 2) is not K1f's")
 
     # K4b: the cotangent of mean Σ(sil − target)², through the wrapper and
     # through autograd on RobotRenderer.silhouette (same bin state).
@@ -502,28 +594,29 @@ def dense_kernel_phase(renderer, lp, K, xi, target):
                                  gb[:, None, None], torch.arange(T, device=cam.device), meta),
         "K4b": pr.image_cotangent(acc_s, g_t, meta).reshape(B, T, P),
     }
-    w = _needed_work(cam, _dense_frames(rec, counts), gps, meta)
+    w = _needed_work(cam, frames, gps, meta)
     _print_work("dense", w)
     img = B * T * P * 4
     small = B * T * 4 + B * 64  # counts, cam
-    fwd_bytes = w["fwd"][2] * CHUNK_BYTES + small + 2 * img  # + (K1f) ref in, or image out
+    fwd_bytes = w["fwd"][1] * SLOT_BYTES + small + 2 * img  # + (K1f) ref in, or image out
     fwd_ops = _ops(w["fwd"], OPS_FWD_PAIR, OPS_FWD_LANE)
 
-    def bwd_bytes(k):  # records of the live chunks, acc + ref (or g) of visited tiles; parts out
-        return w[k][2] * CHUNK_BYTES + w["tiles"] * 2 * P * 4 + small + B * T * 48
+    def bwd_bytes(k):  # records of the live slots, acc + ref (or g) of visited tiles; parts out
+        return w[k][1] * SLOT_BYTES + w["tiles"] * 2 * P * 4 + small + B * T * 48
 
     src = "easyhec_torch/ops/csrc/pose_raster.cu"
     at = "easyhec_tpu/ops/pose_raster.py:"
     return [
         _row("loss_fwd", "K1f", src, at + "648", k1f_err, lambda: pr.loss_fwd_cuda(*fargs),
              lambda: pr.loss_fwd_plain(*fargs), fwd_bytes + B * T * 4, fwd_ops,
-             "pose_fwd_kernelILb1E"),
+             "pose_fwd_kernelILb1E", spill_free=True),
         _row("loss_bwd", "K1b", src, at + "681", k1b_err, lambda: pr.loss_bwd_cuda(*bargs),
              lambda: pr.loss_bwd_plain(*bargs), bwd_bytes("K1b") + B * 4,
              _ops(w["K1b"], OPS_BWD_PAIR, OPS_BWD_LANE), "pose_bwd_kernelILb1E",
              spill_free=True),
         _row("sil_fwd", "K4f", src, at + "167", k4f_err, lambda: pr.sil_fwd_cuda(*sargs),
-             lambda: pr.sil_fwd_plain(*sargs), fwd_bytes, fwd_ops, "pose_fwd_kernelILb0E"),
+             lambda: pr.sil_fwd_plain(*sargs), fwd_bytes, fwd_ops, "pose_fwd_kernelILb0E",
+             spill_free=True),
         _row("sil_bwd", "K4b", src, at + "490", k4b_err, lambda: pr.sil_bwd_cuda(*gargs),
              lambda: pr.sil_bwd_plain(*gargs), bwd_bytes("K4b"),
              _ops(w["K4b"], OPS_BWD_PAIR, OPS_BWD_LANE), "pose_bwd_kernelILb0E",
@@ -553,14 +646,18 @@ def _k5_records(r, lp, K, Tc, state=None):
 
 def _k5_work(rec, counts, gp, meta):
     """The work that THIS data needs from K5, by the rule of _needed_work: a
-    lane-pixel pair counts when its slot is live and its band-dilated bbox
-    reaches the tile; forward chunks that the saturation early-out skips are
-    not counted; the backward visits only the live cotangent pixels of its
-    tile (gp [B, T, P] = g·1{acc <= 1}). Returns {"fwd": [pairs, chunks],
-    "bwd": [pairs, chunks], "bwd_tiles": tiles with a live pixel}."""
+    lane-pixel pair counts when its slot is live and the pixel centre lies
+    in its bbox dilated by the soft band 0.5/sharpness (and, for the
+    backward, the pixel's cotangent is live); forward chunks that the
+    saturation early-out skips are not counted; the backward visits only
+    the live cotangent pixels of its tile (gp [B, T, P] = g·1{acc <= 1}).
+    Returns {"fwd": [pairs, chunks, whole-tile pairs, live slots], "bwd":
+    [pairs, chunks, whole-tile pairs, live slots], "bwd_tiles": tiles with a
+    live pixel}; the whole-tile pairs count every pixel (every live pixel) of
+    the tile for each live slot whose band-dilated bbox reaches the tile."""
     import torch
 
-    from easyhec_torch.ops.pose_raster import pix_grids
+    from easyhec_torch.ops.pose_raster import band_mask, pix_grids
     from easyhec_torch.ops.tile_raster import CHUNK, TRI_RECORD, _blocks, _chunk_coverage, \
         _used_chunks
 
@@ -572,12 +669,22 @@ def _k5_work(rec, counts, gp, meta):
     dev = rec.device
     reach = 0.5 / meta.sharpness + 1.0
     live = torch.arange(CHUNK, device=dev)[None, :] < rem[:, None]
-    ok = (live & (blk[:, 11] + reach > 0) & (blk[:, 9] - reach < meta.tw)
-          & (blk[:, 12] + reach > 0) & (blk[:, 10] - reach < meta.th))
-    nok = ok.sum(-1)
+    lox, loy, hix, hiy = (blk[:, f] for f in (9, 10, 11, 12))
+    ok = (live & (hix + reach > 0) & (lox - reach < meta.tw)
+          & (hiy + reach > 0) & (loy - reach < meta.th))
+    nok, nlv = ok.sum(-1), live.sum(-1)
     px, py = pix_grids(meta.th, meta.tw, dev)
-    delta = torch.cat([_chunk_coverage(blk[a:b], rem[a:b], px, py, meta.sharpness)[0].sum(1)
-                       for a, b in _blocks(tile.numel(), P)])
+    live_g = gp.reshape(B * T, P) != 0
+    live_px = live_g.sum(-1)[tile]
+    pairs = torch.zeros((2, tile.numel()), dtype=torch.long, device=dev)
+    deltas = []
+    for a, b in _blocks(tile.numel(), P):
+        deltas.append(_chunk_coverage(blk[a:b], rem[a:b], px, py, meta.sharpness)[0].sum(1))
+        s = {"valid": live[a:b], "bbox": tuple(x[a:b] for x in (lox, loy, hix, hiy))}
+        inb = band_mask(s, px, py, meta.sharpness)  # [n, C, P]
+        pairs[0, a:b] = inb.sum(dim=(-2, -1))
+        pairs[1, a:b] = (inb & live_g[tile[a:b]][:, None, :]).sum(dim=(-2, -1))
+    delta = torch.cat(deltas)
     n = tile.numel()
     ar = torch.arange(n, device=dev)
     first = torch.ones(n, dtype=torch.bool, device=dev)
@@ -586,11 +693,20 @@ def _k5_work(rec, counts, gp, meta):
     cs = torch.cumsum(delta, dim=0)
     base = torch.where((start > 0)[:, None], cs[(start - 1).clamp(min=0)], 0.0)
     run = ~((cs - delta - base).amin(dim=-1) >= 2.0)
-    live_px = (gp.reshape(B * T, P) != 0).sum(-1)[tile]
     use = live_px > 0
-    return {"fwd": [int((nok * P * run).sum()), int(run.sum())],
-            "bwd": [int((nok * live_px * use).sum()), int(use.sum())],
-            "bwd_tiles": int((gp.reshape(B * T, P) != 0).any(-1).sum())}
+    return {"fwd": [int((pairs[0] * run).sum()), int(run.sum()), int((nok * P * run).sum()),
+                    int((nlv * run).sum())],
+            "bwd": [int((pairs[1] * use).sum()), int(use.sum()),
+                    int((nok * live_px * use).sum()), int((nlv * use).sum())],
+            "bwd_tiles": int(live_g.any(-1).sum())}
+
+
+def _print_k5_work(what, w):
+    print(f"[kernels] {what}: forward {w['fwd'][0]} lane-pixel pairs in the lanes' "
+          f"band-dilated bboxes (whole-tile rule {w['fwd'][2]}) over {w['fwd'][3]} live "
+          f"slots in {w['fwd'][1]} chunks; backward {w['bwd'][0]} live pairs (whole-tile rule "
+          f"{w['bwd'][2]}) over {w['bwd'][3]} live slots in {w['bwd'][1]} chunks in "
+          f"{w['bwd_tiles']} tiles")
 
 
 def unfused_kernel_phase(r, lp, K, xi, target):
@@ -658,32 +774,30 @@ def unfused_kernel_phase(r, lp, K, xi, target):
     P = TH * TW
     gp = (g_t * (acck <= 1.0).float()).reshape(B, T, P)
     w = _k5_work(rec, counts, gp, meta)
-    print(f"[kernels] unfused work at the start pose: forward {w['fwd'][0]} lane-pixel pairs "
-          f"over {w['fwd'][1]} chunks; backward {w['bwd'][0]} live pairs over {w['bwd'][1]} "
-          f"chunks in {w['bwd_tiles']} tiles")
-    chunk13 = 13 * CHUNK_BYTES // 12  # the 13 field rows of one 128-slot chunk
+    _print_k5_work("unfused work at the start pose", w)
     img = B * T * P * 4
     src = "easyhec_torch/ops/csrc/tile_raster.cu"
     return [
-        # records of the chunks run and counts in; clip(acc) and acc out
+        # records of the live slots run and counts in; clip(acc) and acc out
         _row("tile_fwd", "K5f", src, "easyhec_tpu/ops/tile_raster.py:95", max(img_err, acc_err),
              lambda: tr.tile_fwd_cuda(rec, counts, meta),
              lambda: tr.tile_fwd_plain(rec, counts, meta),
-             w["fwd"][1] * chunk13 + B * T * 4 + 2 * img, w["fwd"][0] * OPS_FWD_PAIR,
+             w["fwd"][3] * K5_SLOT_BYTES + B * T * 4 + 2 * img, w["fwd"][0] * OPS_FWD_PAIR,
              "tile_fwd_kernel"),
-        # records of the live chunks, acc and g of the live tiles in; dtri out
+        # records of the live slots, acc and g of the live tiles in; dtri out
         _row("tile_bwd", "K5b", src, "easyhec_tpu/ops/tile_raster.py:121", d_err,
              lambda: tr.tile_bwd_cuda(*bargs), lambda: tr.tile_bwd_plain(*bargs),
-             w["bwd"][1] * chunk13 + w["bwd_tiles"] * 2 * P * 4 + B * T * 4 + rec.numel() * 4,
+             w["bwd"][3] * K5_SLOT_BYTES + w["bwd_tiles"] * 2 * P * 4 + B * T * 4
+             + rec.numel() * 4,
              w["bwd"][0] * OPS_BWD_PAIR, "tile_bwd_kernel"),
     ]
 
 
 def large_tile_phase():
-    """K1, K2 and K4 on 32×128 tiles (4096 pixels: the forwards in four
-    pixel sub-blocks per tile, the backwards over one live list of up to
-    4096 pixels) at the bench scene, against their plain versions, with a
-    cap above the measured tile loads."""
+    """K1, K2 (K3 too) and K4 on 32×128 tiles (4096 pixels: the forwards in
+    16 regions of 8x32 pixels per tile, the backwards over one live list of
+    up to 4096 pixels) at the bench scene, against their plain versions,
+    with a cap above the measured tile loads."""
     import torch
 
     from easyhec_torch.geometry import se3
@@ -704,7 +818,7 @@ def large_tile_phase():
     with torch.no_grad():
         target = (dense.silhouette(se3.exp(xi), lp, K) > 0.5).float()
     print(f"[kernels 32x128] tiles of {th}x{tw} ({th * tw} pixels, "
-          f"{pr.n_sub(pr.Meta(th, tw, 1, H, W))} pixel sub-blocks in the forwards); "
+          f"{pr.n_sub(pr.Meta(th, tw, 1, H, W))} 8x32 pixel regions in the forwards); "
           "start-pose max load "
           f"{int(loads.max())} -> cap {cap}, compact budget {nc} chunks")
     meta = pr.Meta(th, tw, -(-W // tw), H, W, 1.0, 0.001, 10.0, True)
@@ -720,6 +834,10 @@ def large_tile_phase():
     fa = (cam, rec, counts, ref, meta)
     got = pr.loss_fwd_cuda(*fa)
     _check_loss_fwd("K1f 32x128", got, pr.loss_fwd_plain(*fa))
+    _check_repeat("K1f 32x128", lambda: _fwd_out(pr.loss_fwd_cuda(*fa)))
+    T = counts.shape[1]
+    _check_lane_order("K1f 32x128", got[1], _lane_order_acc(cam, _dense_frames(rec, counts),
+                                                            meta, T))
     ba = (cam, rec, counts, ref, got[1], gb, meta)
     _check_dcam("K1b 32x128", pr.loss_bwd_cuda(*ba).sum(1), pr.loss_bwd_plain(*ba).sum(1))
     sk, acc_s = pr.sil_fwd_cuda(cam, rec, counts, meta)
@@ -727,6 +845,7 @@ def large_tile_phase():
     print(f"[kernels] K4f 32x128 image: max abs err {e4:.3e} (tol 1e-3)")
     if not e4 <= 1e-3:
         raise AssertionError("K4f on 32x128 tiles disagrees with its plain version")
+    _check_repeat("K4f 32x128", lambda: _fwd_out(pr.sil_fwd_cuda(cam, rec, counts, meta)))
     g = torch.randn(sk.shape, generator=torch.Generator(device=DEVICE).manual_seed(0),
                     device=DEVICE)
     ga = (cam, rec, counts, acc_s, g, meta)
@@ -734,6 +853,11 @@ def large_tile_phase():
     ca = (cam, cst.rec, cst.nlive, cst.ctmap, cst.ncu, ref, meta)
     got = prc.loss_fwd_compact_cuda(*ca)
     _check_loss_fwd("K2f 32x128", got, prc.loss_fwd_compact_plain(*ca))
+    _check_repeat("K2f 32x128", lambda: _fwd_out(prc.loss_fwd_compact_cuda(*ca)))
+    cframes = [(prc._chunks_of(cst.rec[b]), cst.ctmap[b].long(), cst.nlive[b].long())
+               for b in range(B)]
+    _check_lane_order("K2f 32x128", got[1], _lane_order_acc(cam, cframes, meta, T))
+    check_tile_acc("32x128", cam, cst, th, tw)
     cb = (cam, cst.rec, cst.bwd_nlive, cst.bwd_ctmap, cst.bwd_cpos, ref, got[1], gb, meta)
     _check_dcam("K2b 32x128", prc.loss_bwd_compact_cuda(*cb).sum(1),
                 prc.loss_bwd_compact_plain(*cb).sum(1))
@@ -904,7 +1028,78 @@ def search_phase(renderer, lp, K, xi, target):
         raise AssertionError("global search gave no finite pose")
     if launches != {"tile_fwd": 48 + 2 + 200 + 1, "tile_bwd": 200}:
         raise AssertionError(f"K5 launches {launches} in the global search")
-    return launches
+    return res
+
+
+def search_kernel_phase(renderer, lp, K, target, res):
+    """K5f and K5b at the shapes the global search launches them: its
+    scoring renderer (60x80 at 1/8 resolution, 16x32 tiles, the renderer's
+    cap) on frame 0, K5f on a sweep batch (the first 64 candidates: 48
+    launches per search) and K5f and K5b on the refinement's batch (the
+    sweep's top 16 candidates, before the moment refinement: 200 launches
+    each), against their plain versions, with the device time and the bound
+    of each (_k5_work)."""
+    import torch
+
+    from easyhec_torch.models.calib import downscale_K
+    from easyhec_torch.models.pose_init import _scoring_renderer
+    from easyhec_torch.ops import tile_raster as tr
+    from easyhec_torch.ops.pose_raster import tile_image
+    from easyhec_torch.render.tiled import _untile
+
+    ds = 8
+    Hs, Ws = H // ds, W // ds
+    sr = _scoring_renderer(renderer, Hs, Ws)
+    cfg = sr.tile
+    Ks = torch.tensor(downscale_K(K.cpu().numpy(), ds), device=DEVICE)
+    mask = target[0].reshape(Hs, ds, Ws, ds).mean((1, 3))
+    poses = torch.from_numpy(res.poses).to(DEVICE)
+    top = torch.argsort(torch.from_numpy(-res.scores), stable=True)[:16].to(DEVICE)
+    meta = tr.TileMeta(cfg.tile_h, cfg.tile_w, 1.0)
+    P = cfg.tile_h * cfg.tile_w
+    src = "easyhec_torch/ops/csrc/tile_raster.cu"
+    for what, Tc, bwd in (("sweep batch", poses[:64], False), ("refine batch", poses[top], True)):
+        n = Tc.shape[0]
+        with torch.no_grad():
+            rec, st = _k5_records(sr, lp[:1].expand((n,) + lp.shape[1:]), Ks, Tc)
+        rec, counts = rec.contiguous(), st.counts.contiguous()
+        Bn, T = counts.shape
+        ok_, acck = tr.tile_fwd_cuda(rec, counts, meta)
+        op_, accp = tr.tile_fwd_plain(rec, counts, meta)
+        torch.cuda.synchronize()
+        err = max((ok_ - op_).abs().max().item(),
+                  (acck.clamp(max=2) - accp.clamp(max=2)).abs().max().item())
+        g_t = tile_image(2.0 * (_untile(ok_, Hs, Ws, cfg) - mask), cfg.tile_h,
+                         cfg.tile_w).contiguous()
+        gp = (g_t * (acck <= 1.0).float()).reshape(Bn, T, P)
+        w = _k5_work(rec, counts, gp, meta)
+        print(f"[kernels search] {what}: {Bn} frames of {Ws}x{Hs}, {T} tiles of "
+              f"{cfg.tile_h}x{cfg.tile_w}, cap {cfg.capacity}, {int(counts.max())} max load, "
+              f"{float((counts >= cfg.capacity).float().mean()):.4f} of tiles at cap; K5f "
+              f"image/min(acc,2) max abs err {err:.3e} (tol 1e-3)")
+        _print_k5_work(f"search {what}", w)
+        if not err <= 1e-3:
+            raise AssertionError(f"K5f disagrees with its plain version at the search's {what}")
+        img = Bn * T * P * 4
+        _row("tile_fwd", f"K5f search {what}", src, "", err,
+             lambda: tr.tile_fwd_cuda(rec, counts, meta),
+             lambda: tr.tile_fwd_plain(rec, counts, meta),
+             w["fwd"][3] * K5_SLOT_BYTES + Bn * T * 4 + 2 * img,
+             w["fwd"][0] * OPS_FWD_PAIR, "tile_fwd_kernel")
+        if bwd:
+            bargs = (rec, counts, acck, g_t, meta)
+            dk, dp = tr.tile_bwd_cuda(*bargs), tr.tile_bwd_plain(*bargs)
+            torch.cuda.synchronize()
+            scale = dp.abs().max().item()
+            d_err = (dk - dp).abs().max().item()
+            print(f"[kernels search] K5b {what} dtri: max abs err {d_err:.3e}, max|dtri| "
+                  f"{scale:.3e} (tol 1e-3*max|dtri|)")
+            if not (scale > 0 and d_err <= 1e-3 * scale):
+                raise AssertionError("K5b disagrees with its plain version at the search's shapes")
+            _row("tile_bwd", f"K5b search {what}", src, "", d_err,
+                 lambda: tr.tile_bwd_cuda(*bargs), lambda: tr.tile_bwd_plain(*bargs),
+                 w["bwd"][3] * K5_SLOT_BYTES + w["bwd_tiles"] * 2 * P * 4
+                 + Bn * T * 4 + rec.numel() * 4, w["bwd"][0] * OPS_BWD_PAIR, "tile_bwd_kernel")
 
 
 def trainer_search_phase(lp, K, xi, qs, target, steps):
@@ -1290,7 +1485,7 @@ def main() -> int:
     from easyhec_torch.ops import pose_raster_compact as prc
     from easyhec_torch.ops import tile_raster as tr
     from easyhec_torch.render import RobotRenderer
-    from easyhec_torch.render.fused import silhouette_compact
+    from easyhec_torch.render.fused import cam_rows, silhouette_compact
 
     renderer, lp, K, xi, qs = build_scene(DEVICE)
     print(f"[scene] {renderer.n_faces} triangles, {B} frames of {W}x{H}")
@@ -1314,7 +1509,7 @@ def main() -> int:
     print(f"[scene] unfused target masks: {float(target_u.mean()):.4f} of pixels set, "
           f"{float((target_u != target_d).float().mean()):.2e} differ from the dense ones")
 
-    check_tile_acc(renderer, K, xi, st_gt)
+    check_tile_acc("16x32", cam_rows(se3.exp(xi), K, B).contiguous(), st_gt, TH, TW)
     kernels = kernel_phase(renderer, lp, K, xi, target)
     kernels += dense_kernel_phase(dense, lp, K, xi, target_d)
     kernels += unfused_kernel_phase(unfused, lp, K, xi, target_u)
@@ -1347,7 +1542,8 @@ def main() -> int:
     sil_launches = silhouette_path(dense, lp, K, xi, target_d)
     launches.update({k: trainer_launches[k] for k in ("loss_fwd", "loss_bwd", "sil_fwd")})
     launches["sil_bwd"] = sil_launches["sil_bwd"]
-    search_phase(renderer, lp, K, xi, target)
+    res = search_phase(renderer, lp, K, xi, target)
+    search_kernel_phase(renderer, lp, K, target, res)
     trainer_search_phase(lp, K, xi, qs, target, args.steps)
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -14,36 +14,35 @@
 // live and the rest are all-zero sentinels. cap is a multiple of 128.
 //
 // What bounds them on an H100: the records are the big input (479 MB at the
-// bench shapes), but a tile reads only its ceil(count/128) used chunks, tens
-// of MB per call. The forward is bound by FP32 operations: every (triangle
-// lane, pixel) pair of every used chunk costs ~27 flops of edge functions,
-// mins and a clamp. The backward's bound is bytes (the used chunks, acc and
-// ref of the visited tiles: ~11 MB, 3.4 us at the bench start pose); its
-// arithmetic is the same pairs on the live cotangent pixels only (the
-// silhouette band under band_only, ~2.2 M pairs) plus a setup and a chain
-// per slot. What holds it on the card is latency: short dependent chains of
-// loads, a few live pixels per tile, and the heaviest tile's chunks.
+// bench shapes), but a tile reads only its live slots, ~10 MB per call. The
+// forward (pose_raster_fwd.cuh) needs only the lane-pixel pairs whose pixel
+// centre lies in the lane's bbox dilated by the soft band 0.5/sharpness
+// (every other pair has exactly zero coverage), 27 FP32 operations each
+// (OPS_FWD_PAIR in chip_smoke.py): ~0.8 M pairs at the bench start pose, so
+// its bound is bytes: the records of the live slots, ref in (K1f) or the
+// image out (K4f), and acc out over every tile, ~34 MB. The backward's bound
+// is bytes too (the used chunks, acc and ref of the visited tiles: ~11 MB,
+// 3.4 us at the bench start pose); its arithmetic is the same pairs on the
+// live cotangent pixels only (the silhouette band under band_only) plus a
+// setup and a chain per slot. What holds both on the card is latency: short
+// dependent chains of loads and barriers, and the heaviest tile's slots.
 //
-// Forward design:
-// - One block per (tile, frame, pixel sub-block), grid (T, B, S), one
-//   thread per pixel. A sub-block holds at most 1024 pixels of its tile
-//   (S = ceil(th*tw / 1024), 1 for the shipped 16x32 and 16x64 tiles), so
-//   any tile size runs. The block walks the tile's ceil(count/128) chunks
-//   itself, keeping acc in a register per pixel: no atomics, and every
-//   output of every tile is written exactly once. Unvisited tiles (count 0)
-//   still write acc = 0, the clipped image 0 and (K1f) Σ(0 - ref)² over the
-//   crop. The loss is written per sub-block ([B, T, S]); the wrapper sums it
-//   over S in a fixed order.
-// - Per chunk, threads set up the 128 lanes (projection, validity,
-//   normalized edges, bbox) into shared memory once. A lane takes part only
-//   if it is valid and its bbox, dilated by the soft band 0.5/sharpness and
-//   one pixel of slack, reaches the tile: other lanes have exactly zero
-//   coverage on every pixel of the tile, so skipping them is exact (the
-//   Pallas kernel's row sub-block guards rest on the same fact).
-// - The saturation early-out is a block vote (__syncthreads_and(acc >= 2))
-//   over the sub-block, as in the compact kernel: it changes only acc values
-//   >= 2, never clip(acc), acc <= 1 or 0 < acc < 1.
-// - The per-tile loss is a fixed-order block reduction (deterministic).
+// Forward design (pose_raster_fwd.cuh): one resident wave of blocks of
+// FWD_THREADS threads, grid (blocks per frame, B). The blocks of frame b list
+// its visited tiles (count > 0), heaviest first, and walk the (tile, 8x32
+// region) items in turn, one thread per pixel of the region: a block sets
+// up the tile's slots [0, count) in passes of 512 (every thread, coalesced
+// loads), culls each against the region exactly (band-dilated bbox), lists
+// the survivors as float4 records in shared memory in slot order, and each
+// warp adds, for its 4x8 patch, only the records whose dilated bbox reaches
+// the patch (a ballot per 32 records): the ~99 % of pairs with exactly zero
+// coverage are never evaluated, and acc is the plain version's slot-order
+// sum bit for bit. Then each warp writes empty tiles' regions (acc = 0, the
+// clipped image 0 and, K1f, Σ(0 - ref)² over the crop). The loss is a
+// fixed-order sum per region ([B, T, fwd_blocks]); the wrapper sums it over
+// the regions in a fixed order. The saturation early-out is a vote per warp
+// and per block: it changes only acc values >= 2, never clip(acc), acc <= 1
+// or 0 < acc < 1. No atomics.
 // Backward design (pose_raster_bwd.cuh): one block of 128 threads per
 // (tile, frame), grid (T, B), one thread per slot of the chunk at hand; the
 // block walks the tile's ceil(count/128) chunks. It compacts the tile's live
@@ -57,97 +56,105 @@
 // float atomics anywhere. Splitting a tile's chunks over 2, 4 or 8 blocks
 // was tried on an H100 and was no faster at the bench start pose: the extra
 // blocks rebuild the live list, and most of them find no chunk.
-// Not carried over from Pallas: the 8-row sub-block guards, the full-block
-// ref stores, the (1,1) loss blocks and the MXU/factored reduction switch
-// (EASYHEC_BWD_REDUCE), all Mosaic workarounds.
+// Not carried over from Pallas: the 8-row sub-block guards (the exact
+// per-patch culls take their place), the full-block ref stores, the (1,1)
+// loss blocks and the MXU/factored reduction switch (EASYHEC_BWD_REDUCE),
+// all Mosaic workarounds.
 
 #include "pose_raster_bwd.cuh"
+#include "pose_raster_fwd.cuh"
 
 namespace {
 
 // --------------------------------------------------------------------------
-// Forward: grid (T, B, S), block = min(th*tw, 1024) pixels rounded up to a
-// warp multiple. kLoss: K1f (loss_tiles and acc); else K4f (clip(acc) and
-// acc).
+// Forward: grid (fwd_grid, B), FWD_THREADS threads. The blocks of frame b
+// walk its visited tiles' regions (one per block at a time), then its empty
+// tiles' regions (one per warp). kLoss: K1f (loss_tiles and acc); else K4f
+// (clip(acc) and acc).
 // --------------------------------------------------------------------------
 template <bool kLoss>
-__global__ void __launch_bounds__(MAX_THREADS) pose_fwd_kernel(
+__global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS) pose_fwd_kernel(
     const int* __restrict__ counts, const float* __restrict__ cam,
     const float* __restrict__ rec, const float* __restrict__ ref,
     float* __restrict__ acc_out, float* __restrict__ sil_out,
     float* __restrict__ loss_tiles, int T, int cap, int th, int tw, int n_tx,
     int H, int W, float sharp, float near, float far) {
-  const int t = blockIdx.x, b = blockIdx.y, sb = blockIdx.z;
-  const int64_t tb = (int64_t)b * T + t;
-  const int count = min(counts[tb], cap);
-
-  __shared__ float s_e[9][CHUNK];    // a0 b0 c0 a1 b1 c1 a2 b2 c2
-  __shared__ float s_box[4][CHUNK];  // lox loy hix hiy
-  __shared__ int s_ok[CHUNK];        // lane reaches the tile
-  __shared__ float s_red[MAX_THREADS / 32];
-
-  const int tid = threadIdx.x;
-  const int P = th * tw;
-  const int pix = sb * MAX_THREADS + tid;  // pixel of the tile
-  const bool active = pix < P;
-  const int ix = pix % tw, iy = pix / tw;
-  const float px = ix + 0.5f, py = iy + 0.5f;
-  const float x0 = (float)((t % n_tx) * tw), y0 = (float)((t / n_tx) * th);
-  const float* camb = cam + (int64_t)b * 16;
-  const int64_t S = (int64_t)T * cap;
-  const float* rect = rec + (int64_t)b * REC * S + (int64_t)t * cap;
-  const float reach = 0.5f / sharp + 1.f;
-
-  float acc = 0.f;
-  const int nch = (count + CHUNK - 1) / CHUNK;
-  for (int j = 0; j < nch; ++j) {
-    if (__syncthreads_and(!active || acc >= 2.f)) break;  // tile saturated
-    for (int l = tid; l < CHUNK; l += blockDim.x) {
-      Lane L;
-      lane_setup(rect + (int64_t)j * CHUNK + l, S, camb, x0, y0, near, far, L);
-      const bool ok = reaches_tile(L, th, tw, reach);
-      s_ok[l] = ok;
-      if (ok) {
-#pragma unroll
-        for (int e = 0; e < 3; ++e) {
-          s_e[3 * e][l] = L.a[e];
-          s_e[3 * e + 1][l] = L.b[e];
-          s_e[3 * e + 2][l] = L.c[e];
-        }
-        s_box[0][l] = L.lox;
-        s_box[1][l] = L.loy;
-        s_box[2][l] = L.hix;
-        s_box[3][l] = L.hiy;
+  __shared__ int s_list[FWD_WINDOW], s_w[FWD_WINDOW], s_ord[FWD_WINDOW], s_tile;
+  __shared__ float s_red[FWD_WARPS], s_cam[16];
+  const int b = blockIdx.y, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid < 16) s_cam[tid] = cam[(int64_t)b * 16 + tid];  // seen after split_list
+  const int nsb = fwd_blocks(th, tw);
+  const int* cnt = counts + (int64_t)b * T;
+  const int64_t P = (int64_t)th * tw, S = (int64_t)T * cap;
+  const float* recb = rec + (int64_t)b * REC * S;
+  for (int w0 = 0; w0 < T; w0 += FWD_WINDOW) {
+    const int nw = min(FWD_WINDOW, T - w0);
+    const int nvis = split_list(nw, [&](int i) { return cnt[w0 + i] > 0; }, s_list);
+    for (int i = tid; i < nvis; i += FWD_THREADS) s_w[i] = min(cnt[w0 + s_list[i]], cap);
+    __syncthreads();
+    order_by_weight(nvis, s_w, s_ord);
+    const int items = nvis * nsb;
+    for (int k = 0; k * (int)gridDim.x < items; ++k) {
+      const int j = snake_item(k);
+      if (j >= items) continue;  // uniform: the last round is partial
+      float acc;
+      {
+        const int t = w0 + s_list[s_ord[j / nsb]];
+        if (tid == 0) s_tile = t;  // read again after the sweep (its barriers)
+        const float x0 = (float)((t % n_tx) * tw), y0 = (float)((t / n_tx) * th);
+        acc = tile_fwd(DenseSlots{recb + (int64_t)t * cap}, min(cnt[t], cap), (int)S, s_cam,
+                       x0, y0, th, tw, fwd_pixel(j % nsb, tw, warp, lane), sharp, near, far);
+      }
+      // Everything below is derived anew from s_tile and j, so that none of
+      // it is held in registers through the sweep.
+      const int t = s_tile, sb = j % nsb;
+      __syncthreads();  // every thread has read s_tile before the next item sets it
+      const int64_t tb = (int64_t)b * T + t;
+      const FwdPixel f = fwd_pixel(sb, tw, warp, lane);
+      const bool on = f.ix < tw && f.iy < th;
+      const int64_t pix = tb * P + f.iy * tw + f.ix;
+      const float clipped = fminf(fmaxf(acc, 0.f), 1.f);
+      if (on) {
+        acc_out[pix] = acc;
+        if (!kLoss) sil_out[pix] = clipped;
+      }
+      if (kLoss) {
+        const float x0 = (float)((t % n_tx) * tw), y0 = (float)((t / n_tx) * th);
+        const float e = on ? clipped - ref[pix] : 0.f;
+        const bool in_img = on && y0 + f.iy < H && x0 + f.ix < W;
+        const float tot = block_sum(in_img ? e * e : 0.f, s_red);
+        if (tid == 0) loss_tiles[tb * nsb + sb] = tot;
       }
     }
-    __syncthreads();
-    for (int l = 0; l < CHUNK; ++l) {
-      if (!s_ok[l]) continue;  // uniform over the block
-      const float d0 = s_e[0][l] * px + s_e[1][l] * py + s_e[2][l];
-      const float d1 = s_e[3][l] * px + s_e[4][l] * py + s_e[5][l];
-      const float d2 = s_e[6][l] * px + s_e[7][l] * py + s_e[8][l];
-      const float dbb = fminf(fminf(px - s_box[0][l], s_box[2][l] - px),
-                              fminf(py - s_box[1][l], s_box[3][l] - py));
-      const float dmin = fminf(fminf(fminf(d0, d1), d2), dbb);
-      acc += fminf(fmaxf(0.5f + sharp * dmin, 0.f), 1.f);
+    // Empty tiles: acc = 0, the clipped image 0, and (K1f) Σ(0 - ref)² over
+    // the crop, one region per warp, a lane per column of it.
+    for (int j = blockIdx.x * FWD_WARPS + warp; j < (nw - nvis) * nsb;
+         j += gridDim.x * FWD_WARPS) {
+      const int t = w0 + s_list[FWD_WINDOW - 1 - j / nsb], sb = j % nsb;
+      const int64_t tile = ((int64_t)b * T + t) * P;
+      const float x0 = (float)((t % n_tx) * tw), y0 = (float)((t / n_tx) * th);
+      const int n_rx = (tw + REGION_W - 1) / REGION_W;
+      const int ix = (sb % n_rx) * REGION_W + lane, iy0 = (sb / n_rx) * REGION_H;
+      const int rows = ix < tw ? min(REGION_H, th - iy0) : 0;
+      float* acc_t = acc_out + tile + iy0 * tw + ix;
+      for (int q = 0; q < rows; ++q) acc_t[q * tw] = 0.f;
+      if (!kLoss) {
+        float* sil_t = sil_out + tile + iy0 * tw + ix;
+        for (int q = 0; q < rows; ++q) sil_t[q * tw] = 0.f;
+      } else {
+        const float* ref_t = ref + tile + iy0 * tw + ix;
+        float r[REGION_H];
+#pragma unroll
+        for (int q = 0; q < REGION_H; ++q) r[q] = q < rows ? ref_t[q * tw] : 0.f;
+        float sq = 0.f;
+#pragma unroll
+        for (int q = 0; q < REGION_H; ++q)
+          sq += (y0 + iy0 + q < H && x0 + ix < W) ? r[q] * r[q] : 0.f;
+        sq = warp_sum(sq);
+        if (lane == 0) loss_tiles[((int64_t)b * T + t) * nsb + sb] = sq;
+      }
     }
-    __syncthreads();  // the next chunk overwrites the setup
-  }
-
-  const float clipped = fminf(fmaxf(acc, 0.f), 1.f);
-  if (active) {
-    acc_out[tb * P + pix] = acc;
-    if (!kLoss) sil_out[tb * P + pix] = clipped;
-  }
-  if (kLoss) {
-    float sq = 0.f;
-    if (active) {
-      const float e = clipped - ref[tb * P + pix];
-      const bool in_img = (y0 + iy < H) && (x0 + ix < W);
-      sq = in_img ? e * e : 0.f;
-    }
-    const float tot = block_sum(sq, s_red);
-    if (tid == 0) loss_tiles[tb * gridDim.z + sb] = tot;
+    __syncthreads();  // the next window rewrites the list
   }
 }
 
@@ -185,9 +192,9 @@ __global__ void __launch_bounds__(BWD_THREADS) pose_bwd_kernel(
 }
 
 int check_dims(int B, int T, int cap, int th, int tw) {
-  const int P = th * tw;
-  if (P <= 0 || B <= 0 || B > 65535 || T <= 0 || cap <= 0 || cap % CHUNK != 0 ||
-      n_sub(P) > 65535)
+  if (th <= 0 || tw <= 0 || B <= 0 || B > 65535 || T <= 0 || cap <= 0 ||
+      cap % CHUNK != 0 || (int64_t)T * cap > 0x7fffffff ||
+      (int64_t)T * fwd_blocks(th, tw) > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -195,7 +202,7 @@ int check_dims(int B, int T, int cap, int th, int tw) {
 }  // namespace
 
 // loss_mode 1: K1f (ref -> loss_tiles [B, T, S], acc); 0: K4f (sil = clip(acc),
-// acc). S = ceil(th*tw / 1024) pixel sub-blocks per tile.
+// acc). S = fwd_blocks(th, tw) regions of 8x32 pixels per tile.
 extern "C" int easyhec_pose_fwd(int loss_mode, const int* counts,
                                 const float* cam, const float* rec,
                                 const float* ref, float* acc, float* sil,
@@ -204,16 +211,19 @@ extern "C" int easyhec_pose_fwd(int loss_mode, const int* counts,
                                 float sharp, float near, float far,
                                 void* stream) {
   if (int err = check_dims(B, T, cap, th, tw)) return err;
-  const int threads = sub_threads(th * tw);
-  const dim3 grid(T, B, n_sub(th * tw));
-  if (loss_mode)
-    pose_fwd_kernel<true><<<grid, threads, 0, (cudaStream_t)stream>>>(
+  if (loss_mode) {
+    static int wave[FWD_MAX_DEVICES] = {};
+    pose_fwd_kernel<true><<<dim3(fwd_grid(pose_fwd_kernel<true>, B, wave), B),
+                            FWD_THREADS, 0, (cudaStream_t)stream>>>(
         counts, cam, rec, ref, acc, sil, loss_tiles, T, cap, th, tw, n_tx, H,
         W, sharp, near, far);
-  else
-    pose_fwd_kernel<false><<<grid, threads, 0, (cudaStream_t)stream>>>(
+  } else {
+    static int wave[FWD_MAX_DEVICES] = {};
+    pose_fwd_kernel<false><<<dim3(fwd_grid(pose_fwd_kernel<false>, B, wave), B),
+                             FWD_THREADS, 0, (cudaStream_t)stream>>>(
         counts, cam, rec, ref, acc, sil, loss_tiles, T, cap, th, tw, n_tx, H,
         W, sharp, near, far);
+  }
   return (int)cudaGetLastError();
 }
 

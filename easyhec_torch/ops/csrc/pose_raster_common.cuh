@@ -32,36 +32,47 @@ struct Lane {
   bool valid;
 };
 
+template <class Stride>
 __device__ __forceinline__ void lane_load(const float* __restrict__ slot,
-                                          int64_t fstride, Lane& L) {
+                                          Stride fstride, Lane& L) {
 #pragma unroll
   for (int f = 0; f < REC; ++f) L.X[f] = slot[f * fstride];
 }
 
-// The setup of a slot whose record lane_load has read into L.X.
+// The setup of a slot whose record lane_load has read into L.X. Every
+// product and sum rounds on its own (__fmul_rn and __fadd_rn are never
+// contracted into FMAs), in the order of the plain version's ops, as
+// PyTorch's elementwise ops round them: the setup is bit-identical to the
+// plain version's, and the forwards and backwards see the same bbox.
 __device__ __forceinline__ void lane_project(const float* __restrict__ cam,
                                              float x0, float y0, float near,
                                              float far, Lane& L) {
   const float fx = cam[12], fy = cam[13], cx = cam[14], cy = cam[15];
   bool valid = true;
+  auto dot4 = [&](int r, float Xb, float Yb, float Zb, float Wb) {
+    return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(cam[r], Xb), __fmul_rn(cam[r + 1], Yb)),
+                               __fmul_rn(cam[r + 2], Zb)),
+                     __fmul_rn(cam[r + 3], Wb));
+  };
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const float Xb = L.X[4 * i], Yb = L.X[4 * i + 1], Zb = L.X[4 * i + 2],
                 Wb = L.X[4 * i + 3];
-    const float x = cam[0] * Xb + cam[1] * Yb + cam[2] * Zb + cam[3] * Wb;
-    const float y = cam[4] * Xb + cam[5] * Yb + cam[6] * Zb + cam[7] * Wb;
-    const float z = cam[8] * Xb + cam[9] * Yb + cam[10] * Zb + cam[11] * Wb;
+    const float x = dot4(0, Xb, Yb, Zb, Wb);
+    const float y = dot4(4, Xb, Yb, Zb, Wb);
+    const float z = dot4(8, Xb, Yb, Zb, Wb);
     valid = valid && (z > near) && (z < far);
     const float zs = fabsf(z) < kEpsZ ? (z < 0.f ? -kEpsZ : kEpsZ) : z;
     L.xc[i] = x;
     L.yc[i] = y;
     L.zc[i] = zs;
+    // a division parts the product from the sums: nothing to contract
     L.u[i] = fx * x / zs + cx - x0;
     L.v[i] = fy * y / zs + cy - y0;
   }
   const float e01u = L.u[1] - L.u[0], e01v = L.v[1] - L.v[0];
   const float e02u = L.u[2] - L.u[0], e02v = L.v[2] - L.v[0];
-  const float area2 = e01u * e02v - e01v * e02u;
+  const float area2 = __fmul_rn(e01u, e02v) - __fmul_rn(e01v, e02u);
   valid = valid && (fabsf(area2) > kEpsN);
   const float orient = area2 >= 0.f ? 1.f : -1.f;
 #pragma unroll
@@ -69,15 +80,15 @@ __device__ __forceinline__ void lane_project(const float* __restrict__ cam,
     const int ia = e, ib = (e + 1) % 3;
     const float p = L.v[ia] - L.v[ib];
     const float q = L.u[ib] - L.u[ia];
-    const float n = fmaxf(sqrtf(p * p + q * q), kEpsN);
+    const float n = fmaxf(sqrtf(__fadd_rn(__fmul_rn(p, p), __fmul_rn(q, q))), kEpsN);
     const float inv = orient / n;
     L.p[e] = p;
     L.q[e] = q;
     L.n[e] = n;
     L.inv[e] = inv;
-    L.a[e] = p * inv;
-    L.b[e] = q * inv;
-    L.c[e] = -(L.a[e] * L.u[ia] + L.b[e] * L.v[ia]);
+    L.a[e] = __fmul_rn(p, inv);
+    L.b[e] = __fmul_rn(q, inv);
+    L.c[e] = -__fadd_rn(__fmul_rn(L.a[e], L.u[ia]), __fmul_rn(L.b[e], L.v[ia]));
   }
   L.lox = valid ? fminf(fminf(L.u[0], L.u[1]), L.u[2]) : 1e9f;
   L.hix = fmaxf(fmaxf(L.u[0], L.u[1]), L.u[2]);
@@ -86,17 +97,9 @@ __device__ __forceinline__ void lane_project(const float* __restrict__ cam,
   L.valid = valid;
 }
 
-__device__ __forceinline__ void lane_setup(const float* __restrict__ slot,
-                                           int64_t fstride,
-                                           const float* __restrict__ cam,
-                                           float x0, float y0, float near,
-                                           float far, Lane& L) {
-  lane_load(slot, fstride, L);
-  lane_project(cam, x0, y0, near, far, L);
-}
-
-// Pixel sub-blocks of a tile: each block takes at most MAX_THREADS pixels
-// (one thread each), so a tile of P pixels runs as n_sub(P) blocks.
+// Pixel sub-blocks of a tile in K5's kernels (tile_raster.cu): each block
+// takes at most MAX_THREADS pixels (one thread each), so a tile of P pixels
+// runs as n_sub(P) blocks.
 inline int n_sub(int P) { return (P + MAX_THREADS - 1) / MAX_THREADS; }
 inline int sub_threads(int P) {
   const int p = P < MAX_THREADS ? P : MAX_THREADS;

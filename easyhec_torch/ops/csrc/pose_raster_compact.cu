@@ -13,31 +13,33 @@
 // the chunks of one tile are consecutive.
 //
 // What bounds them on an H100: neither moves many bytes (records, reference
-// and acc tiles: tens of MB per call at the bench shapes, ~10 us at
-// 3.35 TB/s). The forward is bound by FP32 operations: every (triangle lane,
-// pixel) pair of every used chunk costs ~20 flops of edge functions, mins and
-// a clamp. The backward's bound is bytes (~11 MB, 3.3 us at the bench start
-// pose): its pairs are only those on live cotangent pixels (the band under
-// band_only, ~2.2 M pairs over ~1,500 chunks), plus a setup and a chain per
-// slot. What holds it on the card is latency: a block's chain of loads
-// (map, cotangent tile, records) and a short sweep.
+// and acc tiles: tens of MB per call at the bench shapes, ~7 us at
+// 3.35 TB/s). The forward (pose_raster_fwd.cuh) needs only the lane-pixel
+// pairs whose pixel centre lies in the lane's bbox dilated by the soft band
+// 0.5/sharpness (every other pair has exactly zero coverage), 27 FP32
+// operations each (OPS_FWD_PAIR in chip_smoke.py): ~0.8 M pairs at the
+// bench start pose, so bytes bound it too. The backward's bound is bytes
+// (~11 MB, 3.3 us at the bench start pose): its pairs are only those on live
+// cotangent pixels (the band under band_only), plus a setup and a chain per
+// slot. What holds both on the card is latency: a block's chain of loads
+// (map, cotangent tile, records) and barriers, and the heaviest tile's slots.
 //
 // Design:
-// - Blocks run in no order, so ONE BLOCK OWNS ONE TILE (or one pixel
-//   sub-block of it): the forward grid is (nc, B, S) and only the blocks of
-//   a tile's first chunk proceed; each walks the tile's consecutive chunks
-//   itself, keeping acc in a register per pixel (one thread per pixel, at
-//   most 1024 pixels per sub-block, S = ceil(th*tw / 1024)). No atomics, no
-//   cross-block accumulation, and the acc tile is written exactly once. The
-//   loss is written per sub-block, loss_tiles [B, T, S]; the wrapper sums
-//   over S in a fixed order.
-// - Per chunk, threads build the per-triangle setup (projection, validity,
-//   normalized edges, poisoned bbox) into shared memory once; every pixel
-//   thread then sweeps the chunk's live lanes from shared memory, so the
-//   inner loop is pure FP32 arithmetic on broadcast operands.
-// - The saturation early-out is a block vote (__syncthreads_and(acc >= 2))
-//   over the sub-block, which changes only acc values >= 2, never clip(acc).
-// - The per-tile loss is a fixed-order block reduction (deterministic).
+// - Forward (pose_raster_fwd.cuh): blocks run in no order, so ONE BLOCK OWNS
+//   ONE 8x32 REGION OF A TILE AT A TIME. The grid is one resident wave,
+//   (blocks per frame, B); the blocks of frame b list the first chunks of
+//   its tiles' runs (a chunk whose tile differs from its predecessor's,
+//   below ncu: the rest are padding), heaviest run first, and walk the
+//   (run, region) items in turn. Each item runs the shared forward over the
+//   run's live slots: setup by every thread, an exact cull against the
+//   region, a float4 list in shared memory, and per 4x8 warp patch only the
+//   records whose band-dilated bbox reaches it, in slot order. No atomics,
+//   no cross-block accumulation, and every pixel of a visited tile is
+//   written exactly once; the wrapper's zero fill holds the unvisited tiles.
+//   The loss is a fixed-order block sum per region, loss_tiles
+//   [B, T, fwd_blocks], written only where ncu > 0; the wrapper sums over
+//   the regions in a fixed order. The saturation early-out is a vote per
+//   warp and per block, which changes only acc values >= 2, never clip(acc).
 // - Backward (pose_raster_bwd.cuh): one block of 128 threads per backward
 //   chunk, grid (ncb, B), one thread per slot. A padding chunk (nlive = 0)
 //   writes zeros and exits before it reads the tile or the records. The block
@@ -52,82 +54,82 @@
 // the MXU/factored reduction switch.
 
 #include "pose_raster_bwd.cuh"
+#include "pose_raster_fwd.cuh"
 
 namespace {
 
 // --------------------------------------------------------------------------
-// Forward: grid (nc, B, S), block = min(th*tw, 1024) pixels rounded up to a
-// warp multiple.
+// Forward: grid (fwd_grid, B), FWD_THREADS threads. The blocks of frame b
+// walk the regions of the tiles its used chunks map to, one per block at a
+// time; a tile's run of chunks starts at a chunk whose tile differs from its
+// predecessor's and ends at the next such chunk (or at ncu).
 // --------------------------------------------------------------------------
-__global__ void __launch_bounds__(MAX_THREADS) loss_fwd_compact_kernel(
+__global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS) loss_fwd_compact_kernel(
     const int* __restrict__ nlive, const int* __restrict__ ctmap,
     const int* __restrict__ ncu, const float* __restrict__ cam,
     const float* __restrict__ rec, const float* __restrict__ ref,
     float* __restrict__ acc_out, float* __restrict__ loss_tiles, int nc,
     int T, int th, int tw, int n_tx, int H, int W, float sharp, float near,
     float far) {
-  const int c = blockIdx.x, b = blockIdx.y, sb = blockIdx.z;
+  __shared__ int s_list[FWD_WINDOW], s_w[FWD_WINDOW], s_ord[FWD_WINDOW];
+  __shared__ float s_red[FWD_WARPS], s_cam[16];
+  __shared__ int s_end;
+  const int b = blockIdx.y, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid < 16) s_cam[tid] = cam[(int64_t)b * 16 + tid];  // seen after split_list
+  const int nsb = fwd_blocks(th, tw);
   const int* ct = ctmap + (int64_t)b * nc;
-  const int t = ct[c];
-  if (c > 0 && ct[c - 1] == t) return;  // not the first chunk of its tile
-
-  __shared__ float s_e[9][CHUNK];    // a0 b0 c0 a1 b1 c1 a2 b2 c2
-  __shared__ float s_box[4][CHUNK];  // lox loy hix hiy
-  __shared__ float s_red[MAX_THREADS / 32];
-
-  const int tid = threadIdx.x;
-  const int P = th * tw;
-  const int pix = sb * MAX_THREADS + tid;  // pixel of the tile
-  const bool active = pix < P;
-  const int ix = pix % tw, iy = pix / tw;
-  const float px = ix + 0.5f, py = iy + 0.5f;
-  const float x0 = (float)((t % n_tx) * tw), y0 = (float)((t / n_tx) * th);
-  const float* camb = cam + (int64_t)b * 16;
-  const int64_t S = (int64_t)nc * CHUNK;
+  const int used = min(ncu[b], nc);  // the chunks past ncu are padding
+  const int64_t P = (int64_t)th * tw, S = (int64_t)nc * CHUNK;
   const float* recb = rec + (int64_t)b * REC * S;
-
-  float acc = 0.f;
-  for (int cc = c; cc < nc && ct[cc] == t; ++cc) {
-    const int nl = nlive[(int64_t)b * nc + cc];  // uniform over the block
-    if (nl <= 0) continue;
-    if (__syncthreads_and(!active || acc >= 2.f)) break;  // tile saturated
-    for (int l = tid; l < nl; l += blockDim.x) {
-      Lane L;
-      lane_setup(recb + (int64_t)cc * CHUNK + l, S, camb, x0, y0, near, far, L);
-#pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        s_e[3 * e][l] = L.a[e];
-        s_e[3 * e + 1][l] = L.b[e];
-        s_e[3 * e + 2][l] = L.c[e];
-      }
-      s_box[0][l] = L.lox;
-      s_box[1][l] = L.loy;
-      s_box[2][l] = L.hix;
-      s_box[3][l] = L.hiy;
-    }
+  for (int w0 = 0; w0 < used; w0 += FWD_WINDOW) {
+    const int nw = min(FWD_WINDOW, used - w0);
+    const int nvis = split_list(nw, [&](int i) {
+      const int c = w0 + i;
+      return c == 0 || ct[c - 1] != ct[c];
+    }, s_list);
+    for (int i = tid; i < nvis; i += FWD_THREADS)  // chunks in the run (in the window)
+      s_w[i] = (i + 1 < nvis ? s_list[i + 1] : nw) - s_list[i];
     __syncthreads();
-    for (int l = 0; l < nl; ++l) {
-      const float d0 = s_e[0][l] * px + s_e[1][l] * py + s_e[2][l];
-      const float d1 = s_e[3][l] * px + s_e[4][l] * py + s_e[5][l];
-      const float d2 = s_e[6][l] * px + s_e[7][l] * py + s_e[8][l];
-      const float dbb = fminf(fminf(px - s_box[0][l], s_box[2][l] - px),
-                              fminf(py - s_box[1][l], s_box[3][l] - py));
-      const float dmin = fminf(fminf(fminf(d0, d1), d2), dbb);
-      acc += fminf(fmaxf(0.5f + sharp * dmin, 0.f), 1.f);
+    order_by_weight(nvis, s_w, s_ord);
+    const int items = nvis * nsb;
+    for (int k = 0; k * (int)gridDim.x < items; ++k) {
+      const int j = snake_item(k);
+      if (j >= items) continue;  // uniform: the last round is partial
+      const int v = s_ord[j / nsb], sb = j % nsb;
+      const int c = w0 + s_list[v], t = ct[c];
+      int end = w0 + (v + 1 < nvis ? s_list[v + 1] : nw);
+      if (v + 1 == nvis && end < used) {  // the run may go on past the window
+        if (warp == 0) {
+          int e = used;
+          for (int base = end; base < used; base += 32) {
+            const int cc = base + lane;
+            const unsigned bal = __ballot_sync(0xffffffffu, cc < used && ct[cc] != t);
+            if (bal) {
+              e = base + __ffs(bal) - 1;
+              break;
+            }
+          }
+          if (lane == 0) s_end = e;
+        }
+        __syncthreads();
+        end = s_end;
+      }
+      const int64_t tb = (int64_t)b * T + t;
+      const float x0 = (float)((t % n_tx) * tw), y0 = (float)((t / n_tx) * th);
+      const FwdPixel f = fwd_pixel(sb, tw, warp, lane);
+      const CompactSlots src{recb + (int64_t)c * CHUNK, nlive + (int64_t)b * nc + c};
+      const float acc = tile_fwd(src, (end - c) * CHUNK, (int)S, s_cam, x0, y0, th, tw, f,
+                                 sharp, near, far);
+      const bool on = f.ix < tw && f.iy < th;
+      const int64_t pix = tb * P + f.iy * tw + f.ix;
+      if (on) acc_out[pix] = acc;
+      const float e = on ? fminf(fmaxf(acc, 0.f), 1.f) - ref[pix] : 0.f;
+      const bool in_img = on && y0 + f.iy < H && x0 + f.ix < W;
+      const float tot = block_sum(in_img ? e * e : 0.f, s_red);
+      if (tid == 0) loss_tiles[tb * nsb + sb] = tot;  // ncu > 0 here
     }
-    __syncthreads();  // the next chunk overwrites the setup
+    __syncthreads();  // the next window rewrites the list
   }
-
-  const int64_t tb = (int64_t)b * T + t;
-  float sq = 0.f;
-  if (active) {
-    acc_out[tb * P + pix] = acc;
-    const float e = fminf(fmaxf(acc, 0.f), 1.f) - ref[tb * P + pix];
-    const bool in_img = (y0 + iy < H) && (x0 + ix < W);
-    sq = in_img ? e * e : 0.f;
-  }
-  const float tot = block_sum(sq, s_red);
-  if (tid == 0 && ncu[b] > 0) loss_tiles[tb * gridDim.z + sb] = tot;
 }
 
 // --------------------------------------------------------------------------
@@ -164,12 +166,13 @@ extern "C" int easyhec_loss_fwd_compact(
     const float* rec, const float* ref, float* acc, float* loss_tiles, int B,
     int nc, int T, int th, int tw, int n_tx, int H, int W, float sharp,
     float near, float far, void* stream) {
-  const int P = th * tw;
-  if (P <= 0 || B <= 0 || B > 65535 || nc <= 0 || n_sub(P) > 65535)
+  if (th <= 0 || tw <= 0 || B <= 0 || B > 65535 || nc <= 0 ||
+      (int64_t)nc * CHUNK > 0x7fffffff ||
+      (int64_t)FWD_WINDOW * fwd_blocks(th, tw) > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  const int threads = sub_threads(P);
-  loss_fwd_compact_kernel<<<dim3(nc, B, n_sub(P)), threads, 0,
-                            (cudaStream_t)stream>>>(
+  static int wave[FWD_MAX_DEVICES] = {};
+  loss_fwd_compact_kernel<<<dim3(fwd_grid(loss_fwd_compact_kernel, B, wave), B),
+                            FWD_THREADS, 0, (cudaStream_t)stream>>>(
       nlive, ctmap, ncu, cam, rec, ref, acc, loss_tiles, nc, T, th, tw, n_tx,
       H, W, sharp, near, far);
   return (int)cudaGetLastError();

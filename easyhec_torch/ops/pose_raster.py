@@ -190,6 +190,18 @@ def _chunk_coverage(s, px, py, sharpness):
     return cov, ds, dbb, dmin
 
 
+def band_mask(s, px, py, sharpness):
+    """[..., C, P] bool: the pixel centre lies in the lane's bbox dilated by
+    the soft band 0.5/sharpness, on valid lanes. Outside it the lane's
+    coverage is exactly 0 (cov > 0 needs every bbox distance above
+    -0.5/sharpness): the pairs the forward kernels evaluate, and the ones
+    their bound counts."""
+    band = 0.5 / sharpness
+    lox, loy, hix, hiy = (x[..., None] for x in s["bbox"])
+    return (s["valid"][..., None] & (px - lox > -band) & (hix - px > -band)
+            & (py - loy > -band) & (hiy - py > -band))
+
+
 def _first_match_arms(cands, target):
     """Disjoint first-match masks for min/max subgradients."""
     arms, taken = [], None
@@ -435,15 +447,15 @@ def check_tensor(name, t, dtype, shape, dev):
         )
 
 
-MAX_THREADS = 1024  # pixels per block: csrc/pose_raster_common.cuh
+REGION_H, REGION_W = 8, 32  # a forward block's pixels: csrc/pose_raster_fwd.cuh
 
 
 def n_sub(meta: Meta) -> int:
-    """Pixel sub-blocks per tile of the forward kernels: they take one
-    thread per pixel and at most MAX_THREADS pixels per block, so a larger
-    tile runs as several blocks, each writing its own loss partial."""
-    return -(-meta.th * meta.tw // MAX_THREADS)
-
+    """Pixel regions per tile of the forward kernels (fwd_blocks in
+    csrc/pose_raster_fwd.cuh): one block of one thread per pixel owns each
+    REGION_H×REGION_W region, clipped to the tile, and writes its own loss
+    partial."""
+    return (-(-meta.th // REGION_H)) * (-(-meta.tw // REGION_W))
 
 
 def check_tile(meta: Meta):
@@ -499,7 +511,7 @@ def _fwd_launch(loss_mode, cam, rec, counts, ref_tiles, meta: Meta):
         meta.sharpness, meta.near, meta.far, _stream(dev),
     )
     raise_on(err, "pose_fwd kernel")
-    # per-sub-block partials, summed in a fixed order
+    # per-region partials, summed in a fixed order
     return (loss_tiles.sum(dim=-1) if loss_mode else sil), acc
 
 
@@ -524,7 +536,7 @@ def _bwd_launch(loss_mode, cam, rec, counts, acc, ref_tiles, gb, g, meta: Meta):
 
 
 def loss_fwd_cuda(cam, rec, counts, ref_tiles, meta: Meta):
-    """K1f (one block per tile and pixel sub-block, one thread per pixel):
+    """K1f (one block per 8×32 region of a tile, one thread per pixel):
     -> (loss_tiles [B, T], acc [B, T, th, tw])."""
     out = _fwd_launch(True, cam, rec, counts, ref_tiles, meta)
     loss_fwd_cuda.launches += 1

@@ -147,8 +147,8 @@ def _lib():
 
 
 def loss_fwd_compact_cuda(cam, rec, nlive, ctmap, ncu, ref_tiles, meta: Meta):
-    """CUDA forward (one block per visited tile and pixel sub-block, one
-    thread per pixel):
+    """CUDA forward (one block per 8×32 region of a visited tile, one thread
+    per pixel):
     -> (loss_tiles [B, T], acc [B, T, th, tw])."""
     dev = cam.device
     B, nc = nlive.shape
@@ -172,7 +172,7 @@ def loss_fwd_compact_cuda(cam, rec, nlive, ctmap, ncu, ref_tiles, meta: Meta):
     )
     raise_on(err, "loss_fwd_compact kernel")
     loss_fwd_compact_cuda.launches += 1
-    # per-pixel-sub-block partials, summed in a fixed order
+    # per-region partials, summed in a fixed order
     return loss_tiles.sum(dim=-1), acc
 
 

@@ -196,8 +196,9 @@ def test_dense_route_counts_launches(dev):
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
 
 
-# Tiles above one block of threads (32×128 = 4096 pixels, 4 pixel
-# sub-blocks): the dense and compact kernels against their plain versions.
+# Tiles above one block of threads (32×128 = 4096 pixels, 16 regions of 8×32
+# pixels in the forwards): the dense and compact kernels against their plain
+# versions.
 # Tile-local edge offsets reach the tile width (128 px, ulp 1.5e-5), so FMA
 # contraction moves acc and the image by up to a few such ulps: atol 1e-4.
 BIG = TileConfig(32, 128, 256, binner="count", fused=True, margin=2.0,
@@ -221,7 +222,7 @@ def test_kernels_large_tiles_match_plain(dev, band_only):
     cam = cam_rows(se3.exp(xi + 0.01), K, B).contiguous()
     ref = tile_image(target, 32, 128).contiguous()
     meta = pr.Meta(32, 128, 2, HB, WB, 1.0, 0.001, 10.0, band_only)
-    assert pr.n_sub(meta) == 4
+    assert pr.n_sub(meta) == 16
     gb = torch.linspace(0.5, 1.5, B, device=dev)
 
     def close(a, b, **kw):
@@ -399,3 +400,149 @@ def test_unfused_silhouette_cuda_matches_cpu_and_counts_launches(dev):
     (ik, gk), (ip, gp) = out
     np.testing.assert_allclose(ik, ip, atol=1e-4)
     np.testing.assert_allclose(gk, gp, rtol=1e-3, atol=1e-3 * np.abs(gp).max())
+
+
+# The forward kernels (K1f, K4f, K2f and K3 through compact_tile_acc: one
+# block per 8x32 region of a tile, slots set up in passes of 512 and culled
+# against the region, each 4x8 warp patch adding only the records whose
+# band-dilated bbox reaches it) on records made to reach each branch: an
+# empty tile, counts that are no multiple of 128 and above one pass of 512,
+# a stack of tile-covering quads ahead of small triangles (the saturation
+# early-out, whole tiles and half tiles), slots behind the near plane, slots
+# whose bbox misses the tile or most of its patches, compact padding chunks
+# (nlive = 0) and a frame with ncu = 0 (frame 2 has no slot at all). The
+# 40x56 image is not divided by its tiles. The 8x8 tiles of a 264x320 image
+# give T = 1320 and ~4,100 compact chunks a frame: more than the kernels' list
+# window of 1024 tiles (or chunks), with tile runs of chunks that cross a
+# window's end. Tolerances: the per-frame loss
+# rtol 1e-4 and min(acc, 2) atol 1e-3 (summation order over pixels); two
+# launches on the same inputs agree bit for bit (fixed-order sums, no
+# atomics).
+def _fwd_records(th, tw, H, W, seed=5):
+    """Dense (cam [3, 16], rec [3, 12, T*cap], counts [3, T]) numpy arrays:
+    tile-local triangles, back-projected through a camera at the origin."""
+    rng = np.random.default_rng(seed)
+    n_ty, n_tx = -(-H // th), -(-W // tw)
+    T, cap, B = n_ty * n_tx, 1024, 3
+    f, cx, cy = 90.0, W / 2, H / 2
+    cam = np.zeros((B, 16), np.float32)
+    cam[:, [0, 5, 10]] = 1.0
+    cam[:, 12:] = f, f, cx, cy
+    rec = np.zeros((B, 12, T * cap), np.float32)
+    counts = np.zeros((B, T), np.int32)
+
+    def put(b, t, uv, z):  # uv [n, 3, 2] image pixels, z [n] depths
+        n = uv.shape[0]
+        X = np.stack([(uv[..., 0] - cx) * z[:, None] / f, (uv[..., 1] - cy) * z[:, None] / f,
+                      np.broadcast_to(z[:, None], (n, 3)), np.ones((n, 3))], -1)
+        s = t * cap + counts[b, t]
+        rec[b, :, s:s + n] = X.reshape(n, 12).T
+        counts[b, t] += n
+
+    def small(n, ox, oy, spread, size=4.0):
+        c = np.stack([ox + rng.uniform(-spread, tw + spread, n),
+                      oy + rng.uniform(-spread, th + spread, n)], -1)
+        return c[:, None, :] + rng.uniform(-size, size, (n, 3, 2))
+
+    for b in range(2):
+        for t in range(T):
+            ox, oy = (t % n_tx) * tw, (t // n_tx) * th
+            if (t + b) % 4 == 0:
+                continue  # an empty tile
+            if (t + b) % 4 == 1:  # tile-covering quads ahead: saturation
+                half = t % 2  # the quads cover the whole tile or its top half
+                x1, y1 = ox + tw + 2, oy + (th // 2 if half else th) + 2
+                q = np.array([[[ox - 2, oy - 2], [x1, oy - 2], [x1, y1]],
+                              [[ox - 2, oy - 2], [x1, y1], [ox - 2, y1]]], np.float32)
+                put(b, t, np.tile(q, (150, 1, 1)), np.full(300, 1.0, np.float32))
+            n = int(rng.integers(130, 330))
+            put(b, t, small(n, ox, oy, 6.0), rng.uniform(0.6, 1.5, n).astype(np.float32))
+            put(b, t, small(40, ox, oy, 6.0), np.full(40, -0.5, np.float32))  # behind near
+            put(b, t, small(30, ox, oy, 60.0, 2.0), np.full(30, 1.0, np.float32))  # mostly off
+            if (t + b) % 4 == 3:  # a long stack: two passes of 512
+                put(b, t, small(200, ox, oy, 2.0), rng.uniform(0.6, 1.5, 200).astype(np.float32))
+    return cam, rec, counts
+
+
+def _compact_from_dense(rec, counts, cap, pad=3):
+    """Chunk-aligned compact records and map of dense (rec, counts), as
+    build_compact_state packs them, with `pad` padding chunks at least."""
+    B, T = counts.shape
+    cpt = -(-counts // 128)
+    nc = int(cpt.sum(-1).max()) + pad
+    rc = np.zeros((B, 12, nc * 128), np.float32)
+    nlive = np.zeros((B, nc), np.int32)
+    ctmap = np.full((B, nc), T - 1, np.int32)
+    ncu = cpt.sum(-1).astype(np.int32)
+    for b in range(B):
+        c = 0
+        for t in range(T):
+            n = int(counts[b, t])
+            rc[b, :, c * 128:c * 128 + n] = rec[b, :, t * cap:t * cap + n]
+            for j in range(int(cpt[b, t])):
+                nlive[b, c] = min(128, n - 128 * j)
+                ctmap[b, c] = t
+                c += 1
+        if c:
+            ctmap[b, c:] = ctmap[b, c - 1]
+    return rc, nlive, ctmap, ncu
+
+
+@pytest.mark.parametrize("th,tw,H,W", [(16, 32, 48, 96), (32, 128, 64, 256),
+                                       (16, 32, 40, 56), (8, 8, 264, 320)])
+def test_fwd_kernels_branches(dev, th, tw, H, W):
+    cam_np, rec_np, counts_np = _fwd_records(th, tw, H, W)
+    n_tx, T = -(-W // tw), counts_np.shape[1]
+    cap = rec_np.shape[-1] // T
+    assert counts_np.max() > 512 and (counts_np[:2] == 0).any() and (counts_np[2] == 0).all()
+    assert ((counts_np % 128 != 0) & (counts_np > 0)).any()
+    rc_np, nlive_np, ctmap_np, ncu_np = _compact_from_dense(rec_np, counts_np, cap)
+    assert (nlive_np == 0).any() and ncu_np[2] == 0
+    if T > 1024:  # runs of one tile's chunks across the 1024-chunk windows
+        cross = [(b, c) for b in range(2) for c in range(1024, int(ncu_np[b]), 1024)
+                 if ctmap_np[b, c - 1] == ctmap_np[b, c]]
+        assert cross and ncu_np[:2].min() > 2048, (cross, ncu_np)
+    rng = np.random.default_rng(6)
+    ref_np = (rng.random((3, T, th, tw)) > 0.5).astype(np.float32)
+    cam, rec, counts, ref, rc, nlive, ctmap, ncu = (
+        torch.from_numpy(a).to(dev) for a in
+        (cam_np, rec_np, counts_np, ref_np, rc_np, nlive_np, ctmap_np, ncu_np))
+    meta = pr.Meta(th, tw, n_tx, H, W, 1.0, 0.001, 10.0, True)
+
+    def same_twice(name, fn, args):
+        a, b = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x.clamp(max=2), y.clamp(max=2)), f"{name}: two launches differ"
+        return a
+
+    def close_loss(name, lk, lp_):
+        fk, fp = lk.sum(-1).cpu().numpy(), lp_.sum(-1).cpu().numpy()
+        np.testing.assert_allclose(fk, fp, rtol=1e-4, err_msg=name)
+
+    def close_acc(name, ak, ap):
+        np.testing.assert_allclose(ak.clamp(max=2).cpu().numpy(), ap.clamp(max=2).cpu().numpy(),
+                                   atol=1e-3, err_msg=name)
+
+    # dense K1f / K4f
+    lk, acck = same_twice("K1f", pr.loss_fwd_cuda, (cam, rec, counts, ref, meta))
+    lp_, accp = pr.loss_fwd_plain(cam, rec, counts, ref, meta)
+    close_loss("K1f", lk, lp_)
+    close_acc("K1f", acck, accp)
+    assert (accp.amax(dim=(-2, -1)) >= 2).any() and (acck[counts == 0] == 0).all()
+    sk, acc_s = same_twice("K4f", pr.sil_fwd_cuda, (cam, rec, counts, meta))
+    sp, _ = pr.sil_fwd_plain(cam, rec, counts, meta)
+    close_acc("K4f", sk, sp)
+    close_acc("K4f acc", acc_s, accp)
+
+    # compact K2f, and K3 with a zero reference
+    lck, acc_ck = same_twice("K2f", prc.loss_fwd_compact_cuda,
+                             (cam, rc, nlive, ctmap, ncu, ref, meta))
+    lcp, acc_cp = prc.loss_fwd_compact_plain(cam, rc, nlive, ctmap, ncu, ref, meta)
+    close_loss("K2f", lck, lcp)
+    close_acc("K2f", acc_ck, acc_cp)
+    close_acc("K2f vs K1f", acc_ck, acck)
+    assert (lck[2] == 0).all() and (acc_ck[2] == 0).all()  # ncu = 0
+    k3 = prc.compact_tile_acc(cam, rc, nlive, ctmap, ncu, T, th, tw, n_tx, H, W)
+    _, k3p = prc.loss_fwd_compact_plain(cam, rc, nlive, ctmap, ncu, torch.zeros_like(ref), meta)
+    close_acc("K3", k3, k3p)

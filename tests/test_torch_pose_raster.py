@@ -147,3 +147,36 @@ def test_bad_record_axis_raises(records):
         tpr.pose_tile_loss(c, r, n, ref, TH, TW, N_TX, H, W)
     with pytest.raises(ValueError, match="multiple of"):
         tpr.pose_tile_silhouette(c, r, n, TH, TW, N_TX)
+
+
+@pytest.mark.parametrize("sharpness", [1.0, 2.0])
+def test_band_mask_holds_every_nonzero_pair(records, sharpness):
+    """The forward kernels evaluate a lane only at the pixel centres in its
+    bbox dilated by the soft band 0.5/sharpness (band_mask): every pair with
+    nonzero coverage lies there, so each pair they skip adds an exact zero.
+    (Sharpness 1 and 2 keep the band and its products exact in f32.)"""
+    cam, rec, counts = records
+    c, r, n = _t(cam, rec, counts)
+    r = tpr._pad_records(r, n)
+    cap = r.shape[-1] // n.shape[1]
+    px, py = tpr.pix_grids(TH, TW)
+    nz = inside = tiles = 0
+    for b in range(3):
+        blk, ct = tpr._dense_chunks(r[b], n[b], cap)
+        x0, y0 = tpr.tile_origin(ct, N_TX, TH, TW)
+        s = tpr._chunk_setup(blk, c[b].expand(ct.numel(), 16), x0, y0, 0.001, 10.0)
+        cov, *_ = tpr._chunk_coverage(s, px, py, sharpness)
+        band = tpr.band_mask(s, px, py, sharpness)
+        assert not (cov > 0)[~band].any()
+        nz, inside = nz + int((cov > 0).sum()), inside + int(band.sum())
+        tiles += int(band.any(-1).sum()) * TH * TW
+    assert 0 < nz <= inside < tiles  # the band is far tighter than whole tiles
+
+
+@pytest.mark.parametrize("th,tw,regions", [(16, 32, 2), (16, 64, 4), (32, 128, 16),
+                                           (64, 128, 32), (20, 40, 6), (8, 8, 1)])
+def test_n_sub_counts_forward_regions(th, tw, regions):
+    """The forward kernels run one block per 8×32 pixel region of a tile
+    (fwd_blocks, csrc/pose_raster_fwd.cuh); the wrappers size the per-region
+    loss partials by n_sub."""
+    assert tpr.n_sub(tpr.Meta(th, tw, 1, 64, 64)) == regions
