@@ -10,7 +10,8 @@ The bench scene: 10 frames of 640x480, f = 600, the procedural arm
 on three routes: compact (256 chunks, kernels K2f/K2b), dense
 (compact_chunks = 0, the default RenderConfig's: K1f/K1b for the loss,
 K4f/K4b for the silhouette) and unfused (fused = False: the silhouette
-through K5f/K5b, autograd through the record pack and the triangle setup).
+through the record pack, K5f and the counted K5b in one autograd Function,
+then autograd through the triangle setup).
 Phases, in order (any failure exits non-zero):
 
 1. Build: compile every CUDA kernel of easyhec_torch/ops/csrc with nvcc
@@ -19,45 +20,51 @@ Phases, in order (any failure exits non-zero):
 2. Kernels vs plain, at the full shapes on real bin states: the compact
    loss forward and backward (K2); the dense loss (K1) and silhouette (K4)
    forward and backward, K4b also through autograd on
-   RobotRenderer.silhouette; the unfused rasterizer K5f (image, min(acc, 2))
-   and K5b (dtri, and dTc through autograd on RobotRenderer.silhouette).
+   RobotRenderer.silhouette; the unfused rasterizer K5f (image, min(acc, 2)),
+   the dense K5b (dtri) and the counted K5b (dfields through the gather at
+   q, and dTc through autograd on RobotRenderer.silhouette); K2b on the
+   boundary-prefix backward map (bwd_chunks > 0) against the full map.
    Each kernel's CUDA-event time (device time: the calls are queued behind
    a device sleep), its plain version's, its bound for this data (only the
    lane-pixel pairs in each lane's band-dilated bbox, the whole-tile count
    printed beside it, and the records of the live slots), and its
    registers, stack and spill bytes from nvcc's -Xptxas -v log (the six
-   fused kernels must not spill). The six fused kernels run twice on the
-   same inputs and must repeat bit for bit; the forwards' min(acc, 2) is
-   compared bit for bit with the plain version's slot-order sum (printed).
+   fused kernels and the three K5 kernels must not spill). They run twice
+   on the same inputs and must repeat bit for bit; the forwards' min(acc,
+   2), K5f's too, is compared bit for bit with the plain version's
+   slot-order sum (printed).
    K3 (compact_tile_acc) is checked at the GT pose. Then K1, K2 (with K3)
    and K4 on 32x128 tiles (the forwards in 16 regions of 8x32 pixels per
    tile, the backwards over one 4096-pixel live list) against their plain
    versions.
 3. Main paths: ``calibrate`` at the bench scene on the compact, dense and
    unfused routes, 1000 steps each. Asserts no overflow, a falling loss, and
-   one loss (or K5) kernel pair launch per step.
+   one loss (or K5f and counted K5b) kernel pair launch per step.
 4. Dense trainer: ``run_offline_calibration`` with an in-memory Config and
    CalibBatch. Asserts no overflow, a falling loss, one K1f and one K1b
    launch per step, one K4f launch per render_outputs call, the artifacts.
-5. Silhouette gradient path: Adam steps on Σ(RobotRenderer.silhouette −
-   mask)² through autograd: one K4f and one K4b launch per step.
+5. Silhouette gradient paths: Adam steps on Σ(RobotRenderer.silhouette −
+   mask)² through autograd: one K4f and one K4b launch per step on the
+   dense route; one K5f and one dense K5b per step on the unfused route's
+   top-k binner (binner="topk").
 6. Global search: ``global_search_init`` at its defaults on frame 0 (K5f
-   251 launches, K5b 200), then K5f and K5b timed against their plain
-   versions at its shapes; then ``run_offline_calibration`` on the compact
-   route with init_method="global_search" (the overflow pre-check adds one
-   K5f).
+   251 launches, the counted K5b 200), then K5f and both K5b timed against
+   their plain versions at its sweep and refinement batches; then
+   ``run_offline_calibration`` on the compact route with
+   init_method="global_search" (the overflow pre-check adds one K5f).
 7. Reference checks on small inputs, compact, dense and unfused, and a
    small global search: the card against the plain versions on the CPU.
 
 Prints the kernel table as one JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. With --profile DIR it
-also replays the compact and the dense ``calibrate`` runs under
-torch.profiler and writes each run's device busy share and per-step
+also replays the compact, the dense and the unfused ``calibrate`` runs
+under torch.profiler and writes each run's device busy share and per-step
 breakdown into DIR.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import re
 import subprocess
@@ -83,6 +90,7 @@ OPS_FWD_PAIR, OPS_BWD_PAIR = 27, 40
 OPS_FWD_LANE, OPS_BWD_LANE = 120, 220
 SLOT_BYTES = 12 * 4  # one record slot of the fused kernels (12 fields)
 K5_SLOT_BYTES = 13 * 4  # the 13 fields of a K5 record slot that K5 reads
+GPU = ""  # the card's name and power limit (nvidia-smi), printed beside each time
 
 
 def _fail(msg: str) -> int:
@@ -387,9 +395,9 @@ def _row(name, tag, source, replaces, err, run, plain, nbytes, ops, kernel,
     bms, bby = _bound(nbytes, ops)
     px = _ptxas(Path(source).stem, kernel)
     print(f"[kernels] {tag} {ms:.4f} ms (plain {plain_ms:.3f} ms), needs {nbytes} "
-          f"bytes, {ops} operations -> bound {bms:.4f} ms ({bby}); {px['regs']} "
-          f"registers, {px['stack']} bytes stack frame, {px['spill_st']} / "
-          f"{px['spill_ld']} bytes spill stores / loads")
+          f"bytes, {ops} operations -> bound {bms:.4f} ms ({bby}), {ms / bms:.1f}x the "
+          f"bound; {px['regs']} registers, {px['stack']} bytes stack frame, "
+          f"{px['spill_st']} / {px['spill_ld']} bytes spill stores / loads ({GPU})")
     if spill_free and px["stack"] + px["spill_st"] + px["spill_ld"]:
         raise AssertionError(f"{tag} spills to local memory: {px}")
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -438,6 +446,26 @@ def kernel_phase(renderer, lp, K, xi, target):
     _check_repeat("K2b", lambda: prc.loss_bwd_compact_cuda(*bargs).sum(1))
     print(f"[kernels] start-pose loads: max tile count {int(st.counts.max())} "
           f"(cap {cfg.capacity}), max ncu {int(st.ncu.max())} (budget {cfg.compact_chunks})")
+
+    # The boundary-prefix backward map (bwd_chunks > 0): K3 on the card finds
+    # the tiles that can hold a band pixel, K2b runs on their chunks only.
+    rb = copy.copy(renderer)
+    rb.tile = cfg._replace(bwd_chunks=cfg.compact_chunks)
+    bst = rb.bin_state(se3.exp(d0), lp, K)
+    if bool(bst.overflow):
+        raise AssertionError("boundary-prefix map overflow at the start pose")
+    mb = (cam, bst.rec, bst.bwd_nlive, bst.bwd_ctmap, bst.bwd_cpos, ref, acck, gb, meta)
+    pb = prc.loss_bwd_compact_cuda(*mb).sum(1)
+    _check_dcam("K2b on the boundary-prefix map", pb, prc.loss_bwd_compact_plain(*mb).sum(1))
+    pfull = prc.loss_bwd_compact_cuda(*bargs).sum(1)
+    torch.cuda.synchronize()
+    gap = (pb - pfull).abs().max().item() / pfull.abs().max().item()
+    print(f"[kernels] boundary-prefix map: {int((bst.bwd_nlive > 0).sum())} backward chunks "
+          f"against the forward's {int(st.ncu.sum())}; K2b's dcam on it vs on the full map "
+          f"{gap:.3e} of max|dcam| (tol 1e-3: the skipped chunks hold no band pixel; "
+          "summation order)")
+    if not gap <= 1e-3:
+        raise AssertionError("K2b on the boundary-prefix map disagrees with the full map")
 
     T, P, nc = ref.shape[1], TH * TW, st.nlive.shape[1]
     frames = [(prc._chunks_of(st.rec[b]), st.ctmap[b].long(), st.nlive[b].long())
@@ -653,8 +681,10 @@ def _k5_work(rec, counts, gp, meta):
     the live cotangent pixels of its tile (gp [B, T, P] = g·1{acc <= 1}).
     Returns {"fwd": [pairs, chunks, whole-tile pairs, live slots], "bwd":
     [pairs, chunks, whole-tile pairs, live slots], "bwd_tiles": tiles with a
-    live pixel}; the whole-tile pairs count every pixel (every live pixel) of
-    the tile for each live slot whose band-dilated bbox reaches the tile."""
+    live pixel, "written": the slots below their tile's count, which the
+    counted K5b writes}; the whole-tile pairs count every pixel (every live
+    pixel) of the tile for each live slot whose band-dilated bbox reaches
+    the tile."""
     import torch
 
     from easyhec_torch.ops.pose_raster import band_mask, pix_grids
@@ -698,7 +728,8 @@ def _k5_work(rec, counts, gp, meta):
                     int((nlv * run).sum())],
             "bwd": [int((pairs[1] * use).sum()), int(use.sum()),
                     int((nok * live_px * use).sum()), int((nlv * use).sum())],
-            "bwd_tiles": int(live_g.any(-1).sum())}
+            "bwd_tiles": int(live_g.any(-1).sum()),
+            "written": int(counts.long().clamp(0, cap).sum())}
 
 
 def _print_k5_work(what, w):
@@ -706,14 +737,131 @@ def _print_k5_work(what, w):
           f"band-dilated bboxes (whole-tile rule {w['fwd'][2]}) over {w['fwd'][3]} live "
           f"slots in {w['fwd'][1]} chunks; backward {w['bwd'][0]} live pairs (whole-tile rule "
           f"{w['bwd'][2]}) over {w['bwd'][3]} live slots in {w['bwd'][1]} chunks in "
-          f"{w['bwd_tiles']} tiles")
+          f"{w['bwd_tiles']} tiles; the counted K5b writes {w['written']} slots")
+
+
+def _k5_slot_order_acc(rec, counts, meta):
+    """The plain K5 coverage summed slot after slot, in slot order per tile
+    (the order of K5f's sums), each pair through tile_raster's
+    _chunk_coverage: [B, T, th, tw]."""
+    import torch
+
+    from easyhec_torch.ops.pose_raster import pix_grids
+    from easyhec_torch.ops.tile_raster import CHUNK, TRI_RECORD, _blocks, _chunk_coverage, \
+        _used_chunks
+
+    B, T, _, cap = rec.shape
+    P = meta.th * meta.tw
+    px, py = pix_grids(meta.th, meta.tw, rec.device)
+    flat = rec.reshape(B * T, TRI_RECORD, cap // CHUNK, CHUNK)
+    tile, j, rem = _used_chunks(counts.reshape(-1), cap)
+    acc = torch.zeros((B * T, P), dtype=torch.float32, device=rec.device)
+    for jj in range(int(j.max()) + 1 if j.numel() else 0):  # a tile's chunks in order
+        sel = (j == jj).nonzero()[:, 0]
+        for a, b in _blocks(sel.numel(), P):
+            ids = sel[a:b]
+            rows = tile[ids]
+            cov = _chunk_coverage(flat[rows, :, jj], rem[ids], px, py, meta.sharpness)[0]
+            for lane in range(CHUNK):
+                acc[rows] = acc[rows] + cov[:, lane]
+    return acc.reshape(B, T, meta.th, meta.tw)
+
+
+def _check_k5(tag, rec, st, meta, n_tx, cap, g_t, ref_acc=None):
+    """K5f, the dense K5b and the counted K5b against their plain versions
+    on the records rec of bin state st (bins' cap `cap`) with the image
+    cotangent g_t, each run twice and held bit for bit (K5f at min(acc, 2),
+    the counted K5b through the gather at q). ref_acc: the plain slot-order
+    sum, compared bit for bit with min(acc, 2). Returns (acc, errors of K5f,
+    dense K5b and counted K5b's dfields)."""
+    import torch
+
+    from easyhec_torch.ops import tile_raster as tr
+    from easyhec_torch.render.binning import _gather_at_q
+
+    counts = st.counts
+    ok_, acck = tr.tile_fwd_cuda(rec, counts, meta)
+    op_, accp = tr.tile_fwd_plain(rec, counts, meta)
+    torch.cuda.synchronize()
+    img_err = (ok_ - op_).abs().max().item()
+    acc_err = (acck.clamp(max=2) - accp.clamp(max=2)).abs().max().item()
+    print(f"[kernels] {tag} K5f image: max abs err {img_err:.3e}; min(acc,2) max abs err "
+          f"{acc_err:.3e} (tol 1e-3 each, as K1f/K2f: summation order over slots)")
+    if not (img_err <= 1e-3 and acc_err <= 1e-3):
+        raise AssertionError(f"{tag} K5f disagrees with its plain version")
+    _check_repeat(f"{tag} K5f", lambda: _fwd_out(tr.tile_fwd_cuda(rec, counts, meta)))
+    if ref_acc is not None:
+        _check_lane_order(f"{tag} K5f", acck, ref_acc)
+
+    bargs = (rec, counts, acck, g_t, meta)
+    dk, dp = tr.tile_bwd_cuda(*bargs), tr.tile_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    scale = dp.abs().max().item()
+    d_err = (dk - dp).abs().max().item()
+    print(f"[kernels] {tag} dense K5b dtri: max abs err {d_err:.3e}, max|dtri| {scale:.3e} "
+          "(tol 1e-3*max|dtri|). Reason: summation order over pixels")
+    if not (scale > 0 and d_err <= 1e-3 * scale):
+        raise AssertionError(f"{tag} dense K5b disagrees with its plain version")
+    _check_repeat(f"{tag} dense K5b", lambda: tr.tile_bwd_cuda(*bargs))
+
+    cargs = bargs + (n_tx, cap)
+    fk = _gather_at_q(tr.tile_bwd_counted_cuda(*cargs), st.q)
+    fp = _gather_at_q(tr.tile_bwd_counted_plain(*cargs), st.q)
+    torch.cuda.synchronize()
+    fscale = fp.abs().max().item()
+    f_err = (fk - fp).abs().max().item()
+    print(f"[kernels] {tag} counted K5b dfields (through the gather at q): max abs err "
+          f"{f_err:.3e}, max|dfields| {fscale:.3e} (tol 1e-3*max|dfields|). Reason: summation "
+          "order over pixels")
+    if not (fscale > 0 and f_err <= 1e-3 * fscale and torch.isfinite(fk).all()):
+        raise AssertionError(f"{tag} counted K5b disagrees with its plain version")
+    _check_repeat(f"{tag} counted K5b",
+                  lambda: _gather_at_q(tr.tile_bwd_counted_cuda(*cargs), st.q))
+    return acck, max(img_err, acc_err), d_err, f_err
+
+
+def _k5_rows(tag, rec, st, meta, n_tx, cap, g_t, acck, errs, replaces=""):
+    """Time and bound K5f, the dense K5b and the counted K5b (_row) on the
+    inputs _check_k5 held; -> their rows."""
+    from easyhec_torch.ops import tile_raster as tr
+
+    counts = st.counts
+    B, T = counts.shape
+    P = meta.th * meta.tw
+    gp = (g_t * (acck <= 1.0).float()).reshape(B, T, P)
+    w = _k5_work(rec, counts, gp, meta)
+    _print_k5_work(f"{tag} work", w)
+    img = B * T * P * 4
+    bargs = (rec, counts, acck, g_t, meta)
+    live_in = w["bwd"][3] * K5_SLOT_BYTES + w["bwd_tiles"] * 2 * P * 4 + B * T * 4
+    src = "easyhec_torch/ops/csrc/tile_raster.cu"
+    return [
+        # records of the live slots run and counts in; clip(acc) and acc out
+        _row("tile_fwd", f"{tag} K5f", src, replaces and replaces + "95", errs[0],
+             lambda: tr.tile_fwd_cuda(rec, counts, meta),
+             lambda: tr.tile_fwd_plain(rec, counts, meta),
+             w["fwd"][3] * K5_SLOT_BYTES + B * T * 4 + 2 * img, w["fwd"][0] * OPS_FWD_PAIR,
+             "tile_fwd_kernel", spill_free=True),
+        # records of the live slots, acc and g of the live tiles in; all of dtri out
+        _row("tile_bwd", f"{tag} dense K5b", src, replaces and replaces + "121", errs[1],
+             lambda: tr.tile_bwd_cuda(*bargs), lambda: tr.tile_bwd_plain(*bargs),
+             live_in + rec.numel() * 4, w["bwd"][0] * OPS_BWD_PAIR, "8DenseOut",
+             spill_free=True),
+        # the same in; 13 floats per slot below its count out
+        _row("tile_bwd_counted", f"{tag} counted K5b", src, replaces and replaces + "121",
+             errs[2], lambda: tr.tile_bwd_counted_cuda(*bargs, n_tx, cap),
+             lambda: tr.tile_bwd_counted_plain(*bargs, n_tx, cap),
+             live_in + w["written"] * K5_SLOT_BYTES, w["bwd"][0] * OPS_BWD_PAIR,
+             "10CountedOut", spill_free=True),
+    ]
 
 
 def unfused_kernel_phase(r, lp, K, xi, target):
-    """K5f and K5b against their plain versions at the full shapes of the
-    unfused route, on the records at the start pose; K5b also through
-    autograd on RobotRenderer.silhouette down to dTc, against the plain
-    K5b's dtri chained through the same record pack. Returns the rows."""
+    """K5f and K5b (dense and counted) against their plain versions at the
+    full shapes of the unfused route, on the records at the start pose;
+    min(acc, 2) against the plain slot-order sum; dTc through autograd on
+    RobotRenderer.silhouette (the counted route) against the plain K5b's
+    dtri chained through the same record pack. Returns the rows."""
     import torch
 
     from easyhec_torch.geometry import se3
@@ -727,70 +875,40 @@ def unfused_kernel_phase(r, lp, K, xi, target):
         rec, st = _k5_records(r, lp, K, Tc)
     if bool(st.overflow.any()):
         raise AssertionError("unfused bin overflow at the start pose")
-    rec, counts = rec.contiguous(), st.counts.contiguous()
+    rec = tr.pad_cap(rec).contiguous()
+    counts = st.counts
     T = counts.shape[1]
     print(f"[unfused] start-pose loads: max tile count {int(counts.max())} (cap "
           f"{cfg.capacity}), {int((counts > 0).sum())} of {B * T} tiles visited; records "
           f"{rec.numel() * 4} bytes")
     meta = tr.TileMeta(TH, TW, 1.0)
-    ok_, acck = tr.tile_fwd_cuda(rec, counts, meta)
-    op_, accp = tr.tile_fwd_plain(rec, counts, meta)
-    torch.cuda.synchronize()
-    img_err = (ok_ - op_).abs().max().item()
-    acc_err = (acck.clamp(max=2) - accp.clamp(max=2)).abs().max().item()
-    print(f"[kernels] K5f image: max abs err {img_err:.3e}; min(acc,2) max abs err "
-          f"{acc_err:.3e} (tol 1e-3 each, as K1f/K2f: summation order over slots, FMA "
-          "contraction of the edge functions)")
-    if not (img_err <= 1e-3 and acc_err <= 1e-3):
-        raise AssertionError("K5f disagrees with its plain version")
-
-    g_img = 2.0 * (_untile(ok_, H, W, cfg) - target) / B  # d mean Σ(sil − target)²
+    n_tx = -(-W // TW)
+    sil, _ = tr.tile_fwd_plain(rec, counts, meta)
+    g_img = 2.0 * (_untile(sil, H, W, cfg) - target) / B  # d mean Σ(sil − target)²
     g_t = tile_image(g_img, TH, TW).contiguous()
-    bargs = (rec, counts, acck, g_t, meta)
-    dk, dp = tr.tile_bwd_cuda(*bargs), tr.tile_bwd_plain(*bargs)
-    torch.cuda.synchronize()
-    scale = dp.abs().max().item()
-    d_err = (dk - dp).abs().max().item()
-    print(f"[kernels] K5b dtri: max abs err {d_err:.3e}, max|dtri| {scale:.3e} (tol "
-          "1e-3*max|dtri|). Reason: summation order over pixels")
-    if not (scale > 0 and d_err <= 1e-3 * scale):
-        raise AssertionError("K5b disagrees with its plain version")
+    acck, *errs = _check_k5("unfused", rec, st, meta, n_tx, cfg.capacity, g_t,
+                            _k5_slot_order_acc(rec, counts, meta))
+
+    dp = tr.tile_bwd_plain(rec, counts, acck, g_t, meta)
     Tk = Tc.clone().requires_grad_()
-    n0 = tr.tile_bwd_cuda.launches
+    n0 = (tr.tile_bwd_counted_cuda.launches, tr.tile_bwd_cuda.launches)
     (gk,) = torch.autograd.grad(r.silhouette(Tk, lp, K, bin_state=st), Tk, g_img)
     Tp = Tc.clone().requires_grad_()
-    (gp_,) = torch.autograd.grad(_k5_records(r, lp, K, Tp, st)[0], Tp, dp)
+    (gp_,) = torch.autograd.grad(_k5_records(r, lp, K, Tp, st)[0], Tp,
+                                 dp[..., :cfg.capacity])
     torch.cuda.synchronize()
-    if tr.tile_bwd_cuda.launches != n0 + 1:
-        raise AssertionError("autograd through RobotRenderer.silhouette did not launch K5b")
+    if (tr.tile_bwd_counted_cuda.launches, tr.tile_bwd_cuda.launches) != (n0[0] + 1, n0[1]):
+        raise AssertionError("autograd through RobotRenderer.silhouette did not launch the "
+                             "counted K5b alone")
     want = gp_[:3, :4]
     ag_err = (gk[:3, :4] - want).abs().max().item()
-    print(f"[kernels] dTc through autograd on RobotRenderer.silhouette (K5b) vs the plain "
-          f"K5b's dtri through the same record pack: {ag_err:.3e} of max "
+    print(f"[kernels] dTc through autograd on RobotRenderer.silhouette (counted K5b) vs the "
+          f"plain K5b's dtri through the same record pack: {ag_err:.3e} of max "
           f"{want.abs().max().item():.3e} (tol 1e-3*max). Reason: summation order")
     if not ag_err <= 1e-3 * want.abs().max().item():
-        raise AssertionError("K5b through autograd disagrees with its plain version")
-
-    P = TH * TW
-    gp = (g_t * (acck <= 1.0).float()).reshape(B, T, P)
-    w = _k5_work(rec, counts, gp, meta)
-    _print_k5_work("unfused work at the start pose", w)
-    img = B * T * P * 4
-    src = "easyhec_torch/ops/csrc/tile_raster.cu"
-    return [
-        # records of the live slots run and counts in; clip(acc) and acc out
-        _row("tile_fwd", "K5f", src, "easyhec_tpu/ops/tile_raster.py:95", max(img_err, acc_err),
-             lambda: tr.tile_fwd_cuda(rec, counts, meta),
-             lambda: tr.tile_fwd_plain(rec, counts, meta),
-             w["fwd"][3] * K5_SLOT_BYTES + B * T * 4 + 2 * img, w["fwd"][0] * OPS_FWD_PAIR,
-             "tile_fwd_kernel"),
-        # records of the live slots, acc and g of the live tiles in; dtri out
-        _row("tile_bwd", "K5b", src, "easyhec_tpu/ops/tile_raster.py:121", d_err,
-             lambda: tr.tile_bwd_cuda(*bargs), lambda: tr.tile_bwd_plain(*bargs),
-             w["bwd"][3] * K5_SLOT_BYTES + w["bwd_tiles"] * 2 * P * 4 + B * T * 4
-             + rec.numel() * 4,
-             w["bwd"][0] * OPS_BWD_PAIR, "tile_bwd_kernel"),
-    ]
+        raise AssertionError("the counted K5b through autograd disagrees with its plain version")
+    return _k5_rows("unfused", rec, st, meta, n_tx, cfg.capacity, g_t, acck, errs,
+                    "easyhec_tpu/ops/tile_raster.py:")
 
 
 def large_tile_phase():
@@ -1002,7 +1120,8 @@ def search_phase(renderer, lp, K, xi, target):
     from easyhec_torch.models.pose_init import global_search_init
     from easyhec_torch.ops import tile_raster as tr
 
-    kernels = {"tile_fwd": tr.tile_fwd_cuda, "tile_bwd": tr.tile_bwd_cuda}
+    kernels = {"tile_fwd": tr.tile_fwd_cuda, "tile_bwd_counted": tr.tile_bwd_counted_cuda,
+               "tile_bwd": tr.tile_bwd_cuda}
     torch.cuda.synchronize()
     _reset(kernels)
     t0 = time.perf_counter()
@@ -1026,19 +1145,20 @@ def search_phase(renderer, lp, K, xi, target):
           f"JAX package's own search test asks > 0.5); pose error {json.dumps(err)}")
     if not (np.isfinite(res.Tc_c2b).all() and 0 < res.score <= 1):
         raise AssertionError("global search gave no finite pose")
-    if launches != {"tile_fwd": 48 + 2 + 200 + 1, "tile_bwd": 200}:
+    if launches != {"tile_fwd": 48 + 2 + 200 + 1, "tile_bwd_counted": 200, "tile_bwd": 0}:
         raise AssertionError(f"K5 launches {launches} in the global search")
     return res
 
 
 def search_kernel_phase(renderer, lp, K, target, res):
-    """K5f and K5b at the shapes the global search launches them: its
-    scoring renderer (60x80 at 1/8 resolution, 16x32 tiles, the renderer's
-    cap) on frame 0, K5f on a sweep batch (the first 64 candidates: 48
-    launches per search) and K5f and K5b on the refinement's batch (the
-    sweep's top 16 candidates, before the moment refinement: 200 launches
-    each), against their plain versions, with the device time and the bound
-    of each (_k5_work)."""
+    """K5f and K5b (dense and counted) at the shapes the global search
+    launches them: its scoring renderer (60x80 at 1/8 resolution, 16x32
+    tiles, T = 12, the renderer's cap) on frame 0, on a sweep batch (the
+    first 64 candidates: 48 K5f launches per search) and on the
+    refinement's batch (the sweep's top 16 candidates, before the moment
+    refinement: 200 launches of K5f and of the counted K5b), against their
+    plain versions, with the device time, the bound and the ratio of each
+    (_k5_rows)."""
     import torch
 
     from easyhec_torch.models.calib import downscale_K
@@ -1056,50 +1176,23 @@ def search_kernel_phase(renderer, lp, K, target, res):
     poses = torch.from_numpy(res.poses).to(DEVICE)
     top = torch.argsort(torch.from_numpy(-res.scores), stable=True)[:16].to(DEVICE)
     meta = tr.TileMeta(cfg.tile_h, cfg.tile_w, 1.0)
-    P = cfg.tile_h * cfg.tile_w
-    src = "easyhec_torch/ops/csrc/tile_raster.cu"
-    for what, Tc, bwd in (("sweep batch", poses[:64], False), ("refine batch", poses[top], True)):
+    n_tx = -(-Ws // cfg.tile_w)
+    for what, Tc in (("sweep batch", poses[:64]), ("refine batch", poses[top])):
         n = Tc.shape[0]
         with torch.no_grad():
             rec, st = _k5_records(sr, lp[:1].expand((n,) + lp.shape[1:]), Ks, Tc)
-        rec, counts = rec.contiguous(), st.counts.contiguous()
+        rec = tr.pad_cap(rec).contiguous()
+        counts = st.counts
         Bn, T = counts.shape
-        ok_, acck = tr.tile_fwd_cuda(rec, counts, meta)
-        op_, accp = tr.tile_fwd_plain(rec, counts, meta)
-        torch.cuda.synchronize()
-        err = max((ok_ - op_).abs().max().item(),
-                  (acck.clamp(max=2) - accp.clamp(max=2)).abs().max().item())
-        g_t = tile_image(2.0 * (_untile(ok_, Hs, Ws, cfg) - mask), cfg.tile_h,
-                         cfg.tile_w).contiguous()
-        gp = (g_t * (acck <= 1.0).float()).reshape(Bn, T, P)
-        w = _k5_work(rec, counts, gp, meta)
         print(f"[kernels search] {what}: {Bn} frames of {Ws}x{Hs}, {T} tiles of "
               f"{cfg.tile_h}x{cfg.tile_w}, cap {cfg.capacity}, {int(counts.max())} max load, "
-              f"{float((counts >= cfg.capacity).float().mean()):.4f} of tiles at cap; K5f "
-              f"image/min(acc,2) max abs err {err:.3e} (tol 1e-3)")
-        _print_k5_work(f"search {what}", w)
-        if not err <= 1e-3:
-            raise AssertionError(f"K5f disagrees with its plain version at the search's {what}")
-        img = Bn * T * P * 4
-        _row("tile_fwd", f"K5f search {what}", src, "", err,
-             lambda: tr.tile_fwd_cuda(rec, counts, meta),
-             lambda: tr.tile_fwd_plain(rec, counts, meta),
-             w["fwd"][3] * K5_SLOT_BYTES + Bn * T * 4 + 2 * img,
-             w["fwd"][0] * OPS_FWD_PAIR, "tile_fwd_kernel")
-        if bwd:
-            bargs = (rec, counts, acck, g_t, meta)
-            dk, dp = tr.tile_bwd_cuda(*bargs), tr.tile_bwd_plain(*bargs)
-            torch.cuda.synchronize()
-            scale = dp.abs().max().item()
-            d_err = (dk - dp).abs().max().item()
-            print(f"[kernels search] K5b {what} dtri: max abs err {d_err:.3e}, max|dtri| "
-                  f"{scale:.3e} (tol 1e-3*max|dtri|)")
-            if not (scale > 0 and d_err <= 1e-3 * scale):
-                raise AssertionError("K5b disagrees with its plain version at the search's shapes")
-            _row("tile_bwd", f"K5b search {what}", src, "", d_err,
-                 lambda: tr.tile_bwd_cuda(*bargs), lambda: tr.tile_bwd_plain(*bargs),
-                 w["bwd"][3] * K5_SLOT_BYTES + w["bwd_tiles"] * 2 * P * 4
-                 + Bn * T * 4 + rec.numel() * 4, w["bwd"][0] * OPS_BWD_PAIR, "tile_bwd_kernel")
+              f"{float((counts >= cfg.capacity).float().mean()):.4f} of tiles at cap")
+        sil, _ = tr.tile_fwd_plain(rec, counts, meta)
+        g_t = tile_image(2.0 * (_untile(sil, Hs, Ws, cfg) - mask), cfg.tile_h,
+                         cfg.tile_w).contiguous()
+        tag = f"search {what}"
+        acck, *errs = _check_k5(tag, rec, st, meta, n_tx, cfg.capacity, g_t)
+        _k5_rows(tag, rec, st, meta, n_tx, cfg.capacity, g_t, acck, errs)
 
 
 def trainer_search_phase(lp, K, xi, qs, target, steps):
@@ -1133,7 +1226,7 @@ def trainer_search_phase(lp, K, xi, qs, target, steps):
         qpos=qs.astype(np.float32), link_poses=lp.cpu().numpy(), K=K.cpu().numpy(),
         Tc_c2b_gt=se3.exp(xi).cpu().numpy(),
     )
-    kernels = {"tile_fwd": tr.tile_fwd_cuda, "tile_bwd": tr.tile_bwd_cuda,
+    kernels = {"tile_fwd": tr.tile_fwd_cuda, "tile_bwd_counted": tr.tile_bwd_counted_cuda,
                "loss_fwd_compact": prc.loss_fwd_compact_cuda,
                "loss_bwd_compact": prc.loss_bwd_compact_cuda}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1159,7 +1252,7 @@ def trainer_search_phase(lp, K, xi, qs, target, steps):
     if not (np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]):
         raise AssertionError("trainer loss did not fall")
     # K5f: the pre-check's one launch and the search's 251; K5b: the search's
-    if launches["tile_fwd"] != 1 + 251 or launches["tile_bwd"] != 200:
+    if launches["tile_fwd"] != 1 + 251 or launches["tile_bwd_counted"] != 200:
         raise AssertionError(f"K5 launches {launches} in the global-search trainer run")
     if launches["loss_bwd_compact"] < steps:
         raise AssertionError(f"K2 launches {launches} for {steps} steps")
@@ -1237,21 +1330,21 @@ def reference_search():
         raise AssertionError("the top-k order differs where the scores are separated")
 
 
-def silhouette_path(renderer, lp, K, xi, target, steps=20):
+def silhouette_path(renderer, lp, K, xi, target, kernels, label, steps=20):
     """Adam steps on mean Σ(RobotRenderer.silhouette − mask)² through
     autograd: the image-route loss (easyhec_tpu's sharded calibration
-    differentiates the silhouette so). Each step re-bins densely (no bin
-    state passed), renders with K4f and differentiates with K4b."""
+    differentiates the silhouette so). Each step re-bins (no bin state
+    passed). kernels {name: wrapper}: the pair that must launch once per
+    step (dense route: K4f and K4b; the unfused route's top-k binner: K5f
+    and the dense K5b)."""
     import torch
 
     from easyhec_torch.geometry import se3
-    from easyhec_torch.ops import pose_raster as pr
     from easyhec_torch.solver.optim import make_optimizer
 
     opt = make_optimizer("adam", max_lr=3e-3)
     dof = (xi + 0.01).clone()
     state = opt.init(dof)
-    kernels = {"sil_fwd": pr.sil_fwd_cuda, "sil_bwd": pr.sil_bwd_cuda}
     torch.cuda.synchronize()
     _reset(kernels)
     t0 = time.perf_counter()
@@ -1268,13 +1361,13 @@ def silhouette_path(renderer, lp, K, xi, target, steps=20):
     dt = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernels.items()}
     losses = torch.stack(losses).cpu()
-    print(f"[silhouette] {steps} image-loss steps through RobotRenderer.silhouette: "
-          f"{dt / steps * 1e3:.3f} ms/step with a dense rebin each; loss "
+    print(f"[{label}] {steps} image-loss steps through RobotRenderer.silhouette: "
+          f"{dt / steps * 1e3:.3f} ms/step with a rebin each; loss "
           f"{losses[0]:.3f} -> {losses[-1]:.3f}; launches {json.dumps(launches)}")
     if not (torch.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise AssertionError("silhouette-path loss did not fall")
-    if launches != {"sil_fwd": steps, "sil_bwd": steps}:
-        raise AssertionError(f"K4 launches {launches} for {steps} steps")
+        raise AssertionError(f"{label}: the image loss did not fall")
+    if launches != {k: steps for k in kernels}:
+        raise AssertionError(f"{label}: launches {launches} for {steps} steps")
     return launches
 
 
@@ -1454,7 +1547,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=1000)
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="replay the compact and the dense calibrate runs under "
+                    help="replay the compact, dense and unfused calibrate runs under "
                          "torch.profiler and write their summaries into DIR")
     args = ap.parse_args()
 
@@ -1477,7 +1570,8 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {name}: {line.strip()}")
-    gpu = _gpu_line()
+    global GPU
+    gpu = GPU = _gpu_line()
     print(f"[device] {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from easyhec_torch.geometry import se3
@@ -1524,8 +1618,9 @@ def main() -> int:
                                   "main dense")
     unf_launches, ms_u, rebins_u = main_path(unfused, lp, K, xi, target_u, args.steps,
                                       {"tile_fwd": tr.tile_fwd_cuda,
-                                       "tile_bwd": tr.tile_bwd_cuda}, "main unfused")
-    if unf_launches != {"tile_fwd": args.steps, "tile_bwd": args.steps}:
+                                       "tile_bwd_counted": tr.tile_bwd_counted_cuda},
+                                      "main unfused")
+    if unf_launches != {"tile_fwd": args.steps, "tile_bwd_counted": args.steps}:
         raise AssertionError(f"K5 launches {unf_launches}: not one K5f and one K5b per step")
     launches.update(unf_launches)
     print(f"[main] dense and unfused against compact, same call: {ms_d:.3f} and {ms_u:.3f} "
@@ -1539,7 +1634,15 @@ def main() -> int:
         _profile(unfused, lp, K, d0, target_u, args.steps, rebins_u, Path(args.profile),
                  "unfused", "tile_fwd_kernel", "tile_bwd_kernel")
     trainer_launches, _ = trainer_phase(lp, K, xi, qs, target_d, args.steps)
-    sil_launches = silhouette_path(dense, lp, K, xi, target_d)
+    sil_launches = silhouette_path(dense, lp, K, xi, target_d,
+                                   {"sil_fwd": pr.sil_fwd_cuda, "sil_bwd": pr.sil_bwd_cuda},
+                                   "silhouette")
+    topk = RobotRenderer(renderer.meshes, H, W, device=DEVICE,
+                         tile=unfused.tile._replace(binner="topk"))
+    topk_launches = silhouette_path(topk, lp, K, xi, target_u,
+                                    {"tile_fwd": tr.tile_fwd_cuda, "tile_bwd": tr.tile_bwd_cuda},
+                                    "silhouette topk", steps=5)
+    launches["tile_bwd"] = topk_launches["tile_bwd"]
     launches.update({k: trainer_launches[k] for k in ("loss_fwd", "loss_bwd", "sil_fwd")})
     launches["sil_bwd"] = sil_launches["sil_bwd"]
     res = search_phase(renderer, lp, K, xi, target)

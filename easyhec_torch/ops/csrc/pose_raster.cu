@@ -102,8 +102,9 @@ __global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS) pose_fwd_kernel(
         const int t = w0 + s_list[s_ord[j / nsb]];
         if (tid == 0) s_tile = t;  // read again after the sweep (its barriers)
         const float x0 = (float)((t % n_tx) * tw), y0 = (float)((t / n_tx) * th);
-        acc = tile_fwd(DenseSlots{recb + (int64_t)t * cap}, min(cnt[t], cap), (int)S, s_cam,
-                       x0, y0, th, tw, fwd_pixel(j % nsb, tw, warp, lane), sharp, near, far);
+        const ProjectedSlots<DenseSlots> src{{recb + (int64_t)t * cap}, (int)S, s_cam,
+                                             x0, y0, near, far};
+        acc = tile_fwd(src, min(cnt[t], cap), th, tw, fwd_pixel(j % nsb, tw, warp, lane), sharp);
       }
       // Everything below is derived anew from s_tile and j, so that none of
       // it is held in registers through the sweep.

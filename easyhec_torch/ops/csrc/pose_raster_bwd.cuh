@@ -6,6 +6,8 @@
 // arms lox, hix, loy, hiy; the 13 pixel sums; the chain through the
 // normalized edges, corner pixels and camera coordinates to 12 dTc terms);
 // the plain PyTorch version is easyhec_torch/ops/pose_raster.py _bwd_chunk.
+// K5b (tile_raster.cu, tile_bwd_kernel) shares steps 1 and 2 (the live list
+// and the sweep into the 13 sums) and writes the sums in place of step 3.
 //
 // Layout of one block (BWD_THREADS threads):
 // 1. The tile's live cotangent pixels (g != 0) are compacted, in pixel

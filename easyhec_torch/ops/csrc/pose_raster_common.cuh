@@ -1,6 +1,7 @@
-// Device code shared by the fused pose-raster kernels (pose_raster.cu and
-// pose_raster_compact.cu): per-triangle setup of one record slot and the
-// fixed-order warp and block sums. The math per lane is
+// Device code shared by the kernels of ops/csrc (pose_raster.cu,
+// pose_raster_compact.cu and, for the Lane that K5 fills with its
+// tile-local edges, tile_raster.cu): per-triangle setup of one record slot
+// and the fixed-order warp and block sums. The math per lane is
 // easyhec_tpu/ops/pose_raster.py _chunk_setup; the plain PyTorch version is
 // easyhec_torch/ops/pose_raster.py _chunk_setup.
 //
@@ -14,7 +15,6 @@
 
 #define CHUNK 128
 #define REC 12
-#define MAX_THREADS 1024
 
 namespace {
 
@@ -95,15 +95,6 @@ __device__ __forceinline__ void lane_project(const float* __restrict__ cam,
   L.loy = fminf(fminf(L.v[0], L.v[1]), L.v[2]);
   L.hiy = fmaxf(fmaxf(L.v[0], L.v[1]), L.v[2]);
   L.valid = valid;
-}
-
-// Pixel sub-blocks of a tile in K5's kernels (tile_raster.cu): each block
-// takes at most MAX_THREADS pixels (one thread each), so a tile of P pixels
-// runs as n_sub(P) blocks.
-inline int n_sub(int P) { return (P + MAX_THREADS - 1) / MAX_THREADS; }
-inline int sub_threads(int P) {
-  const int p = P < MAX_THREADS ? P : MAX_THREADS;
-  return (p + 31) / 32 * 32;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -117,9 +117,10 @@ __global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS) loss_fwd_compact_
       const int64_t tb = (int64_t)b * T + t;
       const float x0 = (float)((t % n_tx) * tw), y0 = (float)((t / n_tx) * th);
       const FwdPixel f = fwd_pixel(sb, tw, warp, lane);
-      const CompactSlots src{recb + (int64_t)c * CHUNK, nlive + (int64_t)b * nc + c};
-      const float acc = tile_fwd(src, (end - c) * CHUNK, (int)S, s_cam, x0, y0, th, tw, f,
-                                 sharp, near, far);
+      const ProjectedSlots<CompactSlots> src{
+          {recb + (int64_t)c * CHUNK, nlive + (int64_t)b * nc + c}, (int)S, s_cam, x0, y0,
+          near, far};
+      const float acc = tile_fwd(src, (end - c) * CHUNK, th, tw, f, sharp);
       const bool on = f.ix < tw && f.iy < th;
       const int64_t pix = tb * P + f.iy * tw + f.ix;
       if (on) acc_out[pix] = acc;

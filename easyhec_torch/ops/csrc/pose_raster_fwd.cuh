@@ -1,10 +1,13 @@
-// The fused coverage forward shared by K1f/K4f (pose_raster.cu,
-// pose_fwd_kernel) and K2f/K3 (pose_raster_compact.cu,
-// loss_fwd_compact_kernel): the raw coverage acc of one pixel of a tile,
-// summed over the tile's record slots in slot order. The math per lane is
-// easyhec_tpu/ops/pose_raster.py _chunk_setup and _chunk_coverage; the plain
-// PyTorch versions are easyhec_torch/ops/pose_raster.py _chunk_setup and
-// _chunk_coverage.
+// The coverage forward shared by K1f/K4f (pose_raster.cu, pose_fwd_kernel),
+// K2f/K3 (pose_raster_compact.cu, loss_fwd_compact_kernel) and K5f
+// (tile_raster.cu, tile_fwd_kernel): the raw coverage acc of one pixel of a
+// tile, summed over the tile's record slots in slot order. The fused
+// kernels set each slot up from base-frame corners (ProjectedSlots, the math
+// of easyhec_tpu/ops/pose_raster.py _chunk_setup); K5f reads tile-local
+// edge records as they are. The coverage is _chunk_coverage of
+// easyhec_tpu/ops/pose_raster.py and tile_raster.py; the plain PyTorch
+// versions are easyhec_torch/ops/pose_raster.py _chunk_setup and
+// _chunk_coverage, and easyhec_torch/ops/tile_raster.py _chunk_coverage.
 //
 // What bounds it on an H100: a slot's soft coverage is exactly 0 at every
 // pixel centre outside its bbox dilated by the soft band 0.5/sharpness
@@ -29,10 +32,11 @@
 //    tile (clipped to it), so a heavy tile runs on several SMs and any tile
 //    size runs; each warp owns one PATCH_H x PATCH_W patch of it. Every
 //    pixel belongs to exactly one item: no cross-block sums, no atomics. On
-//    the dense route each warp then writes empty regions on its own (acc =
-//    0, and a warp sum of ref²).
+//    the dense route and in K5f each warp then writes empty regions on its
+//    own (acc = 0, and a warp sum of ref² or the image's 0).
 // 2. For a region, the block walks the tile's slots in passes of FWD_PASS.
-//    Every thread sets up one slot a round (coalesced field loads), culls it
+//    Every thread loads one slot's record a round through the kernel's
+//    policy (coalesced field loads; the fused kernels set it up), culls it
 //    exactly against the region's pixel centres dilated by the band, and
 //    the survivors are compacted, in slot order, into a list of float4
 //    records in shared memory: the three edges {a, b, c} and the bbox
@@ -140,22 +144,44 @@ struct CompactSlots {
   }
 };
 
-// Raw coverage acc at this thread's pixel f of the th x tw tile at (x0, y0)
-// over the slots [0, n) of `src` (field stride fstride). cam is the frame's
-// camera row in shared memory: read at each setup, not held in registers.
-// Call with FWD_THREADS threads, all of them; n and the tile are uniform
-// over the block.
+// The fused kernels' records: base-frame corners of `src` (field stride
+// fstride), set up through the frame's camera into the tile at (x0, y0).
+// cam is the frame's camera row in shared memory: read at each setup, not
+// held in registers. setup(i, L) fills L's edges and bbox, tile-local, and
+// is false for a dead or invalid slot.
 template <class Slots>
-__device__ float tile_fwd(const Slots& src, int n, int fstride,
-                          const float* __restrict__ cam, float x0, float y0,
-                          int th, int tw, FwdPixel f, float sharp, float near,
-                          float far) {
+struct ProjectedSlots {
+  Slots src;
+  int fstride;
+  const float* cam;
+  float x0, y0, near, far;
+  __device__ __forceinline__ bool setup(int i, Lane& L) const {
+    lane_load(src.slot(i), fstride, L);  // the record and its liveness load together
+    if (!src.live(i)) return false;
+    lane_project(cam, x0, y0, near, far, L);
+    return L.valid;
+  }
+};
+
+// The soft band of a cull: coverage is 0 unless every bbox distance is
+// above -0.5/sharpness; sharpness <= 0 puts coverage everywhere (no cull).
+__device__ __forceinline__ float cull_band(float sharp) {
+  return sharp > 0.f ? 0.5f / sharp + kBandSlack : INFINITY;
+}
+
+// Raw coverage acc at this thread's pixel f of the th x tw tile over the
+// slots [0, n) of `src`, whose setup(i, L) gives slot i's tile-local edges
+// L.a, L.b, L.c and bbox L.lox, L.loy, L.hix, L.hiy (false: the slot adds
+// nothing). Call with FWD_THREADS threads, all of
+// them; n and the tile are uniform over the block.
+template <class Src>
+__device__ float tile_fwd(const Src& src, int n, int th, int tw, FwdPixel f, float sharp) {
   __shared__ float4 s_e[3][FWD_PASS];
   __shared__ float4 s_box[FWD_PASS];
   __shared__ int s_wcnt[2][FWD_WARPS];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const float band = 0.5f / sharp + kBandSlack;
+  const float band = cull_band(sharp);
   const float px = f.ix + 0.5f, py = f.iy + 0.5f;
   const bool active = f.ix < tw && f.iy < th;
   float acc = 0.f;
@@ -165,17 +191,10 @@ __device__ float tile_fwd(const Slots& src, int n, int fstride,
     int m = 0;  // list entries of this pass
     for (int r = 0; r < FWD_PASS / FWD_THREADS; ++r, ++it) {
       const int i = p0 + r * FWD_THREADS + tid;
-      bool ok = i < n;
       Lane L;
-      if (ok) {  // the record and its liveness load together
-        lane_load(src.slot(i), fstride, L);
-        ok = src.live(i);
-      }
-      if (ok) {
-        lane_project(cam, x0, y0, near, far, L);
-        ok = L.valid && reaches(make_float4(L.lox, L.loy, L.hix, L.hiy),
-                                aligned_box(f, REGION_H, REGION_W, th, tw), band);
-      }
+      bool ok = i < n && src.setup(i, L);
+      ok = ok && reaches(make_float4(L.lox, L.loy, L.hix, L.hiy),
+                         aligned_box(f, REGION_H, REGION_W, th, tw), band);
       const unsigned bal = __ballot_sync(0xffffffffu, ok);
       int* cnt = s_wcnt[it & 1];  // double-buffered: one barrier per round
       if (lane == 0) cnt[warp] = __popc(bal);

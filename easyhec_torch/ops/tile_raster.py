@@ -9,19 +9,26 @@ tile,
 
 with the edge functions already shifted into tile-local pixel coordinates
 (binning.pack_records_counted), and ``counts`` [B, n_tiles] the live slots
-of each tile. ``tile_silhouette`` is a ``torch.autograd.Function`` over one
-kernel pair of ``csrc/tile_raster.cu``:
+of each tile. The kernels of ``csrc/tile_raster.cu``:
 
 - ``tile_fwd_cuda`` (K5f, replaces ``_fwd_kernel``): clip(acc, 0, 1) and
   the raw coverage sum ``acc``, each [B, T, th, tw];
 - ``tile_bwd_cuda`` (K5b, replaces ``_bwd_kernel``): d(image)/d(record)
-  ``dtri`` [B, T, 16, cap], zero beyond each tile's count and in rows 13-15.
+  ``dtri`` [B, T, 16, cap], zero beyond each tile's count and in rows 13-15;
+- ``tile_bwd_counted_cuda`` (K5b written through the record pack's
+  transpose): ``dg`` [B, 13, T*cap_bins + 1], the shifted-back rows of each
+  slot below its tile's count at ``tile*cap_bins + slot`` and the zero
+  column ``T*cap_bins``; nothing else is written (the counted route's
+  gather at q reads nothing else).
 
-Each has a plain PyTorch version beside it (``tile_fwd_plain``,
-``tile_bwd_plain``), which the dispatch takes only for CPU tensors; for CUDA
-tensors it launches the kernel or raises. Each CUDA wrapper counts its
-launches in ``.launches``. ``acc`` values at or above 2 are unspecified (the
-forward kernel stops adding once a pixel sub-block saturates); clip(acc)
+``tile_silhouette`` is a ``torch.autograd.Function`` over K5f and the dense
+K5b (the top-k route); the counted route's Function is
+``binning.counted_silhouette``. Each kernel has a plain PyTorch version
+beside it (``tile_fwd_plain``, ``tile_bwd_plain``,
+``tile_bwd_counted_plain``), which the dispatch takes only for CPU tensors;
+for CUDA tensors it launches the kernel or raises. Each CUDA wrapper counts
+its launches in ``.launches``. ``acc`` values at or above 2 are unspecified
+(the forward kernel stops adding once a pixel patch saturates); clip(acc)
 and the backward's acc <= 1 mask are exact.
 """
 from __future__ import annotations
@@ -51,8 +58,11 @@ __all__ = [
     "tile_silhouette",
     "tile_fwd_cuda",
     "tile_bwd_cuda",
+    "tile_bwd_counted_cuda",
     "tile_fwd_plain",
     "tile_bwd_plain",
+    "tile_bwd_counted_plain",
+    "pad_cap",
 ]
 
 TRI_RECORD = 16  # f32 rows per triangle record
@@ -187,6 +197,18 @@ def tile_bwd_plain(tri, counts, acc, g, meta: TileMeta):
     return dtri.reshape(B, T, TRI_RECORD, cap)
 
 
+def tile_bwd_counted_plain(tri, counts, acc, g, meta: TileMeta, n_tx: int, cap_bins: int):
+    """Plain counted K5b: tile_bwd_plain's dtri cut to the bins' cap and
+    shifted back by the record pack's transpose -> dg [B, 13, T*cap_bins +
+    1] (binning._unshift_rows; the last column is zero). Equal to the
+    kernel's output where the kernel writes, the slots below each tile's
+    count; zero elsewhere."""
+    from ..render.binning import _unshift_rows
+
+    dtri = tile_bwd_plain(tri, counts, acc, g, meta)[..., :cap_bins]
+    return _unshift_rows(dtri, n_tx, meta.th, meta.tw)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels (csrc/tile_raster.cu), bound with ctypes
 # ---------------------------------------------------------------------------
@@ -197,7 +219,7 @@ def _lib():
     if not getattr(lib, "_easyhec_typed", False):
         lib.easyhec_tile_fwd.argtypes = [_P] * 4 + [_I] * 5 + [_F, _P]
         lib.easyhec_tile_fwd.restype = _I
-        lib.easyhec_tile_bwd.argtypes = [_P] * 5 + [_I] * 5 + [_F, _P]
+        lib.easyhec_tile_bwd.argtypes = [_I] + [_P] * 5 + [_I] * 7 + [_F, _P]
         lib.easyhec_tile_bwd.restype = _I
         lib._easyhec_typed = True
     return lib
@@ -217,8 +239,9 @@ def _check(tri, counts, meta: TileMeta):
 
 
 def tile_fwd_cuda(tri, counts, meta: TileMeta):
-    """K5f (one block per tile and pixel sub-block, one thread per pixel):
-    -> (clip(acc, 0, 1), acc), each [B, T, th, tw]."""
+    """K5f (one resident wave of blocks walking the (tile, 8x32 region)
+    items, one thread per pixel): -> (clip(acc, 0, 1), acc), each
+    [B, T, th, tw]."""
     B, T, cap, dev = _check(tri, counts, meta)
     out = torch.empty((B, T, meta.th, meta.tw), dtype=torch.float32, device=dev)
     acc = torch.empty_like(out)
@@ -231,25 +254,54 @@ def tile_fwd_cuda(tri, counts, meta: TileMeta):
     return out, acc
 
 
-def tile_bwd_cuda(tri, counts, acc, g, meta: TileMeta):
-    """K5b (one block per tile, one warp per slot): image cotangent g
-    [B, T, th, tw] -> dtri [B, T, 16, cap]."""
+def _bwd_launch(counted, tri, counts, acc, g, out, meta: TileMeta, n_tx, cap_bins):
+    """Launch K5b into `out`: dtri, or dg when counted."""
     B, T, cap, dev = _check(tri, counts, meta)
     shape = (B, T, meta.th, meta.tw)
     check_tensor("acc", acc, torch.float32, shape, dev)
     check_tensor("g", g, torch.float32, shape, dev)
-    dtri = torch.empty_like(tri)
     err = _lib().easyhec_tile_bwd(
-        counts.data_ptr(), tri.data_ptr(), acc.data_ptr(), g.data_ptr(),
-        dtri.data_ptr(), B, T, cap, meta.th, meta.tw, meta.sharpness, _stream(dev),
+        counted, counts.data_ptr(), tri.data_ptr(), acc.data_ptr(), g.data_ptr(),
+        out.data_ptr(), B, T, cap, meta.th, meta.tw, n_tx, cap_bins, meta.sharpness,
+        _stream(dev),
     )
     raise_on(err, "tile_bwd kernel")
+
+
+def tile_bwd_cuda(tri, counts, acc, g, meta: TileMeta):
+    """K5b, dense (one block per tile, one thread per slot): image cotangent
+    g [B, T, th, tw] -> dtri [B, T, 16, cap], written everywhere."""
+    dtri = torch.empty_like(tri)
+    _bwd_launch(0, tri, counts, acc, g, dtri, meta, 1, tri.shape[-1])
     tile_bwd_cuda.launches += 1
     return dtri
 
 
+def tile_bwd_counted_cuda(tri, counts, acc, g, meta: TileMeta, n_tx: int, cap_bins: int):
+    """K5b, counted (one block per tile, one thread per slot): image
+    cotangent g [B, T, th, tw] -> dg [B, 13, T*cap_bins + 1], the record
+    pack's transpose of each slot below its tile's count (tiles of th x tw
+    pixels, n_tx per row; cap_bins the bins' cap, at most tri's). Only
+    those entries and the zero column T*cap_bins are written."""
+    B, T = counts.shape
+    if not 0 < cap_bins <= tri.shape[-1]:
+        raise ValueError(f"bins' cap {cap_bins} outside (0, {tri.shape[-1]}]")
+    dg = torch.empty((B, 13, T * cap_bins + 1), dtype=torch.float32, device=tri.device)
+    dg[:, :, -1] = 0.0
+    _bwd_launch(1, tri, counts, acc, g, dg, meta, int(n_tx), int(cap_bins))
+    tile_bwd_counted_cuda.launches += 1
+    return dg
+
+
 tile_fwd_cuda.launches = 0
 tile_bwd_cuda.launches = 0
+tile_bwd_counted_cuda.launches = 0
+
+
+def pad_cap(tri):
+    """tri [..., cap] with its cap padded to a multiple of 128 (empty slots)."""
+    cap = tri.shape[-1]
+    return F.pad(tri, (0, -(-cap // CHUNK) * CHUNK - cap)) if cap % CHUNK else tri
 
 
 class _TileSilhouette(torch.autograd.Function):
@@ -285,9 +337,7 @@ def tile_silhouette(
     respect to ``tri``. A cap that is not a multiple of 128 is padded with
     empty slots, and the gradient is cropped back by the pad's backward.
     """
-    cap = tri.shape[-1]
-    if cap % CHUNK:
-        tri = F.pad(tri, (0, -(-cap // CHUNK) * CHUNK - cap))
+    tri = pad_cap(tri)
     meta = TileMeta(int(tile_h), int(tile_w), float(sharpness))
     return _TileSilhouette.apply(tri.to(torch.float32).contiguous(),
                                  counts.to(torch.int32).contiguous(), meta)

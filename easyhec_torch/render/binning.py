@@ -13,10 +13,14 @@ so ``idx``, ``counts``, ``q`` and ``overflow`` agree bit for bit given the
 same bboxes.
 
 The unfused silhouette route (``silhouette_counted``) packs tile-local edge
-records from the bins with ``pack_records_counted``, a
-``torch.autograd.Function`` whose backward is a pure gather at ``q``
-(``dfields[f] = Σ_r drec[q[f, r]]``): autograd of the forward's index would
-scatter-add, which on CUDA uses float atomics and is not deterministic.
+records from the bins and rasterizes them with K5 in one
+``torch.autograd.Function`` (``counted_silhouette``). Its backward is K5b
+written through the transpose of the pack's tile-local shift, then a pure
+gather at ``q`` (``dfields[f] = Σ_r dg[q[f, r]]``): autograd of the pack's
+index would scatter-add, which on CUDA uses float atomics and is not
+deterministic, and the gather reads only the live slots, so no dense
+d(record) is ever made. ``pack_records_counted`` is the pack alone, with
+the same gather-only backward.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ __all__ = [
     "BinState",
     "bin_count",
     "pack_records_counted",
+    "counted_silhouette",
     "fields_and_bins",
     "silhouette_counted",
 ]
@@ -236,46 +241,62 @@ def _shift_rows(g, x0b, y0b, n_rec):
     return rec.transpose(1, 2)
 
 
+def _pack(fields, idx, n_tx, tile_h, tile_w, n_rec):
+    """The record pack: fields [B, 13, F] gathered at idx [B, K, cap] and
+    shifted tile-local -> [B, K, n_rec, cap]."""
+    B, _, F = fields.shape
+    K, cap = idx.shape[-2:]
+    x0, y0 = _tile_origins(K, n_tx, tile_h, tile_w, fields.device)
+    fpad = torch.cat([fields, fields.new_zeros((B, 13, 1))], dim=-1)
+    # One frame at a time: an index expanded over the 13 fields would be a
+    # [B, 13, K*cap] int64 temporary.
+    g = torch.stack([fpad[b].index_select(1, idx[b].reshape(-1).long())
+                     for b in range(B)]).reshape(B, 13, K, cap)
+    return _shift_rows(g, x0[:, None], y0[:, None], n_rec)
+
+
+def _unshift_rows(drec, n_tx, tile_h, tile_w):
+    """Transpose of the pack's tile-local shift: drec [B, K, n_rec, cap] ->
+    dg [B, 13, K*cap + 1], the last column zero (the gather's sentinel).
+    c' = c + a*x0 + b*y0 contributes dc'*x0 to da and dc'*y0 to db; the
+    bbox shift is a constant."""
+    B, K, _, cap = drec.shape
+    x0, y0 = _tile_origins(K, n_tx, tile_h, tile_w, drec.device)
+    x0b, y0b = x0[:, None], y0[:, None]
+    d = drec.transpose(1, 2)  # [B, n_rec, K, cap]
+    rows = []
+    for e in range(3):
+        da, db, dc = d[:, 3 * e], d[:, 3 * e + 1], d[:, 3 * e + 2]
+        rows += [da + dc * x0b, db + dc * y0b, dc]
+    rows += [d[:, 9], d[:, 10], d[:, 11], d[:, 12]]
+    dg = torch.stack(rows, dim=1).reshape(B, 13, K * cap)
+    return torch.cat([dg, dg.new_zeros((B, 13, 1))], dim=-1)
+
+
+def _gather_at_q(dg, q):
+    """Gather-only transpose of the pack's gather: dfields[b, :, f] =
+    Σ_r dg[b, :, q[b, f, r]] (q = K*cap, dg's zero column, where the entry
+    is unused). dg [B, 13, K*cap + 1], q [B, F, R] -> [B, 13, F]."""
+    F = q.shape[1]
+    return torch.stack([
+        dg[b].index_select(1, q[b].reshape(-1).long()).reshape(13, F, -1).sum(-1)
+        for b in range(dg.shape[0])
+    ])
+
+
 class _PackRecords(torch.autograd.Function):
     """fields [B, 13, F] -> records [B, K, n_rec, cap]; backward gathers."""
 
     @staticmethod
     def forward(ctx, fields, idx, q, n_tx, tile_h, tile_w, n_rec):
-        B, _, F = fields.shape
-        K, cap = idx.shape[-2:]
-        x0, y0 = _tile_origins(K, n_tx, tile_h, tile_w, fields.device)
-        fpad = torch.cat([fields, fields.new_zeros((B, 13, 1))], dim=-1)
-        # One frame at a time: an index expanded over the 13 fields would be
-        # a [B, 13, K*cap] int64 temporary.
-        g = torch.stack([fpad[b].index_select(1, idx[b].reshape(-1).long())
-                         for b in range(B)]).reshape(B, 13, K, cap)
         ctx.save_for_backward(q)
-        ctx.meta = (F, n_tx, tile_h, tile_w)
-        return _shift_rows(g, x0[:, None], y0[:, None], n_rec)
+        ctx.meta = (n_tx, tile_h, tile_w)
+        return _pack(fields, idx, n_tx, tile_h, tile_w, n_rec)
 
     @staticmethod
     def backward(ctx, drec):
         (q,) = ctx.saved_tensors
-        F, n_tx, tile_h, tile_w = ctx.meta
-        B, K, _, cap = drec.shape
-        x0, y0 = _tile_origins(K, n_tx, tile_h, tile_w, drec.device)
-        x0b, y0b = x0[:, None], y0[:, None]
-        d = drec.transpose(1, 2)  # [B, n_rec, K, cap]
-        # Transpose of the tile-local shift: c' = c + a*x0 + b*y0 contributes
-        # dc'*x0 to da and dc'*y0 to db; the bbox shift is a constant.
-        rows = []
-        for e in range(3):
-            da, db, dc = d[:, 3 * e], d[:, 3 * e + 1], d[:, 3 * e + 2]
-            rows += [da + dc * x0b, db + dc * y0b, dc]
-        rows += [d[:, 9], d[:, 10], d[:, 11], d[:, 12]]
-        dg = torch.stack(rows, dim=1).reshape(B, 13, K * cap)
-        dgp = torch.cat([dg, dg.new_zeros((B, 13, 1))], dim=-1)
-        # Gather-only transpose: dfields[b, :, f] = Σ_r dgp[b, :, q[b, f, r]]
-        # (q = K*cap, the zero column, where the entry is unused).
-        dfields = torch.stack([
-            dgp[b].index_select(1, q[b].reshape(-1).long()).reshape(13, F, -1).sum(-1)
-            for b in range(B)
-        ])
+        dfields = _gather_at_q(_unshift_rows(drec, *ctx.meta), q)
         return dfields, None, None, None, None, None, None
 
 
@@ -289,6 +310,47 @@ def pack_records_counted(fields, idx, q, n_tx, tile_h, tile_w, n_rec):
     gather at ``q`` (deterministic, no atomics)."""
     return _PackRecords.apply(fields, idx, q, int(n_tx), int(tile_h), int(tile_w),
                               int(n_rec))
+
+
+class _CountedSilhouette(torch.autograd.Function):
+    """fields [B, 13, F] + bins -> clipped coverage tiles [B, K, th, tw]
+    through the record pack and K5, with one backward: K5b written through
+    the pack's transpose (dg), then the gather at q. No dense d(record)."""
+
+    @staticmethod
+    def forward(ctx, fields, idx, q, counts, n_tx, meta):
+        from ..ops.pose_raster import dispatch
+        from ..ops.tile_raster import TRI_RECORD, pad_cap, tile_fwd_cuda, tile_fwd_plain
+
+        rec = pad_cap(_pack(fields, idx, n_tx, meta.th, meta.tw, TRI_RECORD)).contiguous()
+        counts = counts.to(torch.int32).contiguous()
+        out, acc = dispatch(tile_fwd_cuda, tile_fwd_plain, rec, counts, meta)
+        ctx.save_for_backward(rec, counts, acc, q)
+        ctx.meta = (meta, n_tx, idx.shape[-1])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..ops.pose_raster import dispatch
+        from ..ops.tile_raster import tile_bwd_counted_cuda, tile_bwd_counted_plain
+
+        rec, counts, acc, q = ctx.saved_tensors
+        meta, n_tx, cap = ctx.meta
+        dg = dispatch(tile_bwd_counted_cuda, tile_bwd_counted_plain, rec, counts, acc,
+                      g.to(torch.float32).contiguous(), meta, n_tx, cap)
+        return _gather_at_q(dg, q), None, None, None, None, None
+
+
+def counted_silhouette(fields, idx, q, counts, n_tx, th, tw, sharpness=1.0):
+    """fields [B, 13, F] + bins (BinState idx [B, K, cap], q [B, F, R],
+    counts [B, K]) -> soft coverage tiles [B, K, th, tw] in [0, 1]: the
+    record pack followed by K5, differentiable in ``fields``. The same
+    function as pack_records_counted then tile_silhouette; its backward runs
+    the counted K5b, whose output the gather at q reads directly."""
+    from ..ops.tile_raster import TileMeta
+
+    meta = TileMeta(int(th), int(tw), float(sharpness))
+    return _CountedSilhouette.apply(fields, idx, q, counts, int(n_tx), meta)
 
 
 # ---------------------------------------------------------------------------
@@ -344,8 +406,6 @@ def silhouette_counted(
     Pass a precomputed ``state`` (from fields_and_bins on the FLATTENED
     batch) to reuse bins across optimizer steps while the triangles stay
     within the binning margin of where it was built."""
-    from ..ops.tile_raster import TRI_RECORD, tile_silhouette
-
     batch = soa.valid.shape[:-1]
     n = math.prod(batch)
     flat = type(soa)(*(a.reshape((n,) + a.shape[len(batch):]) for a in soa))
@@ -354,9 +414,8 @@ def silhouette_counted(
     else:
         fields = torch.stack(_edge_fields_soa(flat), dim=-2)
     n_tx = _cdiv(W, cfg.tile_w)
-    rec = pack_records_counted(fields, state.idx, state.q, n_tx, cfg.tile_h,
-                               cfg.tile_w, TRI_RECORD)
-    tiles = tile_silhouette(rec, state.counts, cfg.tile_h, cfg.tile_w, sharpness)
+    tiles = counted_silhouette(fields, state.idx, state.q, state.counts, n_tx, cfg.tile_h,
+                               cfg.tile_w, sharpness)
     img = _untile(tiles, H, W, cfg).reshape(batch + (H, W))
     ov = torch.any(state.overflow)
     return (img, ov) if return_overflow else img

@@ -348,11 +348,56 @@ def test_bwd_kernels_branches(dev, th, tw, band_only):
     assert (ck[cst.bwd_nlive == 0] == 0).all()
 
 
-# The unfused tile rasterizer (K5) on real records of the unfused route.
+# The unfused tile rasterizer (K5f, and K5b in its dense and counted
+# epilogues) on real records of the unfused route, at a bins' cap of 200
+# (run as 256 by K5; the counted K5b indexes tile*200 + slot), on tiles of
+# 16x32, 32x48, 32x128 (4096 pixels: 16 regions in the forward, one
+# 4096-pixel live list in the backward) and 8x8. Tolerances: the image and
+# min(acc, 2) atol 1e-5 (summation order over slots); dtri and dg 1e-4 of
+# their largest entry (summation order over pixels); two launches agree bit
+# for bit (no atomics).
 UNFUSED = TileConfig(16, 32, 200, binner="count", margin=2.0)
 
 
-@pytest.mark.parametrize("th,tw", [(16, 32), (32, 48)])
+def _k5_check(dev, rec, counts, meta, g, n_tx=None, cap_bins=None):
+    """K5f, the dense K5b and (with n_tx, cap_bins) the counted K5b against
+    their plain versions, each launched twice; -> (acc, counted dg)."""
+    from easyhec_torch.ops import tile_raster as tr_
+
+    def twice(fn, *args):
+        a, b = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x.clamp(max=2), y.clamp(max=2)), "two launches differ"
+        return a
+
+    ok, acck = twice(tr_.tile_fwd_cuda, rec, counts, meta)
+    op, accp = tr_.tile_fwd_plain(rec, counts, meta)
+    np.testing.assert_allclose(ok.cpu(), op.cpu(), atol=1e-5)
+    np.testing.assert_allclose(acck.clamp(max=2).cpu(), accp.clamp(max=2).cpu(), atol=1e-5)
+    assert (acck[counts == 0] == 0).all() and (ok[counts == 0] == 0).all()
+    dk = twice(tr_.tile_bwd_cuda, rec, counts, acck, g, meta)
+    dp = tr_.tile_bwd_plain(rec, counts, acck, g, meta)
+    scale = dp.abs().max().item()
+    assert scale > 0
+    np.testing.assert_allclose(dk.cpu(), dp.cpu(), rtol=0, atol=1e-4 * scale)
+    assert (dk[..., 13:, :] == 0).all()
+    if n_tx is None:
+        return acck, None
+    # the counted dg is defined only where the kernel writes it: the slots
+    # below each tile's count, and the zero column
+    slot = torch.arange(cap_bins, device=dev)
+    written = (slot < counts[..., None]).reshape(counts.shape[0], 1, -1)  # [B, 1, T*cap_bins]
+    written = torch.cat([written, torch.ones_like(written[..., :1])], -1)
+    written = written.expand(-1, 13, -1)
+    ck = twice(lambda *a: tr_.tile_bwd_counted_cuda(*a)[written],
+               rec, counts, acck, g, meta, n_tx, cap_bins)
+    cp = tr_.tile_bwd_counted_plain(rec, counts, acck, g, meta, n_tx, cap_bins)[written]
+    np.testing.assert_allclose(ck.cpu(), cp.cpu(), rtol=0, atol=1e-4 * cp.abs().max().item())
+    return acck, ck
+
+
+@pytest.mark.parametrize("th,tw", [(16, 32), (32, 48), (32, 128), (8, 8)])
 def test_tile_raster_matches_plain(dev, th, tw):
     from easyhec_torch.ops import tile_raster as tr_
     from easyhec_torch.render.binning import fields_and_bins, pack_records_counted
@@ -363,23 +408,79 @@ def test_tile_raster_matches_plain(dev, th, tw):
     tris = r._triangles_soa(r.camera_link_poses(se3.exp(t["xi"]), t["lp"]), t["K"])
     fields, st = fields_and_bins(tris, HD, WD, r.tile)
     assert not bool(st.overflow.any())
-    rec = pack_records_counted(fields, st.idx, st.q, -(-WD // tw), th, tw, 16)
-    rec = torch.nn.functional.pad(rec, (0, 56)).contiguous()  # cap 200 -> 256
+    n_tx = -(-WD // tw)
+    rec = tr_.pad_cap(pack_records_counted(fields, st.idx, st.q, n_tx, th, tw, 16)).contiguous()
+    assert rec.shape[-1] == 256 and B == 3
     counts = st.counts.contiguous()
     meta = tr_.TileMeta(th, tw, 1.0)
-    ok, acck = tr_.tile_fwd_cuda(rec, counts, meta)
-    op, accp = tr_.tile_fwd_plain(rec, counts, meta)
+    g = torch.randn((B, counts.shape[1], th, tw),
+                    generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    _k5_check(dev, rec, counts, meta, g, n_tx, 200)
+
+
+def _full_cap_records(dev, B, th, tw, H, W, cap, seed=9):
+    """K5 records [B, T, 16, cap] of `cap` random small triangles in every
+    tile, all slots live (counts = cap): the global search's saturated
+    tiles. Tile-local, spread a few pixels past the tile."""
+    from easyhec_torch.render.projection import TrianglesSoA
+    from easyhec_torch.render.tiled import _edge_fields_soa
+
+    rng = np.random.default_rng(seed)
+    T = -(-H // th) * -(-W // tw)
+    n = B * T * cap
+    c = rng.uniform([-3.0, -3.0], [tw + 3.0, th + 3.0], (n, 2))
+    uv = torch.from_numpy((c[:, None, :] + rng.uniform(-2.5, 2.5, (n, 3, 2))).astype(np.float32))
+    soa = TrianglesSoA(u=uv[..., 0].T, v=uv[..., 1].T, z=torch.ones(3, n),
+                       valid=torch.ones(n, dtype=torch.bool))
+    fl = torch.stack(_edge_fields_soa(soa))  # [13, n]
+    rec = torch.cat([fl, torch.zeros(3, n)]).reshape(16, B, T, cap).permute(1, 2, 0, 3)
+    counts = torch.full((B, T), cap, dtype=torch.int32)
+    return rec.contiguous().to(dev), counts.to(dev)
+
+
+def test_tile_raster_search_shapes(dev):
+    """K5 at the global search's scoring shapes: 80x60 frames (16x32 tiles,
+    T = 12, the last row and column partial) with every tile at cap 1664,
+    a batch of 16 (the refinement's)."""
+    from easyhec_torch.ops import tile_raster as tr_
+
+    rec, counts = _full_cap_records(dev, 16, 16, 32, 60, 80, 1664)
+    assert rec.shape == (16, 12, 16, 1664)
+    meta = tr_.TileMeta(16, 32, 1.0)
+    g = torch.randn((16, 12, 16, 32), generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev)
+    acc, _ = _k5_check(dev, rec, counts, meta, g, 3, 1664)
+    assert (acc < 1).any() and (acc > 1).any()
+
+
+def test_counted_bwd_writes_only_what_the_gather_reads(dev):
+    """The counted K5b launched through its binding into a NaN-filled dg
+    (only the zero column set): the gather at q reads no entry the kernel
+    left unwritten, so dfields is finite and equals the plain version's."""
+    from easyhec_torch.ops import tile_raster as tr_
+    from easyhec_torch.render.binning import _gather_at_q, fields_and_bins, pack_records_counted
+
+    r, _, t = _dense_scene(dev, False)
+    r.tile = UNFUSED
+    tris = r._triangles_soa(r.camera_link_poses(se3.exp(t["xi"]), t["lp"]), t["K"])
+    fields, st = fields_and_bins(tris, HD, WD, r.tile)
+    n_tx = -(-WD // 32)
+    rec = tr_.pad_cap(pack_records_counted(fields, st.idx, st.q, n_tx, 16, 32, 16)).contiguous()
+    counts = st.counts.contiguous()
+    meta = tr_.TileMeta(16, 32, 1.0)
+    _, acc = tr_.tile_fwd_cuda(rec, counts, meta)
+    g = torch.randn(acc.shape, generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+    B, T = counts.shape
+    dg = torch.full((B, 13, T * 200 + 1), float("nan"), device=dev)
+    dg[:, :, -1] = 0.0
+    tr_._bwd_launch(1, rec, counts, acc, g, dg, meta, n_tx, 200)
+    got = _gather_at_q(dg, st.q)
+    want = _gather_at_q(tr_.tile_bwd_counted_plain(rec, counts, acc, g, meta, n_tx, 200), st.q)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(ok.cpu(), op.cpu(), atol=1e-5)
-    np.testing.assert_allclose(acck.clamp(max=2).cpu(), accp.clamp(max=2).cpu(), atol=1e-5)
-    g = torch.randn(ok.shape, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
-    dk = tr_.tile_bwd_cuda(rec, counts, acck, g, meta)
-    dp = tr_.tile_bwd_plain(rec, counts, acck, g, meta)
-    torch.cuda.synchronize()
-    scale = dp.abs().max().item()
-    assert scale > 0 and B == 3
-    np.testing.assert_allclose(dk.cpu(), dp.cpu(), rtol=0, atol=1e-4 * scale)
-    assert (dk[..., 13:, :] == 0).all()
+    assert torch.isfinite(got).all() and torch.isnan(dg).any()
+    scale = want.abs().max().item()
+    assert scale > 0
+    np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0, atol=1e-4 * scale)
 
 
 def test_unfused_silhouette_cuda_matches_cpu_and_counts_launches(dev):
@@ -390,12 +491,13 @@ def test_unfused_silhouette_cuda_matches_cpu_and_counts_launches(dev):
         r, _, t = _dense_scene(d, False)
         r.tile = UNFUSED
         xi = (t["xi"] + 0.01).requires_grad_()
-        f0, b0 = tr_.tile_fwd_cuda.launches, tr_.tile_bwd_cuda.launches
+        kernels = (tr_.tile_fwd_cuda, tr_.tile_bwd_counted_cuda, tr_.tile_bwd_cuda)
+        before = [k.launches for k in kernels]
         img = r.silhouette(se3.exp(xi), t["lp"], t["K"])
         ((img - t["target"]) ** 2).sum().backward()
-        if d.type == "cuda":
+        if d.type == "cuda":  # K5f and the counted K5b; no dense d(record)
             torch.cuda.synchronize()
-            assert (tr_.tile_fwd_cuda.launches, tr_.tile_bwd_cuda.launches) == (f0 + 1, b0 + 1)
+            assert [k.launches - n for k, n in zip(kernels, before)] == [1, 1, 0]
         out.append((img.detach().cpu().numpy(), xi.grad.cpu().numpy()))
     (ik, gk), (ip, gp) = out
     np.testing.assert_allclose(ik, ip, atol=1e-4)
@@ -546,3 +648,36 @@ def test_fwd_kernels_branches(dev, th, tw, H, W):
     k3 = prc.compact_tile_acc(cam, rc, nlive, ctmap, ncu, T, th, tw, n_tx, H, W)
     _, k3p = prc.loss_fwd_compact_plain(cam, rc, nlive, ctmap, ncu, torch.zeros_like(ref), meta)
     close_acc("K3", k3, k3p)
+
+
+# The boundary-prefix backward map (tile.bwd_chunks > 0 with bwd_band_only):
+# build_compact_state runs K3 (compact_tile_acc) on the card to find the
+# tiles that can hold a band pixel, and K2b runs only on their chunks. K2b on
+# that map against its plain version on the same map, and against K2b on the
+# forward's full map: the chunks the map leaves out carry no band pixel, so
+# dcam is the same up to summation order (1e-3 of max|dcam|).
+def test_boundary_prefix_map_backward(dev):
+    tile = CFG._replace(bwd_band_only=True, bwd_chunks=16)
+    r, _, t = _scene(dev, True)
+    st = build_compact_state(RobotRenderer(r.meshes, H, W, tile=tile, device=dev),
+                             se3.exp(t["xi"]), t["lp"], t["K"])
+    full = build_compact_state(r, se3.exp(t["xi"]), t["lp"], t["K"])
+    assert not bool(st.overflow)
+    nb = (st.bwd_nlive > 0).sum(-1)
+    assert (nb <= st.ncu).all() and nb.sum() > 0
+    B = t["lp"].shape[0]
+    cam = cam_rows(se3.exp(t["xi"] + 0.01), t["K"], B).contiguous()
+    ref = tile_image(t["target"], 16, 32).contiguous()
+    meta = prc.Meta(16, 32, 3, H, W, 1.0, 0.001, 10.0, True)
+    acc = prc.loss_fwd_compact_cuda(cam, st.rec, st.nlive, st.ctmap, st.ncu, ref, meta)[1]
+    gb = torch.linspace(0.5, 1.5, B, device=dev)
+    args = (cam, st.rec, st.bwd_nlive, st.bwd_ctmap, st.bwd_cpos, ref, acc, gb, meta)
+    pk = prc.loss_bwd_compact_cuda(*args).sum(1)
+    pp = prc.loss_bwd_compact_plain(*args).sum(1)
+    fargs = (cam, full.rec, full.bwd_nlive, full.bwd_ctmap, full.bwd_cpos, ref, acc, gb, meta)
+    pf = prc.loss_bwd_compact_cuda(*fargs).sum(1)
+    torch.cuda.synchronize()
+    scale = pp.abs().max().item()
+    assert scale > 0
+    np.testing.assert_allclose(pk.cpu(), pp.cpu(), rtol=0, atol=1e-3 * scale)
+    np.testing.assert_allclose(pk.cpu(), pf.cpu(), rtol=0, atol=1e-3 * scale)
