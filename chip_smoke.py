@@ -52,8 +52,18 @@ Phases, in order (any failure exits non-zero):
    their plain versions at its sweep and refinement batches; then
    ``run_offline_calibration`` on the compact route with
    init_method="global_search" (the overflow pre-check adds one K5f).
-7. Reference checks on small inputs, compact, dense and unfused, and a
-   small global search: the card against the plain versions on the CPU.
+7. The online loop: ``run_iterative`` as a simulated closed loop at
+   configs/xarm7_example.yaml's widths (1280x720, f = 906.8, its render,
+   solver and explorer settings, 5 rounds) on the mini arm: per round the
+   frames, loss, pose error, the seconds of capture, calibrate, explore
+   and plan, the explorer's statistics and the launches of K2f, K2b, K3
+   and K4f. Asserts the final error under 1.5 cm and 1.5 deg and K3's
+   launches per scoring pass. Then K3 at the explorer's scoring shape (5
+   frames of 640x360) against its plain version, with one scoring pair's
+   device and host time.
+8. Reference checks on small inputs, compact, dense and unfused, a small
+   global search and a small explorer scoring pass: the card against the
+   plain versions on the CPU.
 
 Prints the kernel table as one JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. With --profile DIR it
@@ -409,10 +419,10 @@ def _print_work(route, w):
     print(f"[kernels] {route} work at the start pose: forward {w['fwd'][0]} lane-pixel "
           f"pairs in the lanes' band-dilated bboxes (whole-tile rule {w['fwd'][3]}) over "
           f"{w['fwd'][1]} live slots in {w['fwd'][2]} chunks; {w['tiles']} visited tiles; "
-          f"heaviest tile {w['heavy'][0]} lanes reaching it, {w['heavy'][1]} pairs; backward "
-          + ", ".join(f"{k} {v[0]} live pairs (whole-tile rule {v[3]}) over {v[1]} live slots "
-                      f"in {v[2]} chunks"
-                      for k, v in w.items() if k not in ("fwd", "tiles", "heavy")))
+          f"heaviest tile {w['heavy'][0]} lanes reaching it, {w['heavy'][1]} pairs"
+          + "".join(f"; backward {k} {v[0]} live pairs (whole-tile rule {v[3]}) over {v[1]} "
+                    f"live slots in {v[2]} chunks"
+                    for k, v in w.items() if k not in ("fwd", "tiles", "heavy")))
 
 
 def kernel_phase(renderer, lp, K, xi, target):
@@ -1436,6 +1446,321 @@ def _profile(renderer, lp, K, d0, target, steps, main_rebins, out, tag, fwd_pat,
         f"ms per rebin; post-processing {time.perf_counter() - t0:.1f} s")
 
 
+# The online loop at configs/xarm7_example.yaml's widths (the xArm7 assets
+# are not in the repo: the mini arm at 8 mm edges stands in for it).
+ITER_H, ITER_W, ITER_F = 720, 1280, 906.8
+
+
+def iterative_config(steps, H=ITER_H, W=ITER_W, rounds=5, n_sample=1000, n_hyp=10,
+                     history_start=200):
+    """An in-memory Config with xarm7_example's render, solver and explorer
+    settings (the GPU machine has no PyYAML), on the mini arm."""
+    from easyhec_torch.config import Config
+
+    cfg = Config()
+    m, r, s, e = cfg.model, cfg.render, cfg.solver, cfg.explorer
+    m.urdf_path = str(ROOT / "assets" / "mini_arm.urdf")
+    m.use_links = ["base", "upper", "fore"]
+    m.H, m.W, m.subdivide_max_edge, m.decimate_voxel = H, W, 0.008, 0.004
+    r.tile_h, r.tile_w, r.capacity, r.rect_y, r.rect_x = 16, 32, 1664, 8, 5
+    r.cull_backfaces, r.bin_big_k, r.bin_subsort_rows, r.compact_chunks = True, 3840, True, 384
+    s.num_epochs, s.max_lr, s.explore_iters, s.rebin_every = steps, 3e-3, rounds, 0
+    e.n_sample_qposes, e.n_hypotheses, e.history_start = n_sample, n_hyp, history_start
+    e.render_downscale, e.plan_top_k = 2, 10
+    e.self_collision_check, e.use_workspace_boundary = True, True
+    cfg.dataset.data_dir = ""
+    return cfg
+
+
+def iterative_rig(H=ITER_H, W=ITER_W, f=ITER_F):
+    """(GT camera-from-base [4, 4], K [3, 3]) as numpy: the bench scene's
+    look_at, and K with the focal length of xarm7_example's header."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.geometry import camera, se3
+
+    Tcam = camera.look_at(torch.tensor([1.0, 0.7, 0.8]), torch.tensor([0.0, 0.0, 0.3]),
+                          torch.tensor([0.0, 0.0, 1.0]))
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    return se3.inverse(Tcam).numpy(), K
+
+
+def iterative_phase(steps):
+    """``run_iterative`` on the card as a simulated closed loop (SimArm,
+    SimCamera, RendererMaskSource) at xarm7_example's widths: 5 rounds of
+    capture, ``calibrate`` over every frame so far (K2f/K2b), explore (1000
+    candidates × 10 hypotheses scored through K3 at 640×360) and plan (RRT
+    with the self-collision spheres and the workspace cloud). The captures
+    render through K4f. Per round it prints the frames, the loss, the pose
+    error, the seconds of each part and the explorer's statistics, and it
+    holds K3's launches per _score to ⌈C / score_batch⌉ × n_hypotheses per
+    scoring pass. Returns (launches, the round-1 explore call's inputs)."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from easyhec_torch.cli.run import perturbed_start
+    from easyhec_torch.io.interfaces import SimCamera
+    from easyhec_torch.models.explorer import SpaceExplorer
+    from easyhec_torch.ops import pose_raster as pr
+    from easyhec_torch.ops import pose_raster_compact as prc
+    from easyhec_torch.trainer import iterative as itr
+
+    cfg = iterative_config(steps)
+    gt, K = iterative_rig()
+    cfg.model.init_Tc_c2b = perturbed_start(gt, cfg.solver.seed)
+    counters = {"K2f/K3": prc.loss_fwd_compact_cuda, "K2b": prc.loss_bwd_compact_cuda,
+                "K4f": pr.sil_fwd_cuda}
+    rounds, explore_in = [], {}
+
+    def snap():
+        torch.cuda.synchronize()
+        return {k: fn.launches for k, fn in counters.items()}, time.perf_counter()
+
+    def delta(s0):
+        s1, t1 = snap()
+        return {k: s1[k] - s0[0][k] for k in s1}, t1 - s0[1]
+
+    real = (SimCamera.capture, SpaceExplorer.explore, itr.calibrate, itr.plan_first_feasible)
+
+    def capture(self):
+        s0 = snap()
+        out = real[0](self)
+        d, dt = delta(s0)
+        rounds.append({"K4f": d["K4f"], "capture_s": dt, "calibrate_s": 0.0, "K2f": 0,
+                       "K2b": 0, "explore_s": 0.0, "K3": 0, "plan_s": 0.0})
+        return out
+
+    def calibrate(*a, **kw):
+        s0 = snap()
+        try:
+            res = real[2](*a, **kw)
+        finally:
+            d, dt = delta(s0)
+            rounds[-1]["calibrate_s"] += dt
+            rounds[-1]["K2f"] += d["K2f/K3"]
+            rounds[-1]["K2b"] += d["K2b"]
+        rounds[-1].update(frames=len(a[4]), res=res)
+        return res
+
+    def explore(self, history, K_e, key=0, **kw):
+        s0 = snap()
+        res = real[1](self, history, K_e, key=key, **kw)
+        d, dt = delta(s0)
+        rounds[-1].update(explore_s=dt, K3=d["K2f/K3"], explore=res, shared=self.last_shared,
+                          spread=self.last_spread_px, esc=self.last_escalations,
+                          max_load=self.last_max_load, bin_states=self.last_bin_states,
+                          cap=self.renderer.tile.capacity)
+        if key == 1:
+            explore_in.update(explorer=self, history=np.asarray(history), K=np.asarray(K_e))
+        return res
+
+    def plan(*a, **kw):
+        t0 = time.perf_counter()
+        out = real[3](*a, **kw)
+        rounds[-1]["plan_s"] = time.perf_counter() - t0
+        rounds[-1]["planned"] = out[0] is not None
+        return out
+
+    print(f"[iterative] {cfg.solver.explore_iters} rounds of {steps} steps (xarm7_example: "
+          f"1000), {ITER_W}x{ITER_H} f={ITER_F}, scoring "
+          f"{cfg.explorer.n_sample_qposes}x{cfg.explorer.n_hypotheses} at 1/"
+          f"{cfg.explorer.render_downscale}; {GPU}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.output_dir = tmp
+        SimCamera.capture, SpaceExplorer.explore = capture, explore
+        itr.calibrate, itr.plan_first_feasible = calibrate, plan
+        _reset(counters)
+        t0 = time.perf_counter()
+        try:
+            res = itr.run_iterative(cfg, Tc_c2b_gt=gt, K=K, device=DEVICE)
+        finally:
+            SimCamera.capture, SpaceExplorer.explore, itr.calibrate, \
+                itr.plan_first_feasible = real
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        totals = {k: fn.launches for k, fn in counters.items()}
+        out = Path(tmp)
+        n_caps = len(list((out / "captures" / "mask").glob("*.png")))
+        n_ckpt = len(list((out / "checkpoints").glob("round_*.npz")))
+    C, Hh = cfg.explorer.n_sample_qposes, cfg.explorer.n_hypotheses
+    per_score = math.ceil(C / 5) * Hh  # the explorer's default score_batch of 5
+    for i, r in enumerate(rounds):
+        m = r["res"].metrics
+        line = (f"[iterative] round {i}: {r['frames']} frames, loss {r['res'].losses[0]:.3f} "
+                f"-> {r['res'].losses[-1]:.3f}, error {m['err_trans_geodesic_cm']:.4f} cm "
+                f"{m['err_rot_geodesic_deg']:.4f} deg, {r['res'].rebins} rebins; seconds: "
+                f"capture {r['capture_s']:.3f}, calibrate {r['calibrate_s']:.3f}, explore "
+                f"{r['explore_s']:.3f}, plan {r['plan_s']:.3f}; launches K2f {r['K2f']} "
+                f"K2b {r['K2b']} K3 {r['K3']} K4f {r['K4f']}")
+        if "explore" in r:
+            e = r["explore"]
+            line += (f"; explorer: variance {e.variance:.3f}, {int(e.feasible.sum())}/"
+                     f"{len(e.feasible)} feasible, {'shared' if r['shared'] else 'exact'} "
+                     f"(spread {r['spread']:.2f} px), {r['esc']} escalations, max tile load "
+                     f"{r['max_load']} (cap {r['cap']}), {r['bin_states']} bin states and "
+                     f"{r['K3']} K3 launches ({r['K3'] / (1 + r['esc']):.0f} per _score)")
+            if r["K3"] != (1 + r["esc"]) * per_score:
+                raise AssertionError(f"round {i}: {r['K3']} K3 launches for {1 + r['esc']} "
+                                     f"scoring passes of {per_score}")
+            if r["bin_states"] != per_score // (Hh if r["shared"] else 1):
+                raise AssertionError(f"round {i}: {r['bin_states']} bin states per _score")
+        line += f"; planned {r.get('planned')}"
+        print(line)
+    m = res.metrics
+    launches = {"K2f": sum(r["K2f"] for r in rounds), "K2b": totals["K2b"],
+                "K3": sum(r["K3"] for r in rounds), "K4f": totals["K4f"]}
+    print(f"[iterative] {wall:.3f} s in all: calibrate {sum(r['calibrate_s'] for r in rounds):.3f}"
+          f", explore {sum(r['explore_s'] for r in rounds):.3f}, plan "
+          f"{sum(r['plan_s'] for r in rounds):.3f}, capture "
+          f"{sum(r['capture_s'] for r in rounds):.3f}; final error "
+          f"{m['err_trans_geodesic_cm']:.4f} cm {m['err_rot_geodesic_deg']:.4f} deg (limits "
+          f"1.5 cm, 1.5 deg); launches {json.dumps(launches)}; {n_caps} captures, {n_ckpt} "
+          f"round checkpoints ({GPU})")
+    if launches["K2f"] + launches["K3"] != totals["K2f/K3"]:
+        raise AssertionError("compact forward launches outside calibrate and explore")
+    if not (m["err_trans_geodesic_cm"] < 1.5 and m["err_rot_geodesic_deg"] < 1.5):
+        raise AssertionError(f"the online loop ended at {m}")
+    if n_caps != len(rounds) or n_ckpt != len(rounds) or len(rounds) != 5:
+        raise AssertionError(f"{len(rounds)} rounds, {n_caps} captures, {n_ckpt} checkpoints")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the online loop never launched: {launches}")
+    return launches, explore_in, len(rounds) - 1
+
+
+def explore_kernel_phase(explore_in, launches_k3, n_explored):
+    """K3 (compact_tile_acc) at the explorer's scoring shape: the first batch
+    of 5 candidates of round 1's draw, at the first of its hypotheses, on
+    the explorer's renderer (640×360, doubled budgets). Against its plain
+    version, twice bit for bit, timed, bounded by the work this data needs.
+    Returns its kernels-line row."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.models import explorer as ex
+    from easyhec_torch.ops import pose_raster_compact as prc
+    from easyhec_torch.render.fused import cam_rows
+    from easyhec_torch.render.tiled import _cdiv
+
+    e = explore_in["explorer"]
+    r, t = e.renderer, e.renderer.tile
+    hist = explore_in["history"]
+    hist = hist[min(e.history_start, max(len(hist) - 1, 0)):]
+    lim = np.asarray(e.chain.joint_limits, np.float32) * np.float32(e.limit_fraction)
+    sel, qs = ex.draw_hypotheses_and_candidates(1, e.n_hypotheses, len(hist),
+                                                e.n_sample_qposes, lim[:, 0], lim[:, 1])
+    dev = r.device
+    Th = se3.exp(torch.tensor(hist[sel[0]], device=dev))
+    K = torch.tensor(explore_in["K"], device=dev)
+    lp = e.chain.fk(torch.tensor(qs[: e.score_batch], device=dev))
+    lp = lp[:, torch.as_tensor(e.link_idx, device=dev).long()]
+    st = r.bin_state(Th, lp, K)
+    Bs, T = st.counts.shape
+    n_tx = _cdiv(r.W, t.tile_w)
+    cam = cam_rows(Th, K, Bs).contiguous()
+    meta = prc.Meta(t.tile_h, t.tile_w, n_tx, r.H, r.W)
+    zeros = torch.zeros((Bs, T, t.tile_h, t.tile_w), device=dev)
+
+    def run():
+        return prc.compact_tile_acc(cam, st.rec, st.nlive, st.ctmap, st.ncu, T, t.tile_h,
+                                    t.tile_w, n_tx, r.H, r.W)
+
+    def plain():
+        return prc.loss_fwd_compact_plain(cam, st.rec, st.nlive, st.ctmap, st.ncu, zeros,
+                                          meta)[1]
+
+    acc_k, acc_p = run(), plain()
+    err = (acc_k.clamp(max=2) - acc_p.clamp(max=2)).abs().max().item()
+    print(f"[kernels explore] K3 at the scoring shape: {Bs} frames of {r.W}x{r.H}, tiles "
+          f"{t.tile_h}x{t.tile_w} (T = {T}), cap {t.capacity}, nc {t.compact_chunks}; loads "
+          f"max tile {int(st.counts.max())}, max ncu {int(st.ncu.max())}, overflow "
+          f"{bool(st.overflow)}; min(acc, 2) max abs err {err:.3e} (tol 1e-3, as for K2f)")
+    if bool(st.overflow) or not err <= 1e-3:
+        raise AssertionError("K3 at the scoring shape overflows or disagrees with its plain "
+                             "version")
+    _check_repeat("K3 explore", lambda: run().clamp(max=2))
+    frames = [(prc._chunks_of(st.rec[b]), st.ctmap[b].long(), st.nlive[b].long())
+              for b in range(Bs)]
+    w = _needed_work(cam, frames, {}, meta)
+    _print_work("explore K3", w)
+    P, nc = t.tile_h * t.tile_w, st.nlive.shape[1]
+    row = _row("compact_tile_acc", "K3 explore", "easyhec_torch/ops/csrc/pose_raster_compact.cu",
+               "easyhec_tpu/ops/pose_raster_compact.py:201", err, run, plain,
+               # records of the live slots in, acc out, the chunk map and cams
+               w["fwd"][1] * SLOT_BYTES + Bs * T * P * 4 + Bs * (nc * 8 + 4 + 64),
+               _ops(w["fwd"], OPS_FWD_PAIR, OPS_FWD_LANE), "loss_fwd_compact_kernel",
+               spill_free=True)
+    per_round = launches_k3 / n_explored
+    # One scoring pair (a bin state and its K3 render): device time queued
+    # behind a device sleep, and host time of synchronized pairs.
+    rebin_ms = _time_ms(lambda: r.bin_state(Th, lp, K), 20)
+    pair_ms = _time_ms(lambda: run() if r.bin_state(Th, lp, K) is not None else None, 20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        r.bin_state(Th, lp, K)
+        run()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"[kernels explore] K3 launches in the online loop: {launches_k3} ({per_round:.0f} "
+          f"per explored round); {row['ms'] * per_round / 1e3:.3f} s of K3 device time per "
+          f"round; one scoring pair: rebin {rebin_ms:.4f} ms and rebin + K3 {pair_ms:.4f} ms "
+          f"of device time (CUDA events), {host_ms:.4f} ms on the host clock, so "
+          f"{pair_ms * per_round / 1e3:.3f} s of device time and {host_ms * per_round / 1e3:.3f}"
+          f" s of host time per round ({GPU})")
+    return row
+
+
+def reference_explore():
+    """SpaceExplorer._score on the card against device="cpu" on a small
+    compact scene (the mini arm at 96×128, 16 candidates × 4 hypotheses,
+    batches of 5), identical inputs. The variance is held to 1e-4 of its
+    largest value (the parity tests' limit against JAX), feasibility must
+    be equal, and the argmax where the best two are further apart than
+    that limit."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.models.explorer import (
+        SpaceExplorer, build_link_spheres, draw_hypotheses_and_candidates,
+    )
+    from easyhec_torch.robot import build_chain, load_link_meshes, parse_urdf
+
+    model = parse_urdf(ROOT / "assets" / "mini_arm.urdf")
+    chain = build_chain(model)
+    names = ["base", "upper", "fore"]
+    spheres = build_link_spheres(chain, load_link_meshes(model, link_names=names))
+    lim = chain.joint_limits * np.float32(0.9)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        r, lp, K, xi, _ = build_scene(dev, H=96, W=128, B=1, max_edge=0.04, cap=512, nc=32)
+        if not out:
+            hyp = (xi.cpu().numpy() + np.random.default_rng(0).normal(0, 0.01, (4, 6))
+                   ).astype(np.float32)
+            _, qs = draw_hypotheses_and_candidates(0, 4, 4, 16, lim[:, 0], lim[:, 1])
+        e = SpaceExplorer(chain, r, names, spheres=spheres, max_dist=0.37)
+        out[dev] = [a.cpu().numpy() for a in e._score(qs, hyp, K.cpu().numpy())]
+    (vk, fk, ok), (vp, fp, op) = out[DEVICE], out["cpu"]
+    fin = np.isfinite(vp)
+    vmax = np.abs(vp[fin]).max()
+    rel = np.abs(vk[fin] - vp[fin]).max() / vmax
+    top = np.sort(vp[fin])[::-1]
+    gap = (top[0] - top[1]) / vmax
+    same = int(np.argmax(vk)) == int(np.argmax(vp))
+    print(f"[reference explore] _score cuda vs cpu, 16 candidates x 4 hypotheses at 128x96: "
+          f"variance max rel diff {rel:.3e} (tol 1e-4), feasible equal "
+          f"{np.array_equal(fk, fp)} ({int(fp.sum())}/16), argmax equal {same} (best-two gap "
+          f"{gap:.3e} of max), overflow {bool(ok)} / {bool(op)}")
+    if not (np.array_equal(fk, fp) and np.array_equal(np.isfinite(vk), fin) and rel <= 1e-4):
+        raise AssertionError("the card's _score disagrees with the CPU's")
+    if gap > 1e-4 and not same:
+        raise AssertionError("the card's _score picks another candidate")
+
+
 def reference_check(nc, fused=True):
     """A small calibration on the card vs the plain CPU path, on the compact
     route (nc > 0 chunks), the dense one (nc = 0) or the unfused one
@@ -1648,6 +1973,9 @@ def main() -> int:
     res = search_phase(renderer, lp, K, xi, target)
     search_kernel_phase(renderer, lp, K, target, res)
     trainer_search_phase(lp, K, xi, qs, target, args.steps)
+    iter_launches, explore_in, n_explored = iterative_phase(args.steps)
+    kernels.append(explore_kernel_phase(explore_in, iter_launches["K3"], n_explored))
+    launches["compact_tile_acc"] = iter_launches["K3"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:
@@ -1656,6 +1984,7 @@ def main() -> int:
     reference_check(0)
     reference_check(0, fused=False)
     reference_search()
+    reference_explore()
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]

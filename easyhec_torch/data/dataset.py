@@ -12,8 +12,9 @@ port's ``KinematicChain.fk_np``). Directory layout:
                                 "no GT", reference convention)
 
 The whole capture set loads at once: calibration datasets are 10-20 frames
-and the problem is one full-batch optimization. OpenCV (``cv2``) is
-imported only where an image file is read or written.
+and the problem is one full-batch optimization. Frames are written with
+the standard-library PNG writer (utils.imaging.write_png); OpenCV (``cv2``)
+is imported only where an image file is read.
 """
 from __future__ import annotations
 
@@ -134,19 +135,19 @@ def save_calib_frame(
     mask: np.ndarray,
     qpos: np.ndarray,
 ) -> None:
-    """Write one captured frame in the reference-compatible layout."""
-    import cv2
+    """Write one captured frame in the reference-compatible layout (RGB and
+    8-bit mask PNGs through utils.imaging.write_png, which needs no imaging
+    package)."""
+    from ..utils.imaging import write_png
 
     data_dir = Path(data_dir)
     for sub in ("color", "mask", "qpos"):
         (data_dir / sub).mkdir(parents=True, exist_ok=True)
     name = f"{index:06d}"
     if rgb is not None:
-        cv2.imwrite(str(data_dir / "color" / f"{name}.png"), cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
-    cv2.imwrite(
-        str(data_dir / "mask" / f"{name}.png"),
-        (np.asarray(mask) > 0.5).astype(np.uint8) * 255,
-    )
+        write_png(data_dir / "color" / f"{name}.png", np.asarray(rgb, np.uint8))
+    write_png(data_dir / "mask" / f"{name}.png",
+              (np.asarray(mask) > 0.5).astype(np.uint8) * 255)
     np.savetxt(data_dir / "qpos" / f"{name}.txt", np.asarray(qpos).reshape(-1))
 
 

@@ -98,6 +98,18 @@ class RobotRenderer:
         empty links give 8 zero corners = the link origin)."""
         return self._link_aabb_corners
 
+    def link_vertices(self, link: int) -> np.ndarray:
+        """Vertices of one link's mesh [Nv, 3] (host numpy)."""
+        v = self.vertices.cpu().numpy()
+        return v[self.vert_link_id.cpu().numpy() == link]
+
+    def link_faces(self, link: int) -> np.ndarray:
+        """Faces of one link's mesh, re-indexed into link_vertices."""
+        vid = self.vert_link_id.cpu().numpy()
+        faces = self.faces.cpu().numpy()[self.face_link_id.cpu().numpy() == link]
+        offset = int(np.flatnonzero(vid == link)[0]) if np.any(vid == link) else 0
+        return faces - offset
+
     def camera_link_poses(self, Tc_c2b: torch.Tensor, link_poses: torch.Tensor):
         """Camera-from-link transforms: Tc_c2b [..., 4, 4] camera-from-base,
         link_poses [..., L, 4, 4] base-from-link -> [..., L, 4, 4]."""

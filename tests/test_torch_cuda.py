@@ -681,3 +681,40 @@ def test_boundary_prefix_map_backward(dev):
     assert scale > 0
     np.testing.assert_allclose(pk.cpu(), pp.cpu(), rtol=0, atol=1e-3 * scale)
     np.testing.assert_allclose(pk.cpu(), pf.cpu(), rtol=0, atol=1e-3 * scale)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["exact", "shared"])
+def test_explorer_score_cuda_matches_cpu_and_counts_launches(dev, shared):
+    """SpaceExplorer._score (one K3 launch per batch and hypothesis) on the
+    card against the plain path on the CPU: the variance to 1e-4 of its
+    largest value, feasibility equal."""
+    from pathlib import Path
+
+    from easyhec_torch.models.explorer import SpaceExplorer, draw_hypotheses_and_candidates
+    from easyhec_torch.robot import build_chain, load_link_meshes, parse_urdf
+
+    names = ["base", "upper", "fore"]
+    model = parse_urdf(Path(__file__).resolve().parents[1] / "assets" / "mini_arm.urdf")
+    chain = build_chain(model)
+    meshes = load_link_meshes(model, link_names=names)
+    lim = chain.joint_limits * np.float32(0.9)
+    _, q = draw_hypotheses_and_candidates(0, 1, 1, 12, lim[:, 0], lim[:, 1])
+    Tc = np.eye(4, dtype=np.float32)
+    Tc[2, 3] = 1.2
+    hyp = (se3.log(torch.from_numpy(Tc)).numpy()
+           + np.random.default_rng(0).normal(0, 0.01, (4, 6))).astype(np.float32)
+    K = np.array([[80.0, 0, 48], [0, 80.0, 32], [0, 0, 1]], np.float32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        r = RobotRenderer([meshes[n] for n in names], H, W, tile=CFG, device=d)
+        e = SpaceExplorer(chain, r, names, score_batch=5, max_dist=None)
+        prc.loss_fwd_compact_cuda.launches = 0
+        out[d.type] = [a.cpu().numpy() for a in e._score(q, hyp, K, shared=shared)]
+        launches = prc.loss_fwd_compact_cuda.launches
+        if d.type == "cuda":
+            assert launches == 3 * 4  # ⌈12 / 5⌉ batches × 4 hypotheses
+            assert e.last_bin_states == (3 if shared else 12)
+    (vk, fk, ok), (vp, fp, op) = out["cuda"], out["cpu"]
+    assert np.array_equal(fk, fp) and not ok and not op
+    assert np.abs(vp).max() > 1.0
+    np.testing.assert_allclose(vk, vp, rtol=0, atol=1e-4 * np.abs(vp).max())

@@ -48,10 +48,19 @@ def test_every_module_imports_without_jax():
     assert int(r.stdout.strip()) == expected >= 20
 
 
-# Modules added with the dense route and the offline trainer, and with the
+# Modules added with the dense route and the offline trainer, with the
 # unfused route (K5), the global search, the tiled depth pass and the
-# simulator.
+# simulator, and with the online loop.
 NEW_MODULES = (
+    "easyhec_torch.io",
+    "easyhec_torch.io.interfaces",
+    "easyhec_torch.io.native_planner",
+    "easyhec_torch.io.planner",
+    "easyhec_torch.io.workspace",
+    "easyhec_torch.models.explorer",
+    "easyhec_torch.trainer.iterative",
+    "easyhec_torch.utils.imaging",
+    "easyhec_torch.utils.scene3d",
     "easyhec_torch.cli.run",
     "easyhec_torch.cli.simulate",
     "easyhec_torch.data.synthetic",
