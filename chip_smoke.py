@@ -60,8 +60,27 @@ Phases, in order (any failure exits non-zero):
    and K4f. Asserts the final error under 1.5 cm and 1.5 deg and K3's
    launches per scoring pass. Then K3 at the explorer's scoring shape (5
    frames of 640x360) against its plain version, with one scoring pair's
-   device and host time.
-8. Reference checks on small inputs, compact, dense and unfused, a small
+   CUDA-event time (host-paced), host time and device busy time (the
+   profiler's sum of its device ops).
+8. The remaining options and offline tools. ``[schedules]``: the compact
+   route's calibrate under warmup_cosine (100 warmup steps), its lr at
+   four steps against the closed form, one K2f/K2b pair per step.
+   ``[brute]`` and ``[xla tiled 80x60]``: RobotRenderer(mode="brute") and a
+   use_pallas=False renderer (no kernel) on the bench arm at 80x60, 4
+   frames: their silhouettes against K5f's at the same pose, their pose
+   gradient against the compact route's, 20 calibrate steps each, and no
+   kernel launch on either. ``[xla tiled]``: the use_pallas=False route at
+   the bench scene (10 frames of 640x480, the bench tile config without
+   culling, which that route skips, at the unculled peak load's capacity;
+   whether the bench's cap 1664 overflows there is printed): its silhouette
+   against K5f's and its gradient against the counted K5b's at that
+   capacity, 2 calibrate steps, no kernel launch. ``[ring]``:
+   generate_pose_dataset at 640x480, 8 views (one K4f). ``[validate]``: the validate tool on the trainer
+   run's checkpoint (one K4f). ``[tune_init]``: the tune_init tool's
+   global search on frame 0 (K5f and the counted K5b). ``[pnp]``:
+   ransac_pnp with 256 hypotheses on projected mesh vertices (0.5 px
+   noise, 30 % outliers), card against CPU.
+9. Reference checks on small inputs, compact, dense and unfused, a small
    global search and a small explorer scoring pass: the card against the
    plain versions on the CPU.
 
@@ -77,8 +96,10 @@ import argparse
 import copy
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -101,6 +122,25 @@ OPS_FWD_LANE, OPS_BWD_LANE = 120, 220
 SLOT_BYTES = 12 * 4  # one record slot of the fused kernels (12 fields)
 K5_SLOT_BYTES = 13 * 4  # the 13 fields of a K5 record slot that K5 reads
 GPU = ""  # the card's name and power limit (nvidia-smi), printed beside each time
+
+
+def _busy_ms(fn, reps: int) -> float:
+    """Mean device busy time of fn over reps calls: the summed device time of
+    the ops torch.profiler records, whatever pace the host sets."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.device_time_total for ev in prof.events()
+             if ev.device_type != DeviceType.CPU
+             and not getattr(ev, "is_user_annotation", False))
+    return us / 1e3 / reps
 
 
 def _fail(msg: str) -> int:
@@ -1040,12 +1080,11 @@ def main_path(renderer, lp, K, xi, target, steps, kernels, label):
     return launches, dt / steps * 1e3, res.rebins
 
 
-def trainer_phase(lp, K, xi, qs, target, steps):
+def trainer_phase(lp, K, xi, qs, target, steps, out_dir):
     """run_offline_calibration on the dense route at the bench scene, with an
     in-memory Config and CalibBatch (the GPU machine has no PyYAML or
-    OpenCV, so nothing is read from disk but the URDF)."""
-    import tempfile
-
+    OpenCV, so nothing is read from disk but the URDF), writing its run
+    under ``out_dir``. Returns (launches, ms/step, the Config, the batch)."""
     import numpy as np
     import torch
 
@@ -1078,24 +1117,23 @@ def trainer_phase(lp, K, xi, qs, target, steps):
         calls[0] += 1
         return real(*a, **kw)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg.output_dir = tmp
-        offline.render_outputs = counted
-        torch.cuda.synchronize()
-        _reset(kernels)
-        try:
-            res = offline.run_offline_calibration(cfg, batch=batch,
-                                                  init_dof=(xi + 0.01).cpu().numpy())
-        finally:
-            offline.render_outputs = real
-        torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in kernels.items()}
-        out = Path(tmp)
-        want = ["Tc_c2b.txt", "metrics.json", "eval.json", "config.yaml",
-                "checkpoints/final.npz", "metrics.jsonl"]
-        missing = [f for f in want if not (out / f).is_file()]
-        wall = json.loads((out / "checkpoints" / "final.json").read_text())["wall_time_s"]
-        evals = json.loads((out / "eval.json").read_text())
+    cfg.output_dir = str(out_dir)
+    offline.render_outputs = counted
+    torch.cuda.synchronize()
+    _reset(kernels)
+    try:
+        res = offline.run_offline_calibration(cfg, batch=batch,
+                                              init_dof=(xi + 0.01).cpu().numpy())
+    finally:
+        offline.render_outputs = real
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    out = Path(out_dir)
+    want = ["Tc_c2b.txt", "metrics.json", "eval.json", "config.yaml",
+            "checkpoints/final.npz", "metrics.jsonl"]
+    missing = [f for f in want if not (out / f).is_file()]
+    wall = json.loads((out / "checkpoints" / "final.json").read_text())["wall_time_s"]
+    evals = json.loads((out / "eval.json").read_text())
     print(f"[trainer] run_offline_calibration, dense route: {steps} steps in "
           f"{wall:.3f} s (wall_time_s, with the step hooks' {steps // 100} mid-run panels "
           f"and checkpoints): {wall / steps * 1e3:.3f} ms/step, "
@@ -1114,7 +1152,7 @@ def trainer_phase(lp, K, xi, qs, target, steps):
     if calls[0] == 0 or launches["sil_fwd"] != calls[0]:
         raise AssertionError(f"K4f launches {launches['sil_fwd']} for "
                              f"{calls[0]} render_outputs calls")
-    return launches, wall / steps * 1e3
+    return launches, wall / steps * 1e3, cfg, batch
 
 
 def search_phase(renderer, lp, K, xi, target):
@@ -1267,6 +1305,371 @@ def trainer_search_phase(lp, K, xi, qs, target, steps):
     if launches["loss_bwd_compact"] < steps:
         raise AssertionError(f"K2 launches {launches} for {steps} steps")
     return launches
+
+
+def _all_kernels():
+    """Every kernel wrapper's launch counter, by name."""
+    from easyhec_torch.ops import pose_raster as pr
+    from easyhec_torch.ops import pose_raster_compact as prc
+    from easyhec_torch.ops import tile_raster as tr
+
+    return {"loss_fwd": pr.loss_fwd_cuda, "loss_bwd": pr.loss_bwd_cuda,
+            "sil_fwd": pr.sil_fwd_cuda, "sil_bwd": pr.sil_bwd_cuda,
+            "loss_fwd_compact": prc.loss_fwd_compact_cuda,
+            "loss_bwd_compact": prc.loss_bwd_compact_cuda,
+            "tile_fwd": tr.tile_fwd_cuda, "tile_bwd": tr.tile_bwd_cuda,
+            "tile_bwd_counted": tr.tile_bwd_counted_cuda}
+
+
+def _launched(kernels):
+    return {k: fn.launches for k, fn in kernels.items() if fn.launches}
+
+
+def schedules_phase(renderer, lp, K, xi, target, steps):
+    """The compact route's calibrate under warmup_cosine with 100 warmup
+    steps (make_optimizer's warmup_steps, as the JAX package has it; no
+    config field sets it, so calibrate's optimizer factory is wrapped here).
+    The schedule's lr at steps 0, 99, steps/2 and steps-1, on the card,
+    against its closed form in Python floats."""
+    import functools
+    import math
+
+    import numpy as np
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.models import calib
+    from easyhec_torch.solver.optim import make_optimizer, make_schedule
+
+    warm, max_lr = min(100, max(steps // 10, 1)), 3e-3
+    kernels = _all_kernels()
+    real = calib.make_optimizer
+    calib.make_optimizer = functools.partial(make_optimizer, warmup_steps=warm)
+    torch.cuda.synchronize()
+    _reset(kernels)
+    t0 = time.perf_counter()
+    try:
+        res = calib.calibrate((xi + 0.01).cpu().numpy(), renderer, lp, K, target,
+                              num_steps=steps, max_lr=max_lr, scheduler="warmup_cosine",
+                              rebin_every=0, Tc_c2b_gt=se3.exp(xi).cpu().numpy())
+    finally:
+        calib.make_optimizer = real
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _launched(kernels)
+    at = [0, warm - 1, steps // 2, steps - 1]
+    lr = make_schedule("warmup_cosine", max_lr, steps, warmup_steps=warm)(
+        torch.tensor(at, dtype=torch.int32, device=DEVICE)).cpu().numpy()
+
+    def closed(s):  # linear warmup from max_lr/3, then cosine decay to 0
+        if s < warm:
+            return (max_lr / 3 - max_lr) * (1 - s / warm) + max_lr
+        return max_lr * 0.5 * (1 + math.cos(math.pi * (s - warm) / (steps - warm)))
+
+    want = np.array([closed(s) for s in at])
+    # rel 1e-6, with a floor of one f32 ulp of max_lr: the last steps' 1 + cos
+    # cancels, and f32 cos is within an ulp of the true value, not exact
+    tol = 1e-6 * np.abs(want) + np.finfo(np.float32).eps * max_lr
+    print(f"[schedules] compact calibrate, warmup_cosine ({warm} warmup steps): {steps} "
+          f"steps in {dt:.3f} s, {dt / steps * 1e3:.3f} ms/step, {res.rebins} rebins; loss "
+          f"{res.losses[0]:.3f} -> {res.losses[-1]:.3f}; launches {json.dumps(launches)}; "
+          f"pose error {json.dumps(res.metrics)}")
+    print(f"[schedules] lr at steps {at}: " + ", ".join(f"{a:.9e}" for a in lr)
+          + "; closed form " + ", ".join(f"{b:.9e}" for b in want)
+          + f"; max rel diff {(np.abs(lr - want) / want).max():.3e} (tol 1e-6, floor "
+          f"{np.finfo(np.float32).eps * max_lr:.2e} absolute)")
+    if not (np.abs(lr - want) <= tol).all():
+        raise AssertionError("warmup_cosine lr disagrees with its closed form")
+    if res.overflow or not res.losses[-1] < res.losses[0]:
+        raise AssertionError("warmup_cosine calibrate: overflow or no fall in the loss")
+    if launches.get("loss_fwd_compact", 0) < steps or launches.get("loss_bwd_compact") != steps:
+        raise AssertionError(f"K2 launches {launches} for {steps} steps")
+
+
+def option_routes_phase(renderer, lp, K, xi, frames=4, Ho=60, Wo=80, steps=20):
+    """[brute] and [xla tiled]: RobotRenderer(mode="brute") and a
+    use_pallas=False renderer, both on the bench's compact tile config (the
+    fused gates must fall through to them) without backface culling, on
+    the bench arm at Wo x Ho over the first `frames` frames. Each route's
+    silhouette against K5f's (the unfused route at a capacity that drops
+    no triangle here), its pose gradient against the compact route's, and
+    `steps` calibrate steps; no kernel may launch on either route."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.models.calib import calibrate, mask_loss, tile_masks
+    from easyhec_torch.render import RobotRenderer
+
+    f = F_PX * Wo / 640.0
+    Ko = torch.tensor([[f, 0, Wo / 2], [0, f, Ho / 2], [0, 0, 1]], device=DEVICE)
+    lpo, T0 = lp[:frames], se3.exp(xi)
+    d0 = (xi + 0.01).detach()
+    base = renderer.tile._replace(cull_backfaces=False)
+    probe = RobotRenderer(renderer.meshes, Ho, Wo, device=DEVICE, tile=base._replace(
+        fused=False, compact_chunks=0, capacity=renderer.n_faces))
+    loads = max(int(probe.bin_state(T, lpo, Ko).counts.max()) for T in (T0, se3.exp(d0)))
+    cap = -(-loads * 5 // 4 // 128) * 128
+    n_tiles = -(-Ho // base.tile_h) * -(-Wo // base.tile_w)
+    tile = base._replace(capacity=cap, compact_chunks=n_tiles * cap // 128)
+    k5 = RobotRenderer(renderer.meshes, Ho, Wo, device=DEVICE,
+                       tile=tile._replace(fused=False, compact_chunks=0))
+    compact = RobotRenderer(renderer.meshes, Ho, Wo, device=DEVICE, tile=tile)
+    with torch.no_grad():
+        target = (k5.silhouette(T0, lpo, Ko) > 0.5).float()
+        sil_k5 = k5.silhouette(se3.exp(d0), lpo, Ko)
+    print(f"[brute] bench arm at {Wo}x{Ho}, {frames} frames: max tile load {loads}, so "
+          f"capacity {cap} for the kernel routes (no overflow); target "
+          f"{float(target.mean()):.4f} of pixels set")
+
+    def grad(r, **kw):
+        d = d0.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(mask_loss(d, r, lpo, Ko, target, **kw), d)
+        return g
+
+    kernels = _all_kernels()
+    _reset(kernels)
+    st = compact.bin_state(se3.exp(d0), lpo, Ko)
+    g_c = grad(compact, bin_state=st, ref_tiles=tile_masks(target, compact))
+    if not _launched(kernels):
+        raise AssertionError("the compact route launched no kernel")
+    for label, r in (("brute", RobotRenderer(renderer.meshes, Ho, Wo, tile=tile, mode="brute",
+                                             device=DEVICE)),
+                     ("xla tiled 80x60", RobotRenderer(renderer.meshes, Ho, Wo, device=DEVICE,
+                                                       tile=tile._replace(use_pallas=False)))):
+        torch.cuda.synchronize()
+        _reset(kernels)
+        with torch.no_grad():
+            diff = float((r.silhouette(se3.exp(d0), lpo, Ko) - sil_k5).abs().max())
+        g = grad(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = calibrate(d0.cpu().numpy(), r, lpo, Ko, target, num_steps=steps, rebin_every=0,
+                        Tc_c2b_gt=T0.cpu().numpy())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        gap = float((g - g_c).abs().max() / g_c.abs().max())
+        print(f"[{label}] silhouette at the start pose vs K5f: max abs diff {diff:.3e}; "
+              f"d(loss)/d(dof) vs the compact route's (K2b, band-only backward): max diff "
+              f"{gap:.3e} of max|g|; calibrate {steps} steps: {dt / steps * 1e3:.3f} ms/step, "
+              f"loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}, {res.rebins} rebins; kernel "
+              f"launches {json.dumps(_launched(kernels))}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if _launched(kernels):
+            raise AssertionError(f"a kernel launched on the {label} route")
+        if not (diff <= 1e-4 and np.isfinite(res.losses).all()
+                and res.losses[-1] < res.losses[0] and torch.isfinite(g).all()):
+            raise AssertionError(f"the {label} route disagrees with K5f or did not descend")
+
+
+def xla_tiled_phase(renderer, lp, K, xi, target, steps=2):
+    """[xla tiled] at the bench scene: the bench tile config with
+    use_pallas=False, so the fused gates fall through to the plain-tensor
+    route (top-k bins, 128-record chunks). That route takes the AoS
+    triangles, which skip backface culling (as in the JAX package), so its
+    loads are those of the unculled mesh: the bench's cap 1664 is checked
+    for overflow on it, and the measured run takes the unculled peak tile
+    load plus a quarter, in 128-record steps. Its silhouette at the start
+    pose against K5f's and its pose gradient against the counted K5b's, on
+    the unfused route at the same capacity without culling, then `steps`
+    calibrate steps; no kernel may launch on the plain route.
+
+    The two silhouettes sum the same nonnegative f32 coverages in another
+    order (K5f in slot order, the plain route in top-k order by 128-record
+    chunks) until the sum passes 1, so a pixel of a tile holding n of them
+    may differ by up to 2·(n - 1)·2^-24: the tolerance is that bound at the
+    capacity."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.models.calib import calibrate, mask_loss
+    from easyhec_torch.render import RobotRenderer
+    from easyhec_torch.render.tiled import silhouette_tiled
+
+    d0, T0 = (xi + 0.01).detach(), se3.exp(xi)
+    base = renderer.tile._replace(cull_backfaces=False, use_pallas=False)
+    kernels = _all_kernels()
+    _reset(kernels)
+    bench = RobotRenderer(renderer.meshes, H, W, device=DEVICE,
+                          tile=renderer.tile._replace(use_pallas=False))
+    with torch.no_grad():
+        tris = bench._triangles(bench.camera_link_poses(se3.exp(d0), lp), K)
+        _, ov_bench = silhouette_tiled(tris, H, W, bench.tile, return_overflow=True)
+    probe = RobotRenderer(renderer.meshes, H, W, device=DEVICE, tile=base._replace(
+        use_pallas=True, fused=False, compact_chunks=0, capacity=renderer.n_faces))
+    loads = max(int(probe.bin_state(T, lp, K).counts.max()) for T in (T0, se3.exp(d0)))
+    del probe
+    cap = -(-loads * 5 // 4 // 128) * 128
+    k5 = RobotRenderer(renderer.meshes, H, W, device=DEVICE, tile=base._replace(
+        use_pallas=True, fused=False, compact_chunks=0, capacity=cap))
+    plain = RobotRenderer(renderer.meshes, H, W, device=DEVICE,
+                          tile=base._replace(capacity=cap))
+
+    def grad(r):
+        d = d0.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(mask_loss(d, r, lp, K, target), d)
+        return g
+
+    with torch.no_grad():
+        sil_k5 = k5.silhouette(se3.exp(d0), lp, K)
+    g_k5 = grad(k5)
+    if not _launched(kernels).get("tile_bwd_counted"):
+        raise AssertionError("the unfused route launched no counted K5b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kernels)
+    with torch.no_grad():
+        diff = float((plain.silhouette(se3.exp(d0), lp, K) - sil_k5).abs().max())
+    g = grad(plain)
+    gap = float((g - g_k5).abs().max() / g_k5.abs().max())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = calibrate(d0.cpu().numpy(), plain, lp, K, target, num_steps=steps, max_lr=3e-3,
+                    rebin_every=0, Tc_c2b_gt=T0.cpu().numpy())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"[xla tiled] bench scene, {B} frames of {W}x{H}, use_pallas=False: the bench "
+          f"config's cap {renderer.tile.capacity} overflows on this route: {bool(ov_bench)} "
+          f"(no backface culling on the AoS triangles, as in the JAX package); unculled "
+          f"peak tile load {loads}, so capacity {cap}")
+    print(f"[xla tiled] silhouette at the start pose vs K5f (unfused route, cap {cap}, no "
+          f"culling): max abs diff {diff:.3e} (tol 2(cap-1)2^-24 = "
+          f"{2 * (cap - 1) * 2.0**-24:.3e}); d(loss)/d(dof) vs the counted K5b's: max diff "
+          f"{gap:.3e} of max|g|; calibrate {steps} steps: {dt:.3f} s, "
+          f"{dt / steps * 1e3:.3f} ms/step, loss {res.losses[0]:.3f} -> "
+          f"{res.losses[-1]:.3f}, overflow {bool(res.overflow)}; kernel launches "
+          f"{json.dumps(_launched(kernels))}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {GPU}")
+    if _launched(kernels):
+        raise AssertionError("a kernel launched on the use_pallas=False route")
+    if not (diff <= 2 * (cap - 1) * 2.0**-24 and gap <= 1e-3 and not res.overflow
+            and np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]):
+        raise AssertionError("the use_pallas=False route at the bench scene disagrees with "
+                             "K5, overflowed or did not descend")
+
+
+def ring_phase(renderer, K, views=8):
+    """generate_pose_dataset (simulate --ring) at the bench scene's width:
+    the zero qpos from `views` cameras on the default ring, rendered in one
+    RobotRenderer.silhouette call (K4f on the compact route's dense state)."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.data.synthetic import generate_pose_dataset
+    from easyhec_torch.robot import build_chain, parse_urdf
+
+    chain = build_chain(parse_urdf(ROOT / "assets" / "mini_arm.urdf"))
+    kernels = _all_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        _reset(kernels)
+        t0 = time.perf_counter()
+        out = generate_pose_dataset(tmp, chain, renderer, ["base", "upper", "fore"],
+                                    K.cpu().numpy(), n_views=views)
+        dt = time.perf_counter() - t0
+        n_files = sum(1 for p in Path(tmp).rglob("*") if p.is_file())
+    launches = _launched(kernels)
+    area = (out["masks"] > 0.5).mean(axis=(1, 2))
+    print(f"[ring] generate_pose_dataset, {views} views of {W}x{H}: {dt:.3f} s, {n_files} "
+          f"files, launches {json.dumps(launches)}; mask area per view "
+          + np.array2string(area, precision=4) + f"; diameter {out['diameter']:.4f} m")
+    if not (area > 0).all() or launches != {"sil_fwd": 1}:
+        raise AssertionError("an empty ring view, or not one K4f launch for the ring")
+
+
+def validate_phase(cfg, batch):
+    """The validate tool on the trainer phase's checkpoint (its dense route:
+    one K4f launch in render_outputs)."""
+    import torch
+
+    from easyhec_torch.cli.validate import validate
+
+    kernels = _all_kernels()
+    out = Path(cfg.output_dir) / "validate"
+    torch.cuda.synchronize()
+    _reset(kernels)
+    t0 = time.perf_counter()
+    report = validate(cfg, batch=batch, out=out, device=DEVICE)
+    dt = time.perf_counter() - t0
+    launches = _launched(kernels)
+    n_overlay = len(list(out.glob("overlay_[0-9]*.png")))
+    print(f"[validate] {Path(report['checkpoint']).name}: {dt:.3f} s, mean IoU "
+          f"{report['mean_iou']:.4f}, {n_overlay} overlays, launches {json.dumps(launches)}")
+    if launches.get("sil_fwd") != 1 or n_overlay != batch.n_frames or not report["mean_iou"] > 0.9:
+        raise AssertionError("validate: no K4f launch, missing overlays or a low IoU")
+
+
+def tune_init_phase(cfg, batch, xi):
+    """The tune_init tool's global search at its defaults on frame 0 of the
+    trainer phase's batch (K5f and the counted K5b in the search; one K4f
+    for the overlay on the dense route)."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.cli.tune_init import tune_init
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.models.calib import pose_metrics
+
+    kernels = _all_kernels()
+    torch.cuda.synchronize()
+    _reset(kernels)
+    t0 = time.perf_counter()
+    T, info = tune_init(cfg, batch=batch, frame=0, global_search=True,
+                        out=Path(cfg.output_dir) / "tune_init", device=DEVICE)
+    dt = time.perf_counter() - t0
+    launches = _launched(kernels)
+    err = pose_metrics(se3.log(torch.from_numpy(np.asarray(T, np.float32))).numpy(),
+                       se3.exp(xi).cpu().numpy())
+    print(f"[tune_init] global search on frame 0: {dt:.3f} s, {json.dumps(info)}, launches "
+          f"{json.dumps(launches)}; pose error {json.dumps(err)}")
+    if not np.isfinite(T).all() or launches != {"tile_fwd": 251, "tile_bwd_counted": 200,
+                                                "sil_fwd": 1}:
+        raise AssertionError(f"tune_init: non-finite pose or launches {launches}")
+
+
+def pnp_phase(renderer, lp, K, xi, n_pts=2000, n_iters=256):
+    """ransac_pnp on `n_pts` mesh vertices (the arm posed at every frame's
+    qpos, pooled in the base frame: one frame's thin arm leaves the 6-point
+    DLT ill-conditioned) projected at the GT pose, with 0.5 px of noise and
+    30 % uniform outliers: the pose error, and the card against the CPU on
+    the same samples. The DLT is unnormalized, as the JAX package's: at
+    this noise its pose is good to centimetres (5.65 cm, 2.2 deg on the
+    CPU), not millimetres, so the pose error is printed, not held."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.models.calib import pose_metrics
+    from easyhec_torch.models.pose_init import ransac_pnp
+    from easyhec_torch.render.projection import transform_verts
+
+    rng = np.random.default_rng(7)
+    verts = transform_verts(renderer.vertices, renderer.vert_link_id, lp).reshape(-1, 3)
+    verts = verts.cpu().numpy()
+    n_pts = min(n_pts, len(verts))
+    X = verts[rng.choice(len(verts), n_pts, replace=False)]
+    gt, Kn = se3.exp(xi).cpu().numpy(), K.cpu().numpy()
+    pc = X @ gt[:3, :3].T + gt[:3, 3]
+    uv = pc[:, :2] / pc[:, 2:] * np.diag(Kn)[:2] + Kn[:2, 2] + rng.normal(0, 0.5, (n_pts, 2))
+    out = rng.random(n_pts) < 0.3
+    uv[out] = rng.uniform([0, 0], [W, H], (int(out.sum()), 2))
+    secs = []
+    for _ in range(2):  # the first call pays the solver libraries' start-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Tc, inl_c = ransac_pnp(X, uv, Kn, n_iters=n_iters, device=DEVICE)
+        secs.append(time.perf_counter() - t0)
+    Tp, inl_p = ransac_pnp(X, uv, Kn, n_iters=n_iters, device="cpu")
+    err = pose_metrics(se3.log(torch.from_numpy(Tc)).numpy(), gt)
+    diff = float(np.abs(Tc - Tp).max())
+    print(f"[pnp] ransac_pnp, {n_iters} hypotheses on {n_pts} points ({int(out.sum())} "
+          f"outliers): {secs[1]:.4f} s on the card ({secs[0]:.3f} s the first call), "
+          f"{int(inl_c.sum())} inliers ({int((inl_c & out).sum())} "
+          f"of them outliers); pose error {json.dumps(err)}; card vs cpu: R, t max abs diff "
+          f"{diff:.3e} (tol 1e-4), inlier masks differ at {int((inl_c != inl_p).sum())} points")
+    if not (diff <= 1e-4 and inl_c.sum() >= 100 and (inl_c & out).sum() <= 0.01 * inl_c.sum()):
+        raise AssertionError("ransac_pnp: card and cpu disagree, or its inliers are outliers")
 
 
 def reference_search():
@@ -1695,8 +2098,10 @@ def explore_kernel_phase(explore_in, launches_k3, n_explored):
                _ops(w["fwd"], OPS_FWD_PAIR, OPS_FWD_LANE), "loss_fwd_compact_kernel",
                spill_free=True)
     per_round = launches_k3 / n_explored
-    # One scoring pair (a bin state and its K3 render): device time queued
-    # behind a device sleep, and host time of synchronized pairs.
+    # One scoring pair (a bin state and its K3 render): CUDA-event time queued
+    # behind a device sleep (paced by the host once the host's time per pair
+    # exceeds the card's), host time of synchronized pairs, and the device
+    # busy time the profiler sums.
     rebin_ms = _time_ms(lambda: r.bin_state(Th, lp, K), 20)
     pair_ms = _time_ms(lambda: run() if r.bin_state(Th, lp, K) is not None else None, 20)
     torch.cuda.synchronize()
@@ -1706,12 +2111,16 @@ def explore_kernel_phase(explore_in, launches_k3, n_explored):
         run()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    busy_ms = _busy_ms(lambda: (r.bin_state(Th, lp, K), run()), 20)
     print(f"[kernels explore] K3 launches in the online loop: {launches_k3} ({per_round:.0f} "
           f"per explored round); {row['ms'] * per_round / 1e3:.3f} s of K3 device time per "
           f"round; one scoring pair: rebin {rebin_ms:.4f} ms and rebin + K3 {pair_ms:.4f} ms "
-          f"of device time (CUDA events), {host_ms:.4f} ms on the host clock, so "
-          f"{pair_ms * per_round / 1e3:.3f} s of device time and {host_ms * per_round / 1e3:.3f}"
+          f"by CUDA events, {host_ms:.4f} ms on the host clock, so "
+          f"{pair_ms * per_round / 1e3:.3f} s by events and {host_ms * per_round / 1e3:.3f}"
           f" s of host time per round ({GPU})")
+    print(f"[kernels explore] one scoring pair's device busy time (torch.profiler, the sum "
+          f"of its device ops): {busy_ms:.4f} ms, {busy_ms * per_round / 1e3:.3f} s per round "
+          f"({GPU})")
     return row
 
 
@@ -1958,7 +2367,9 @@ def main() -> int:
                  "dense", "pose_fwd_kernel<true>", "pose_bwd_kernel<true>")
         _profile(unfused, lp, K, d0, target_u, args.steps, rebins_u, Path(args.profile),
                  "unfused", "tile_fwd_kernel", "tile_bwd_kernel")
-    trainer_launches, _ = trainer_phase(lp, K, xi, qs, target_d, args.steps)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    trainer_launches, _, trainer_cfg, trainer_batch = trainer_phase(
+        lp, K, xi, qs, target_d, args.steps, work / "trainer")
     sil_launches = silhouette_path(dense, lp, K, xi, target_d,
                                    {"sil_fwd": pr.sil_fwd_cuda, "sil_bwd": pr.sil_bwd_cuda},
                                    "silhouette")
@@ -1976,6 +2387,14 @@ def main() -> int:
     iter_launches, explore_in, n_explored = iterative_phase(args.steps)
     kernels.append(explore_kernel_phase(explore_in, iter_launches["K3"], n_explored))
     launches["compact_tile_acc"] = iter_launches["K3"]
+    schedules_phase(renderer, lp, K, xi, target, args.steps)
+    option_routes_phase(renderer, lp, K, xi)
+    xla_tiled_phase(renderer, lp, K, xi, target)
+    ring_phase(renderer, K)
+    validate_phase(trainer_cfg, trainer_batch)
+    tune_init_phase(trainer_cfg, trainer_batch, xi)
+    pnp_phase(renderer, lp, K, xi)
+    shutil.rmtree(work)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:

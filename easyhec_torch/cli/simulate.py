@@ -10,8 +10,9 @@ reference-compatible layout. Usage:
 
 The run goes on CUDA unless ``--device cpu`` is given. The joint
 configurations come from a torch.Generator seeded with ``--seed``, so they
-differ from the JAX package's for the same seed. The pose-dataset mode
-(``--ring``) is not ported (ROADMAP.md) and raises.
+differ from the JAX package's for the same seed. ``--ring N`` writes the
+pose dataset instead (data.synthetic.generate_pose_dataset): the zero qpos
+from N cameras on a ring of radius ``--distance`` at ``--height``.
 """
 from __future__ import annotations
 
@@ -30,29 +31,32 @@ def main(argv=None) -> int:
     ap.add_argument("--limit-fraction", type=float, default=0.5)
     ap.add_argument("--depth", action="store_true", help="also write depth maps")
     ap.add_argument("--ring", type=int, default=0, metavar="N",
-                    help="pose-dataset mode (not ported yet)")
+                    help="pose-dataset mode: N camera views on a ring, one fixed qpos")
     ap.add_argument("--split", type=float, default=0.0, metavar="FRAC",
                     help="after generation, split into train/ and val/ with FRAC of "
                     "frames in train")
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
     ap.add_argument("opts", nargs="*")
     args = ap.parse_args(argv)
-    if args.ring:
-        raise NotImplementedError(
-            "--ring (the pose-dataset mode, generate_pose_dataset) is not ported to "
-            "easyhec_torch yet (ROADMAP.md queue item 10)"
-        )
 
     import numpy as np
 
     from ..config import load_config
-    from ..data.synthetic import default_camera, generate_dataset, split_dataset
+    from ..data.synthetic import (default_camera, generate_dataset, generate_pose_dataset,
+                                  split_dataset)
     from ..trainer import build_runtime
 
     cfg = load_config(args.config_file, args.opts)
     rt = build_runtime(cfg, device=args.device)
     fx = 1.2 * max(cfg.model.H, cfg.model.W)
     K = np.array([[fx, 0, cfg.model.W / 2], [0, fx, cfg.model.H / 2], [0, 0, 1]], np.float32)
+    if args.ring:
+        out = generate_pose_dataset(args.out, rt.chain, rt.renderer, rt.link_names, K,
+                                    n_views=args.ring, radius=args.distance,
+                                    height=args.height, seed=args.seed)
+        print(f"wrote {args.ring} ring views to {args.out} "
+              f"(model diameter {out['diameter']:.3f} m)")
+        return 0
     Tc = default_camera(args.distance, args.azimuth, args.height)
     data = generate_dataset(
         args.out, rt.chain, rt.renderer, rt.link_names, Tc, K, n_frames=args.n_frames,

@@ -10,8 +10,9 @@ hit face's camera-frame normal.
 Joint configurations are drawn with a ``torch.Generator`` seeded from
 ``seed``; the JAX package draws them with jax.random, so the two produce
 different configurations from one seed. Pass ``qposes`` to render the same
-ones. The pose-dataset mode of the JAX package (``generate_pose_dataset``,
-the ``--ring`` CLI) is not ported (ROADMAP.md).
+ones. ``generate_pose_dataset`` (the ``--ring`` CLI) writes the pose
+dataset: one fixed qpos seen from a ring of cameras; its PNGs go through
+utils.imaging.write_png (no PIL).
 """
 from __future__ import annotations
 
@@ -27,12 +28,15 @@ from ..render.projection import transform_verts
 from ..render.renderer import RobotRenderer
 from ..render.tiled import depth_tiled
 from ..robot import KinematicChain
+from ..utils.imaging import write_png
+from ..utils.scene3d import _write_ply
 from .dataset import save_calib_dataset
 
 __all__ = [
     "sample_qposes",
     "make_render_fn",
     "generate_dataset",
+    "generate_pose_dataset",
     "split_dataset",
     "default_camera",
 ]
@@ -130,6 +134,64 @@ def generate_dataset(
         for i, d in enumerate(depth):
             np.save(ddir / f"{i:06d}.npy", d)
     return {"masks": masks, "qpos": qpos_np, "rgb": rgb, "depth": depth, "link_id": link_id}
+
+
+def generate_pose_dataset(
+    out_dir: str | Path,
+    chain: KinematicChain,
+    renderer: RobotRenderer,
+    link_names: list[str],
+    K: np.ndarray,
+    n_views: int = 36,
+    radius: float = 1.5,
+    height: float = 0.8,
+    qpos: np.ndarray | None = None,
+    target=(0.0, 0.0, 0.25),
+    seed: int = 0,
+    jitter: float = 0.0,
+) -> dict[str, np.ndarray]:
+    """Pose-training dataset: one fixed qpos (zeros by default) seen from
+    ``n_views`` cameras on a ring, in the layout
+
+        color/%06d.png  mask/%06d.png  pose/%06d.txt  (Tc_c2b per view)
+        K.txt  qpos.txt  model.ply  diameter.txt
+
+    model.ply is the robot posed at ``qpos`` in the base frame; diameter the
+    norm of its vertices' bbox extent. ``jitter`` adds numpy normal(0,
+    jitter) noise (seeded) to each view's translation. Returns {"poses",
+    "masks", "diameter"}."""
+    out = Path(out_dir)
+    dev = renderer.device
+    qpos = np.zeros(chain.n_dof, np.float32) if qpos is None else np.asarray(qpos)
+    link_idx = [chain.link_index(n) for n in link_names]
+    lp = chain.fk(torch.as_tensor(qpos, dtype=torch.float32))[link_idx]  # [L, 4, 4]
+    rng = np.random.default_rng(seed)
+    rings = camera.ring_poses(n_views, radius, height,
+                              target=torch.tensor(target, dtype=torch.float32))
+    poses = se3.inverse(rings)  # Tc_c2b per view
+    if jitter > 0:
+        noise = rng.normal(0, jitter, (n_views, 3)).astype(np.float32)
+        poses[:, :3, 3] += torch.from_numpy(noise)
+    Kt = torch.as_tensor(np.asarray(K), dtype=torch.float32, device=dev)
+    lp_d = lp.to(dev)
+    with torch.no_grad():
+        masks = renderer.silhouette(poses.to(dev), lp_d.expand((n_views,) + lp_d.shape),
+                                    Kt).cpu().numpy()
+    for sub in ("color", "mask", "pose"):
+        (out / sub).mkdir(parents=True, exist_ok=True)
+    for i in range(n_views):
+        # the flat mask stands in for the color image (a shape cue only)
+        m8 = (masks[i] > 0.5).astype(np.uint8) * 255
+        write_png(out / "color" / f"{i:06d}.png", m8)
+        write_png(out / "mask" / f"{i:06d}.png", m8)
+        np.savetxt(out / "pose" / f"{i:06d}.txt", poses[i].numpy())
+    np.savetxt(out / "K.txt", np.asarray(K))
+    np.savetxt(out / "qpos.txt", qpos)
+    verts = transform_verts(renderer.vertices, renderer.vert_link_id, lp_d).cpu().numpy()
+    _write_ply(out / "model.ply", verts, renderer.faces.cpu().numpy())
+    diameter = float(np.linalg.norm(verts.max(axis=0) - verts.min(axis=0)))
+    (out / "diameter.txt").write_text(f"{diameter}\n")
+    return {"poses": poses.numpy(), "masks": masks, "diameter": diameter}
 
 
 def split_dataset(

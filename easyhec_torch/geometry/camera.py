@@ -9,12 +9,14 @@ Near/far only gate validity.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 NEAR_DEFAULT = 0.001  # matches the reference near/far
 FAR_DEFAULT = 10.0
 
-__all__ = ["NEAR_DEFAULT", "FAR_DEFAULT", "project_points", "look_at"]
+__all__ = ["NEAR_DEFAULT", "FAR_DEFAULT", "project_points", "look_at", "ring_poses"]
 
 
 def project_points(K: torch.Tensor, pts_cam: torch.Tensor, eps: float = 1e-9):
@@ -47,3 +49,21 @@ def look_at(eye: torch.Tensor, target: torch.Tensor, up: torch.Tensor) -> torch.
     T[:3, :3] = torch.stack([right, down, fwd], dim=-1)
     T[:3, 3] = eye
     return T
+
+
+def ring_poses(n: int, radius: float, height: float, target: torch.Tensor | None = None,
+               up: torch.Tensor | None = None, start_angle: float = 0.0) -> torch.Tensor:
+    """[n, 4, 4] camera-to-world poses on a ring of eyes at ``radius`` around
+    ``target`` and ``height`` above it, each looking at ``target`` (f32, on
+    target's device; CPU by default)."""
+    if target is None:
+        target = torch.zeros(3, dtype=torch.float32)
+    if up is None:
+        up = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=target.device)
+    angles = start_angle + torch.arange(n, dtype=torch.float32,
+                                        device=target.device) * (2.0 * math.pi / n)
+    eyes = torch.stack([target[0] + radius * torch.cos(angles),
+                        target[1] + radius * torch.sin(angles),
+                        torch.full((n,), float(target[2] + height), dtype=torch.float32,
+                                   device=target.device)], dim=-1)
+    return torch.stack([look_at(e, target, up) for e in eyes])

@@ -84,7 +84,7 @@ def mask_loss(
 
 
 def _use_fused_loss(renderer: RobotRenderer) -> bool:
-    return renderer.tile.fused and renderer.tile.use_pallas and renderer.mode != "brute"
+    return renderer.kernel_route and renderer.tile.fused
 
 
 def mask_loss_per_frame(
@@ -154,8 +154,7 @@ def pose_metrics(dof, Tc_c2b_gt: np.ndarray) -> dict[str, float]:
 def reuse_bins_ok(renderer: RobotRenderer) -> bool:
     """Whether the renderer supports amortized rebinning (the counting
     binner, or the fused kernels, on the tiled route)."""
-    return (renderer.mode == "tiled" and renderer.tile.use_pallas
-            and (renderer.tile.binner == "count" or renderer.tile.fused))
+    return renderer.kernel_route and (renderer.tile.binner == "count" or renderer.tile.fused)
 
 
 def adaptive_drift_budget(tile, sharpness: float) -> float:

@@ -179,8 +179,7 @@ class SpaceExplorer:
         binner (BinState → counted silhouette) or the fused states
         (CompactState → render.fused.silhouette_compact, FusedState → the
         dense silhouette)."""
-        t = self.renderer.tile
-        return self.renderer.mode != "brute" and t.use_pallas and t.binner == "count"
+        return self.renderer.kernel_route and self.renderer.tile.binner == "count"
 
     def hypothesis_spread_px(self, hyp_dofs: np.ndarray, K: np.ndarray) -> float:
         """Max pixel displacement of robot-workspace probe points across the
@@ -280,7 +279,7 @@ class SpaceExplorer:
         compact_renderer = t.fused and t.compact_chunks > 0
         # A count-binner renderer exposes an explicit bin state, the only
         # way the per-render overflow flag is observable.
-        counted = t.binner == "count" and r.mode != "brute" and t.use_pallas
+        counted = r.kernel_route and t.binner == "count"
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
         # introspection: bin states built, and the largest tile load among
         # them (read by explore after the overflow flag, no extra sync)

@@ -8,10 +8,11 @@ Counterpart of easyhec_tpu/models/pose_init.py:
   sphere render at low resolution through a scoring renderer on the
   unfused route (K5), are scored by soft IoU against the observed masks,
   and the best ones are refined by mask moments and by Adam on the
-  low-resolution mask loss (K5 forward and backward).
-
-``ransac_pnp`` is not ported yet (it draws its samples with jax.random;
-ROADMAP.md queue item 12).
+  low-resolution mask loss (K5 forward and backward);
+- ``ransac_pnp``: RANSAC over 6-point DLT hypotheses, all solved in one
+  batched SVD on the device, then a refit on the best one's inliers. Its
+  samples come from ``draw_ransac_samples`` (a CPU torch.Generator), not
+  jax.random, so the two packages draw different hypotheses from one seed.
 """
 from __future__ import annotations
 
@@ -21,11 +22,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..geometry import camera, se3
 from ..render.tiled import TileConfig
 from ..solver.optim import make_optimizer
 
-__all__ = ["lookat_init", "global_search_init", "GlobalSearchResult"]
+__all__ = ["lookat_init", "global_search_init", "GlobalSearchResult", "ransac_pnp",
+           "draw_ransac_samples"]
 
 _SCORE_BATCH = 64  # candidates per scoring render
 
@@ -46,7 +49,8 @@ class GlobalSearchResult:
     scores: np.ndarray  # [n_candidates] IoU of every candidate
     poses: np.ndarray  # [n_candidates, 4, 4]
     # Share of the scoring renders' tile bins filled to the capacity
-    # (triangles beyond it are dropped, as in the JAX package).
+    # (triangles beyond it are dropped, as in the JAX package); counted on
+    # the kernel route only.
     tiles_at_cap: float = 0.0
 
 
@@ -158,15 +162,18 @@ def global_search_init(
         union = torch.maximum(sil, masks_lo).sum((-2, -1))
         return (inter / torch.clamp(union, min=1e-6)).mean(-1)
 
-    # 1. sweep
+    # 1. sweep (through a bin state on the kernel route, to count the tiles
+    # at capacity; mode="brute" and use_pallas=False render without one)
+    stateful = score_renderer.kernel_route
     scores, full, tiles = [], 0, 0
     with torch.no_grad():
         for s in range(0, poses.shape[0], _SCORE_BATCH):
             T = poses[s:s + _SCORE_BATCH, None]  # [n, 1, 4, 4] against [Bs] frames
             lpb = lp.expand((T.shape[0],) + lp.shape)
-            st = score_renderer.bin_state(T, lpb, Ks)
-            full += int((st.counts >= cap).sum())
-            tiles += st.counts.numel()
+            st = score_renderer.bin_state(T, lpb, Ks) if stateful else None
+            if st is not None:
+                full += int((st.counts >= cap).sum())
+                tiles += st.counts.numel()
             scores.append(iou(score_renderer.silhouette(T, lpb, Ks, bin_state=st)))
     scores = torch.cat(scores)
     order = torch.argsort(-scores, stable=True)[:topk]
@@ -227,3 +234,79 @@ def _scoring_renderer(renderer, Hs: int, Ws: int):
         renderer.tile.use_pallas,
     )
     return r
+
+
+def draw_ransac_samples(seed: int, N: int, n_iters: int,
+                        generator: torch.Generator | None = None) -> torch.Tensor:
+    """[n_iters, 6] int64: six distinct correspondence indices per
+    hypothesis, from a CPU torch.Generator (seeded with ``seed`` unless one
+    is given), whatever device the solve runs on."""
+    gen = generator if generator is not None else torch.Generator().manual_seed(int(seed))
+    return torch.rand((n_iters, N), generator=gen).argsort(dim=-1)[:, :6]
+
+
+def ransac_pnp(
+    pts3d: np.ndarray,  # [N, 3] in the base frame
+    pts2d: np.ndarray,  # [N, 2] pixels
+    K: np.ndarray,
+    n_iters: int = 256,
+    inlier_px: float = 4.0,
+    seed: int = 0,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Vectorized RANSAC + DLT PnP, on ``device`` (None = CUDA). Returns
+    (Tc_c2b [4, 4], inlier mask [N]).
+
+    Each hypothesis is the smallest right singular vector of its 12×12 DLT
+    system, reshaped to P = [M | p]; the SVD hands it back with either sign,
+    so P is taken with det(M) > 0 (the sign under which it is λ[R | t], λ >
+    0) before M is orthonormalized, and no hypothesis depends on the SVD's
+    sign or order. R is M's nearest proper rotation, t = p / (mean singular
+    value), both flipped if most points fall behind the camera. Inliers
+    reproject within ``inlier_px``; the hypothesis with the most wins (the
+    first on a tie) and is refit on its inliers when it has six or more."""
+    dev = resolve_device(device)
+    pts3d = torch.as_tensor(np.asarray(pts3d, np.float32), device=dev)
+    pts2d = torch.as_tensor(np.asarray(pts2d, np.float32), device=dev)
+    Kt = torch.as_tensor(np.asarray(K, np.float32), device=dev)
+    N = pts3d.shape[0]
+    if N < 6:
+        raise ValueError("ransac_pnp needs >= 6 correspondences")
+    xy = (pts2d - Kt[:2, 2]) / torch.stack([Kt[0, 0], Kt[1, 1]])  # normalized coords
+
+    def dlt(idx):
+        """[..., k] correspondence indices -> (R [..., 3, 3], t [..., 3])."""
+        X, x = pts3d[idx], xy[idx]
+        Xh = torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)  # [..., k, 4]
+        z = torch.zeros_like(Xh)
+        A = torch.cat([torch.cat([Xh, z, -x[..., :1] * Xh], dim=-1),
+                       torch.cat([z, Xh, -x[..., 1:2] * Xh], dim=-1)], dim=-2)
+        P = torch.linalg.svd(A, full_matrices=False).Vh[..., -1, :].reshape(
+            idx.shape[:-1] + (3, 4))
+        P = P * torch.where(torch.linalg.det(P[..., :3]) < 0, -1.0, 1.0)[..., None, None]
+        U, S, Vh = torch.linalg.svd(P[..., :3])
+        sign = torch.sign(torch.linalg.det(U @ Vh))
+        D = torch.ones(sign.shape + (3,), dtype=sign.dtype, device=dev)
+        D[..., 2] = sign
+        R = (U * D[..., None, :]) @ Vh
+        scale = sign * S.mean(dim=-1)
+        t = P[..., 3] / torch.where(scale.abs() < 1e-12, torch.full_like(scale, 1e-12),
+                                    scale)[..., None]
+        zc = (pts3d @ R.transpose(-1, -2) + t[..., None, :])[..., 2]  # [..., N]
+        flip = torch.sign(torch.sign(zc).sum(dim=-1))
+        flip = torch.where(flip == 0, torch.ones_like(flip), flip)
+        return R * flip[..., None, None], t * flip[..., None]
+
+    idxs = draw_ransac_samples(seed, N, n_iters).to(dev)
+    Rs, ts = dlt(idxs)
+    uv, zc = camera.project_points(Kt, pts3d @ Rs.transpose(-1, -2) + ts[:, None, :])
+    err = torch.linalg.norm(uv - pts2d, dim=-1)
+    inliers = torch.where(zc > 0, err, torch.full_like(err, float("inf"))) < inlier_px
+    best = int(torch.argmax(inliers.sum(dim=-1)))
+    R, t, inl = Rs[best], ts[best], inliers[best]
+    if int(inl.sum()) >= 6:  # refit on every inlier of the best hypothesis
+        R, t = dlt(torch.nonzero(inl).flatten())
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = R.cpu().numpy()
+    T[:3, 3] = t.cpu().numpy()
+    return T, inl.cpu().numpy()

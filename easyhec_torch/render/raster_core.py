@@ -1,10 +1,18 @@
-"""Core rasterization math of the tiled depth pass.
+"""Core rasterization math shared by the brute-force and tiled rasterizers.
 
-Torch counterpart of easyhec_tpu/render/raster_core.py (the parts the tiled
-rasterizer uses): per-triangle normalized edge functions, screen-space
-barycentric line functions, 1/z and bboxes (``build_edges``), homogeneous
-pixel-center grids (``pixel_grid``), the bbox distance of the soft coverage
-(``bbox_distance``) and hard nearest-depth visibility (``depth_from_edges``).
+Torch counterpart of easyhec_tpu/render/raster_core.py: per-triangle
+normalized edge functions, screen-space barycentric line functions, 1/z and
+bboxes (``build_edges``), homogeneous pixel-center grids (``pixel_grid``),
+the soft coverage of every pixel by every triangle (``coverage_from_edges``)
+with its bbox distance (``bbox_distance``), and hard nearest-depth
+visibility (``depth_from_edges``).
+
+The edge functions are one [P, 3] × [3, E] f32 product (``eval_lines``), as
+the JAX package's ``Precision.HIGHEST`` einsum: on the card it runs in
+full f32 because ``easyhec_torch.resolve_device`` turns TF32 off for the
+whole package whenever it resolves CUDA (every renderer is built through
+it). On the CPU it rounds as XLA's CPU dot does (a fused multiply-add chain
+over k = 0, 1, 2), so the edge distances agree bit for bit.
 
 Soft coverage of a pixel by a triangle is ``clamp(0.5 + s·dmin, 0, 1)`` with
 dmin the signed distance to the boundary (min over the three normalized
@@ -17,7 +25,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["EdgeData", "build_edges", "pixel_grid", "bbox_distance", "depth_from_edges"]
+__all__ = ["EdgeData", "build_edges", "pixel_grid", "coverage_from_edges", "bbox_distance",
+           "depth_from_edges", "clip01", "eval_lines"]
 
 
 class EdgeData(NamedTuple):
@@ -91,12 +100,31 @@ def bbox_distance(pix: torch.Tensor, bbox: torch.Tensor) -> torch.Tensor:
                          torch.minimum(py - lo_y, hi_y - py))
 
 
-def _lines(pix, coef):
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """jnp.clip(x, 0, 1) as jnp computes it, maximum then minimum, so a value
+    on a bound splits its gradient evenly as jnp's does."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
+def coverage_from_edges(pix: torch.Tensor, edges: EdgeData, sharpness: float = 1.0
+                        ) -> torch.Tensor:
+    """Soft coverage of each pixel by each triangle: pix [P, 3] homogeneous
+    pixel centers, edges with [..., F, ...] -> [..., P, F] in [0, 1]
+    (``clamp(0.5 + s·dmin, 0, 1)``, zero for invalid triangles)."""
+    F = edges.abc.shape[-3]
+    d = eval_lines(pix, edges.abc.reshape(edges.abc.shape[:-3] + (3 * F, 3)))
+    dmin = d.reshape(d.shape[:-1] + (F, 3)).amin(dim=-1)  # ties split as jnp.min
+    dmin = torch.minimum(dmin, bbox_distance(pix, edges.bbox))
+    cov = clip01(0.5 + sharpness * dmin)
+    return torch.where(edges.valid[..., None, :], cov, torch.zeros_like(cov))
+
+
+def eval_lines(pix, coef):
     """Line functions coef [..., E, 3] at pixels [P, 3] -> [..., P, E]
-    (a·px + b·py + c, elementwise in f32)."""
-    px, py = pix[:, 0, None], pix[:, 1, None]
-    a, b, c = (coef[..., None, :, k] for k in range(3))
-    return a * px + b * py + c
+    (a·px + b·py + c), one f32 matmul: full f32 on the card through the
+    package-wide TF32 switch in ``easyhec_torch.resolve_device``, as the
+    JAX package's Precision.HIGHEST."""
+    return torch.matmul(pix, coef.transpose(-1, -2))
 
 
 def depth_from_edges(pix: torch.Tensor, edges: EdgeData):
@@ -106,10 +134,10 @@ def depth_from_edges(pix: torch.Tensor, edges: EdgeData):
     the hard version of the soft coverage (all edge distances >= 0); the
     nearest triangle is the first minimum over the triangle axis."""
     F = edges.abc.shape[-3]
-    d = _lines(pix, edges.abc.reshape(edges.abc.shape[:-3] + (3 * F, 3)))
+    d = eval_lines(pix, edges.abc.reshape(edges.abc.shape[:-3] + (3 * F, 3)))
     d = d.reshape(d.shape[:-1] + (F, 3))
     inside = torch.all(d >= 0.0, dim=-1) & edges.valid[..., None, :]
-    b = _lines(pix, edges.bary_abc.reshape(edges.bary_abc.shape[:-3] + (3 * F, 3)))
+    b = eval_lines(pix, edges.bary_abc.reshape(edges.bary_abc.shape[:-3] + (3 * F, 3)))
     b = b.reshape(b.shape[:-1] + (F, 3))
     bsum = b.sum(dim=-1, keepdim=True)
     bary = b / torch.where(bsum.abs() < 1e-12, torch.ones_like(bsum), bsum)

@@ -12,10 +12,15 @@ links of all frames render in one batched call:
   through the record pack and the triangle setup; ``bin_state`` returns a
   detached ``BinState`` to reuse across steps;
 - ``depth`` (hard z and link ids, plain PyTorch) and ``link_silhouettes``
-  (K5 per link) on the tiled route.
+  (one render per link).
 
-``mode="brute"`` (the oracle rasterizer) and ``use_pallas=False`` (the
-pure-XLA tiled rasterizer) are not ported.
+Two options of the JAX package's config run without any kernel, in plain
+PyTorch, and only when asked for: ``mode="brute"`` (every pixel against
+every triangle, render/raster_jnp.py) and ``tile.use_pallas=False`` (the
+plain-tensor tiled rasterizer, tiled._silhouette_tiled_single). On either,
+the fused gates fall through to the stateless routes as in the JAX
+package: ``bin_state`` returns the counting binner's state and
+``silhouette`` renders without it.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch
 from .. import resolve_device
 from ..robot.mesh import TriMesh, pack_meshes
 from .projection import setup_triangles, setup_triangles_corners, transform_verts
+from .raster_jnp import depth_bruteforce, silhouette_bruteforce
 from .tiled import TileConfig, depth_tiled, silhouette_tiled
 
 __all__ = ["RobotRenderer"]
@@ -37,6 +43,8 @@ class RobotRenderer:
 
     Static data is baked at construction onto ``device`` (None = CUDA; the
     constructor raises when CUDA is absent unless ``device="cpu"``).
+
+    mode: "tiled" (the binned routes) or "brute" (the dense reference).
     """
 
     def __init__(
@@ -48,10 +56,8 @@ class RobotRenderer:
         mode: str = "tiled",
         device=None,
     ):
-        if mode != "tiled":
-            raise NotImplementedError(
-                f"mode={mode!r}: only the tiled routes are ported (ROADMAP.md)"
-            )
+        if mode not in ("tiled", "brute"):
+            raise ValueError(f"unknown render mode {mode!r} (tiled | brute)")
         self.device = resolve_device(device)
         packed = pack_meshes(link_meshes)
         self.meshes = list(link_meshes)
@@ -125,14 +131,25 @@ class RobotRenderer:
         return setup_triangles_corners(self.corners_rest, self.face_link_onehot, Tc_c2l,
                                        K, cull_backfaces=self.tile.cull_backfaces)
 
+    @property
+    def kernel_route(self) -> bool:
+        """Whether this renderer draws through the kernels: the tiled mode on
+        the kernel binners (False for mode="brute" and tile.use_pallas=False,
+        which render in plain PyTorch)."""
+        return self.mode == "tiled" and self.tile.use_pallas
+
+    def _fused(self) -> bool:
+        """Whether the fused states and kernels serve this renderer."""
+        return self.kernel_route and self.tile.fused
+
     def bin_state(self, Tc_c2b, link_poses, K, sharpness: float = 1.0):
         """Rebin state for the current pose (leaves carry the flattened frame
         batch); reuse it while the pose stays within tile.margin px of where
         it was built. Fused route: a CompactState when tile.compact_chunks >
         0, else a FusedState (sharpness must match the loss kernel's when
-        tile.bwd_chunks > 0). Unfused route: the counting binner's BinState,
+        tile.bwd_chunks > 0). Otherwise the counting binner's BinState,
         detached."""
-        if self.tile.fused:
+        if self._fused():
             from .fused import build_compact_state, build_fused_state
 
             if self.tile.compact_chunks > 0:
@@ -158,16 +175,24 @@ class RobotRenderer:
         FusedState (a CompactState drives the loss only, so it is dropped and
         the bins are rebuilt densely). Unfused route: differentiable in
         Tc_c2b and link_poses through K5; bin_state an optional BinState
-        (from self.bin_state) to reuse the bins across optimizer steps."""
-        if self.tile.fused:
+        (from self.bin_state) to reuse the bins across optimizer steps.
+        ``mode="brute"`` and ``use_pallas=False``: differentiable in both,
+        plain PyTorch, bin_state ignored."""
+        if self._fused():
             from .fused import CompactState, silhouette_fused
 
             if isinstance(bin_state, CompactState):
                 bin_state = None
             return silhouette_fused(self, Tc_c2b, link_poses, K, sharpness,
                                     state=bin_state)
-        tris = self._triangles_soa(self.camera_link_poses(Tc_c2b, link_poses), K)
-        if self.tile.use_pallas and (bin_state is not None or self.tile.binner == "count"):
+        Tc_c2l = self.camera_link_poses(Tc_c2b, link_poses)
+        if self.mode == "brute":
+            return silhouette_bruteforce(self._triangles(Tc_c2l, K), self.H, self.W, sharpness)
+        if not self.tile.use_pallas:
+            return silhouette_tiled(self._triangles(Tc_c2l, K), self.H, self.W, self.tile,
+                                    sharpness)
+        tris = self._triangles_soa(Tc_c2l, K)
+        if bin_state is not None or self.tile.binner == "count":
             from .binning import silhouette_counted
 
             return silhouette_counted(tris, self.H, self.W, self.tile, sharpness,
@@ -178,19 +203,28 @@ class RobotRenderer:
     def depth(self, Tc_c2b, link_poses, K):
         """-> (depth [..., H, W] metric z, link_id [..., H, W] int32, -1 = bg)."""
         tris = self._triangles(self.camera_link_poses(Tc_c2b, link_poses), K)
-        z, tid = depth_tiled(tris, self.H, self.W, self.tile)
+        if self.mode == "brute":
+            z, tid = depth_bruteforce(tris, self.H, self.W)
+        else:
+            z, tid = depth_tiled(tris, self.H, self.W, self.tile)
         face_ids = torch.cat([self.face_link_id.to(torch.int32),
                               torch.full((1,), -1, dtype=torch.int32, device=self.device)])
         link_id = face_ids[torch.where(tid >= 0, tid, self.faces.shape[0]).long()]
         return z, link_id
 
     def link_silhouettes(self, Tc_c2b, link_poses, K, sharpness: float = 1.0):
-        """Per-link masks [..., L, H, W] through the tiled route (K5), one
-        render per link."""
-        tris = self._triangles_soa(self.camera_link_poses(Tc_c2b, link_poses), K)
+        """Per-link masks [..., L, H, W], one render per link (K5 on the
+        kernel route)."""
+        Tc_c2l = self.camera_link_poses(Tc_c2b, link_poses)
+        if self.kernel_route:
+            tris = self._triangles_soa(Tc_c2l, K)
+        else:
+            tris = self._triangles(Tc_c2l, K)
 
         def one(link):
             masked = tris._replace(valid=tris.valid & (self.face_link_id == link))
+            if self.mode == "brute":
+                return silhouette_bruteforce(masked, self.H, self.W, sharpness)
             return silhouette_tiled(masked, self.H, self.W, self.tile, sharpness)
 
         return torch.stack([one(l) for l in range(self.n_links)], dim=-3)

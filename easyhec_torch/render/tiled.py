@@ -8,34 +8,38 @@ Torch counterpart of easyhec_tpu/render/tiled.py:
   silhouette, and ``silhouette_tiled`` on the Pallas routes: the counting
   binner (``binner="count"``, binning.silhouette_counted) and the top-k
   binner (``_bin_bboxes`` + ``_pack_records``), both rasterized by K5
-  (ops/tile_raster.py). The pure-XLA route (``use_pallas=False``) is not
-  ported and raises;
+  (ops/tile_raster.py); and the plain-tensor route (``use_pallas=False``,
+  ``_silhouette_tiled_single``, the JAX package's pure-XLA rasterizer): per
+  frame, top-k bins, tile-local edges and the coverage sum in plain PyTorch
+  (no kernel; 128-record chunks past a capacity of 256);
 - ``depth_tiled``: hard depth and triangle ids through top-k bins, in plain
   PyTorch (in the JAX package it is XLA, not a Pallas kernel).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from .projection import Triangles2D, TrianglesSoA, soa_from_aos
-from .raster_core import build_edges, pixel_grid
+from .projection import Triangles2D, TrianglesSoA, soa_from_aos, to_aos
+from .raster_core import bbox_distance, build_edges, clip01, eval_lines, pixel_grid
 
 __all__ = ["TileConfig", "silhouette_tiled", "depth_tiled", "bin_triangles"]
 
 
 class TileConfig(NamedTuple):
     """Rasterizer tiling and binning budgets (see easyhec_tpu's TileConfig
-    for the long-form notes on each field). The port implements the fused
-    compact-chunk and dense routes (``fused=True``) and the unfused route
-    (``fused=False``, K5) on the Pallas binners; ``use_pallas=False`` (the
-    pure-XLA rasterizer) is not ported."""
+    for the long-form notes on each field): the fused compact-chunk and
+    dense routes (``fused=True``) and the unfused route (``fused=False``,
+    K5) on the kernel binners, and the plain-tensor route
+    (``use_pallas=False``), which the user asks for by name."""
 
     tile_h: int = 8
     tile_w: int = 128
     capacity: int = 256  # max triangles per tile bin
-    use_pallas: bool = True  # False (the pure-XLA rasterizer) is not ported
+    use_pallas: bool = True  # False: the plain-tensor rasterizer, no kernel
     binner: str = "count"  # "count" (binning.bin_count) | "topk" (_bin_bboxes)
     rect_y: int = 0  # static tile-rect enumeration window; 0 = auto
     rect_x: int = 0
@@ -239,6 +243,64 @@ def _silhouette_tiled_pallas(flat: TrianglesSoA, H: int, W: int, cfg: TileConfig
     return _untile(tiles, H, W, cfg), ov
 
 
+# Records per chunk of the plain-tensor route past a capacity of 256, and
+# the elements of one [tiles, P, records] temporary a block of tiles may use.
+_RC = 128
+_TILE_BLOCK_ELEMS = 1 << 26
+
+
+def _tile_block(pix, abc, bbox, valid, sharpness: float):
+    """Clipped coverage [TB, P] of a block of tiles: pix [P, 3] tile-local,
+    abc [TB, cap, 3, 3], bbox [TB, cap, 4], valid [TB, cap]. Capacities up
+    to 256 sum over the records in one pass; larger ones sum each 128-record
+    chunk, then add the chunk sums in chunk order (the JAX package's scan
+    over chunks), all chunks evaluated at once."""
+    cap = valid.shape[-1]
+    pad = -cap % _RC if cap > 256 else 0
+    if pad:
+        abc = torch.cat([abc, abc.new_zeros(abc.shape[:1] + (pad, 3, 3))], dim=1)
+        bbox = torch.cat([bbox, bbox.new_zeros(bbox.shape[:1] + (pad, 4))], dim=1)
+        valid = torch.cat([valid, valid.new_zeros(valid.shape[:1] + (pad,))], dim=1)
+    # the three edges' [TB, P, cap] distances, min'd pairwise as in the JAX
+    # package (a three-way tie splits its gradient 1/4, 1/4, 1/2 there too)
+    d = [eval_lines(pix, abc[:, :, k, :]) for k in range(3)]
+    dmin = torch.minimum(torch.minimum(torch.minimum(d[0], d[1]), d[2]),
+                         bbox_distance(pix, bbox))
+    cov = clip01(0.5 + sharpness * dmin)
+    cov = torch.where(valid[:, None, :], cov, torch.zeros_like(cov))
+    if cap <= 256:
+        return clip01(cov.sum(dim=-1))
+    parts = cov.reshape(cov.shape[:2] + (-1, _RC)).sum(dim=-1)  # [TB, P, chunks]
+    acc = parts[..., 0]
+    for c in range(1, parts.shape[-1]):
+        acc = acc + parts[..., c]
+    return clip01(acc)
+
+
+def _silhouette_tiled_single(tris: Triangles2D, H: int, W: int, cfg: TileConfig,
+                             sharpness: float):
+    """One frame's AoS triangles -> ([H, W] silhouette, overflowed []): top-k
+    bins, tile-local edge records, and each block of tiles' coverage under
+    torch.utils.checkpoint (recomputed in the backward instead of saving the
+    [tiles, P, cap] residuals, as jax.checkpoint in the JAX package)."""
+    n_ty, n_tx = _cdiv(H, cfg.tile_h), _cdiv(W, cfg.tile_w)
+    edges = build_edges(tris.uv, tris.z, tris.valid)
+    tri_ids, _counts, overflowed = bin_triangles(tris, H, W, cfg)
+    abc_t, bbox_t, valid_t, _, _ = _gather_tile_edges(edges, tri_ids, cfg, n_tx)
+    pix = pixel_grid(cfg.tile_h, cfg.tile_w, device=tris.uv.device)
+    nt, cap = valid_t.shape
+    tb = max(1, _TILE_BLOCK_ELEMS // (pix.shape[0] * (cap + _RC)))
+    grad = torch.is_grad_enabled() and abc_t.requires_grad
+    tiles = []
+    for s in range(0, nt, tb):
+        args = (pix, abc_t[s:s + tb], bbox_t[s:s + tb], valid_t[s:s + tb], sharpness)
+        tiles.append(checkpoint(_tile_block, *args, use_reentrant=False) if grad
+                     else _tile_block(*args))
+    img = (torch.cat(tiles).reshape(n_ty, n_tx, cfg.tile_h, cfg.tile_w)
+           .transpose(1, 2).reshape(n_ty * cfg.tile_h, n_tx * cfg.tile_w))
+    return img[:H, :W], overflowed
+
+
 def silhouette_tiled(
     tris,
     H: int,
@@ -247,17 +309,21 @@ def silhouette_tiled(
     sharpness: float = 1.0,
     return_overflow: bool = False,
 ):
-    """Soft silhouette via tile binning and K5. Accepts Triangles2D or
-    TrianglesSoA with leading batch axes (all frames rasterize in one kernel
-    call). The counting binner is the default; ``binner="topk"`` bins per
-    frame with _bin_bboxes. ``use_pallas=False`` (the pure-XLA rasterizer of
-    the JAX package) is not ported."""
-    if not cfg.use_pallas:
-        raise NotImplementedError(
-            "silhouette_tiled with use_pallas=False (the pure-XLA tiled "
-            "rasterizer) is not ported to easyhec_torch (ROADMAP.md)"
-        )
+    """Soft silhouette via tile binning. Accepts Triangles2D or TrianglesSoA
+    with leading batch axes. On the kernel route all frames rasterize in one
+    K5 call: the counting binner by default, ``binner="topk"`` binning per
+    frame with _bin_bboxes. ``use_pallas=False`` runs the plain-tensor
+    route frame by frame (_silhouette_tiled_single)."""
     batch = tris.valid.shape[:-1]
+    if not cfg.use_pallas:
+        aos = to_aos(tris) if isinstance(tris, TrianglesSoA) else tris
+        n = math.prod(batch)
+        flat = Triangles2D(*(a.reshape((n,) + a.shape[len(batch):]) for a in aos))
+        out = [_silhouette_tiled_single(Triangles2D(*(a[i] for a in flat)), H, W, cfg,
+                                        sharpness) for i in range(n)]
+        imgs = torch.stack([o[0] for o in out]).reshape(batch + (H, W))
+        ov = torch.stack([o[1] for o in out]).any()
+        return (imgs, ov) if return_overflow else imgs
     soa = tris if isinstance(tris, TrianglesSoA) else soa_from_aos(tris)
     if cfg.binner == "count":
         from .binning import silhouette_counted

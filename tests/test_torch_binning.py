@@ -15,6 +15,7 @@ from easyhec_torch.render import binning as tb
 from easyhec_torch.render.tiled import _topk_compact as t_topk
 from easyhec_tpu.render import binning as jb
 from easyhec_tpu.render.tiled import _topk_compact as j_topk
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 H, W, TH, TW = 64, 96, 16, 32
 

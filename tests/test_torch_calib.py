@@ -30,6 +30,7 @@ from easyhec_tpu.render import RobotRenderer as JR
 from easyhec_tpu.render import TileConfig as JTC
 from easyhec_tpu.robot import build_chain, load_link_meshes, parse_urdf
 from easyhec_tpu.solver.optim import make_optimizer as j_make_optimizer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 H, W = 48, 64
 K = np.array([[60.0, 0, W / 2], [0, 60.0, H / 2], [0, 0, 1]], np.float32)
@@ -124,8 +125,9 @@ def test_optimizer_matches_optax(name, clip):
     for a, b in zip(leaves_j, leaves_t):
         assert np.asarray(a).dtype == b.numpy().dtype
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6)
-    with pytest.raises(NotImplementedError):
-        t_make_optimizer("adam", scheduler="cosine")
+    for make in (t_make_optimizer, j_make_optimizer):  # an unknown schedule name
+        with pytest.raises(ValueError, match="unknown scheduler"):
+            make("adam", scheduler="cosine_restarts")
 
 
 def _run_jax(rig, num_steps, chunk, resume=None, hook=None):

@@ -34,6 +34,7 @@ from easyhec_tpu.render import RobotRenderer as JR
 from easyhec_tpu.render import TileConfig as JTC
 from easyhec_tpu.render import binning as jb
 from easyhec_tpu.robot import build_chain, load_link_meshes, parse_urdf
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 H, W, TH, TW = 45, 70, 16, 32
 N_TX = -(-W // TW)

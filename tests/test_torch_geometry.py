@@ -17,6 +17,7 @@ from easyhec_torch.geometry import so3 as tso3
 from easyhec_tpu.geometry import camera as jcam
 from easyhec_tpu.geometry import se3 as jse3
 from easyhec_tpu.geometry import so3 as jso3
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 def _twists():

@@ -16,6 +16,7 @@ import torch
 
 import easyhec_torch
 from easyhec_torch.robot import make_box
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "optax", "easyhec_tpu", "__graft_entry__")
@@ -50,8 +51,18 @@ def test_every_module_imports_without_jax():
 
 # Modules added with the dense route and the offline trainer, with the
 # unfused route (K5), the global search, the tiled depth pass and the
-# simulator, and with the online loop.
+# simulator, with the online loop, and with the offline tools and the
+# kernel-free render options.
 NEW_MODULES = (
+    "easyhec_torch.cli.tune_init",
+    "easyhec_torch.cli.validate",
+    "easyhec_torch.data.batching",
+    "easyhec_torch.data.transforms",
+    "easyhec_torch.render.raster_jnp",
+    "easyhec_torch.utils.arrays",
+    "easyhec_torch.utils.runfiles",
+    "easyhec_torch.visualizers",
+    "easyhec_torch.visualizers.visualizers",
     "easyhec_torch.io",
     "easyhec_torch.io.interfaces",
     "easyhec_torch.io.native_planner",

@@ -11,6 +11,7 @@ calibrate's parity tolerance (rtol 1e-3, test_torch_calib.py), the final
 pose within 1e-3, the captured masks, the debug scenes' posed robot meshes
 (1e-5), and the same capture, checkpoint and output file lists.
 """
+import logging
 import os
 import subprocess
 import sys
@@ -30,6 +31,7 @@ from easyhec_tpu.geometry import se3 as jse3
 from easyhec_tpu.trainer import run_iterative as j_run_iterative
 
 from test_torch_explorer import jax_draws
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 SIM = str(ROOT / "configs" / "sim_mini.yaml")
@@ -63,6 +65,11 @@ def _files(root: Path):
 
 def test_run_iterative_matches_jax(tmp_path, monkeypatch):
     monkeypatch.setattr(tex, "draw_hypotheses_and_candidates", jax_draws)
+    # Both packages' loggers are process-global: a handler left by an earlier
+    # test in this process would keep JAX's setup_logger from opening this
+    # run's log.txt. Start both without handlers; monkeypatch restores them.
+    for name in ("easyhec_tpu", "easyhec_torch"):
+        monkeypatch.setattr(logging.getLogger(name), "handlers", [])
     urdf = tmp_path / "mini_arm.urdf"
     urdf.write_text(MINI_URDF)
     Tc = default_camera(distance=1.0, azimuth_deg=30, height=0.6, target=(0, 0, 0.3))

@@ -24,6 +24,7 @@ from easyhec_torch.robot import parse_urdf as t_parse_urdf
 from easyhec_tpu.io import planner as jpl
 from easyhec_tpu.models.explorer import build_link_spheres as j_spheres
 from easyhec_tpu.robot import build_chain, load_link_meshes, parse_urdf
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 LINKS = ["base", "upper", "fore"]
 

@@ -26,6 +26,7 @@ from easyhec_tpu.models import pose_init as jpi
 from easyhec_tpu.render import RobotRenderer as JR
 from easyhec_tpu.render import TileConfig as JTC
 from easyhec_tpu.robot import build_chain, load_link_meshes, parse_urdf
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 H, W = 48, 64
 K = np.array([[60.0, 0, W / 2], [0, 60.0, H / 2], [0, 0, 1]], np.float32)

@@ -26,6 +26,7 @@ from easyhec_tpu.render import RobotRenderer as JR
 from easyhec_tpu.render import TileConfig as JTC
 from easyhec_tpu.render import fused as jf
 from easyhec_tpu.robot import make_box, make_cylinder
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 H, W = 40, 56
 TH, TW, N_TX = 16, 32, 2

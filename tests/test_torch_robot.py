@@ -17,6 +17,7 @@ from easyhec_torch import robot as trb
 from easyhec_torch.robot import mesh as tmesh
 from easyhec_tpu import robot as jrb
 from easyhec_tpu.robot import mesh as jmesh
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 LINKS = ["base", "upper", "fore"]
 

@@ -25,6 +25,7 @@ from easyhec_torch.ops import tile_raster as ttr
 from easyhec_tpu.ops import tile_raster as jtr
 from easyhec_tpu.render.projection import TrianglesSoA
 from easyhec_tpu.render.tiled import _edge_fields_soa
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 B, T = 3, 4
 

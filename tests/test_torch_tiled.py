@@ -40,6 +40,7 @@ from easyhec_tpu.render import binning as jb
 from easyhec_tpu.render import raster_core as jrc
 from easyhec_tpu.render import tiled as jt
 from easyhec_tpu.robot import build_chain, load_link_meshes, parse_urdf
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 H, W = 45, 70
 K = np.array([[60.0, 0, 35.0], [0, 60.0, 22.0], [0, 0, 1]], np.float32)

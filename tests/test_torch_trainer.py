@@ -40,6 +40,7 @@ from easyhec_tpu.geometry import se3 as jse3
 from easyhec_tpu.models.pose_init import lookat_init as j_lookat
 from easyhec_tpu.trainer import build_runtime as j_build_runtime
 from easyhec_tpu.trainer import run_offline_calibration as j_run
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 SIM = str(ROOT / "configs" / "sim_mini.yaml")
@@ -99,7 +100,7 @@ def _files(root: Path):
     return sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.is_file())
 
 
-def test_cli_run_matches_jax_offline(sim_data):
+def test_cli_run_matches_jax_offline(sim_data, monkeypatch):
     d, opts = sim_data
     tout, jout = d / "torch_run", d / "jax_run"
     cmd = [sys.executable, "-m", "easyhec_torch.cli.run", "-c", SIM, "--device", "cpu",
@@ -108,7 +109,11 @@ def test_cli_run_matches_jax_offline(sim_data):
     assert r.returncode == 0, r.stderr[-3000:]
     assert "solved Tc_c2b" in r.stdout
 
-    logging.getLogger("easyhec_tpu").handlers.clear()  # log.txt in this run dir
+    # log.txt in this run dir: the process-global loggers start without
+    # handlers (an earlier test's would keep setup_logger from opening it),
+    # and monkeypatch restores them, so none leaks into a later test
+    for name in ("easyhec_tpu", "easyhec_torch"):
+        monkeypatch.setattr(logging.getLogger(name), "handlers", [])
     cwd = os.getcwd()
     os.chdir(ROOT)
     try:
@@ -346,8 +351,16 @@ def test_simulate_then_run_without_jax(tmp_path):
     jrt = j_build_runtime(cfg)
     jb = j_load_data(data, jrt.chain, jrt.link_names)
     assert jb.n_frames == 3 and jb.has_gt and jb.masks.mean() > 0.01
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from easyhec_torch.cli import simulate as t_sim
-
-        t_sim.main(["-c", SIM, "--out", str(tmp_path / "ring"), "--ring", "4",
-                    "--device", "cpu"])
+    # the pose-dataset mode, JAX still blocked: the same layout as JAX's
+    # generate_pose_dataset writes (held to it in test_torch_tools.py)
+    ring = tmp_path / "ring"
+    r = subprocess.run([sys.executable, "-c", _NO_JAX, "easyhec_torch.cli.simulate",
+                        "-c", SIM, "--out", str(ring), "--ring", "4", "--device", "cpu",
+                        *size], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "wrote 4 ring views" in r.stdout
+    assert _files(ring) == sorted(
+        [f"{d}/{i:06d}.{e}" for d, e in (("color", "png"), ("mask", "png"), ("pose", "txt"))
+         for i in range(4)] + ["K.txt", "diameter.txt", "model.ply", "qpos.txt"])
+    poses = np.stack([np.loadtxt(ring / "pose" / f"{i:06d}.txt") for i in range(4)])
+    assert poses.shape == (4, 4, 4) and float((ring / "diameter.txt").read_text()) > 0
