@@ -80,7 +80,26 @@ Phases, in order (any failure exits non-zero):
    global search on frame 0 (K5f and the counted K5b). ``[pnp]``:
    ransac_pnp with 256 hypotheses on projected mesh vertices (0.5 px
    noise, 30 % outliers), card against CPU.
-9. Reference checks on small inputs, compact, dense and unfused, a small
+9. Perception and the remaining tools. ``[segmenter]``:
+   ``cli.train_segmenter.train`` with an in-memory Config at
+   configs/xarm7_example.yaml's widths (1280x720, f = 1.2·1280, 6 ring
+   cameras × 8 frames, 600 steps of batch 4, base 16): the data's seconds
+   and K4f launches, ms/step beside the step's FP32 FLOP bound, peak
+   memory, JAX's floors (final loss < 0.25, val IoU mean > 0.6, min >
+   0.5), and the U-Net's logits on one frame card against CPU; then K4f at
+   1280x720 against its plain version (its kernels row). ``[seg closed
+   loop]``: 5 held-out frames, masks predicted on the card, ``calibrate``
+   (compact route, 1000 steps) on them from a perturbed GT within 2 cm and
+   2 deg, one K2f/K2b pair per step. ``[annotate]``: cli/annotate --auto,
+   then --box/--point, on the held-out frames written as PNGs; the masks
+   read back equal the segmenter's bit for bit. ``[diagnose]``: the
+   diagnose tool on the trainer's batch with frames 2 and 5's qposes
+   swapped (baseline, robust, --repair re-pairs exactly those two).
+   ``[lr_finder]``: find_lr over the compact loss on one bin state, 100
+   Adam steps, one K2f/K2b pair a step. ``[profiling]``: EvalTimer with a
+   CUDA sync and a torch.profiler trace of 5 calibrate steps. ``[watch]``:
+   utils.live.serve answering /api/ls on the trainer's run dir.
+10. Reference checks on small inputs, compact, dense and unfused, a small
    global search and a small explorer scoring pass: the card against the
    plain versions on the CPU.
 
@@ -1672,6 +1691,412 @@ def pnp_phase(renderer, lp, K, xi, n_pts=2000, n_iters=256):
         raise AssertionError("ransac_pnp: card and cpu disagree, or its inliers are outliers")
 
 
+SEG_H, SEG_W, SEG_STEPS, SEG_CAMS, SEG_FRAMES = 720, 1280, 600, 6, 8
+# Card vs CPU logits of the trained U-Net, of max |logit|: cuDNN picks its
+# FP32 algorithms (FFT and Winograd among them) per call, and GroupNorm
+# divides each layer's rounding by its spread; two runs measured 2.9e-4 and
+# 9.2e-4 (NVIDIA H100 80GB HBM3, 700 W).
+SEG_TOL = 3e-3
+
+
+def _unet_flops(model, H, W):
+    """2 × the multiply-adds of the U-Net's convolutions in one forward pass
+    over one H×W image (GroupNorm, ReLU, pooling and resize not counted)."""
+    sizes = [(H, W), (H // 2, W // 2), (H // 4, W // 4), (H // 2, W // 2), (H, W)]
+    total = 2 * model.head.weight.numel() * H * W
+    for (h, w), blk in zip(sizes, model.blocks):
+        total += 2 * (blk.conv0.weight.numel() + blk.conv1.weight.numel()) * h * w
+    return total
+
+
+def segmenter_phase(out_dir):
+    """train_segmenter's Config function (``cli.train_segmenter.train``) at
+    configs/xarm7_example.yaml's widths on the mini arm: 1280x720, f =
+    1.2·1280, 6 ring cameras × 8 frames (radius 1.5, height 0.8), 600 steps
+    of batch 4 at base 16, lr 1e-3. Prints the data generation's seconds and
+    K4f launches, ms/step beside the step's FLOP bound, peak memory and the
+    val IoU, and holds JAX's slow-test floors (final loss < 0.25, val IoU
+    mean > 0.6, min > 0.5). Then the trained U-Net's logits on one frame on
+    the card against a CPU copy. Returns (weights path, the K4f
+    1280x720 kernels row, its launches, one camera's (Tc, K, frames), the
+    runtime)."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.cli import train_segmenter as ts
+    from easyhec_torch.models import segmentation as seg
+    from easyhec_torch.trainer import build_runtime
+
+    cfg = iterative_config(SEG_STEPS, H=SEG_H, W=SEG_W)
+    kernels = _all_kernels()
+    got = {"gen_s": 0.0, "train_s": 0.0, "cams": []}
+    real_gen, real_train = ts.generate_dataset, ts.train_segmenter
+
+    def gen(out, chain, renderer, names, Tc, K, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = real_gen(out, chain, renderer, names, Tc, K, **kw)
+        got["gen_s"] += time.perf_counter() - t0
+        got["cams"].append((Tc, K, data))
+        return data
+
+    def train(*a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = real_train(*a, **kw)
+        torch.cuda.synchronize()
+        got["train_s"] = time.perf_counter() - t0
+        got["peak"] = torch.cuda.max_memory_allocated()
+        return out
+
+    weights = Path(out_dir) / "seg.pkl"
+    ts.generate_dataset, ts.train_segmenter = gen, train
+    _reset(kernels)
+    try:
+        report = ts.train(cfg, weights, n_cams=SEG_CAMS, frames_per_cam=SEG_FRAMES,
+                          radius=1.5, height=0.8, steps=SEG_STEPS, seed=0, device=DEVICE)
+    finally:
+        ts.generate_dataset, ts.train_segmenter = real_gen, real_train
+    launches = _launched(kernels)
+    model = seg.UNet(16)
+    fwd = _unet_flops(model, SEG_H, SEG_W)
+    first = 2 * model.blocks[0].conv0.weight.numel() * SEG_H * SEG_W
+    step_flops = 4 * (3 * fwd - first)  # fwd + dgrad + wgrad; no dgrad of the input
+    ms = got["train_s"] / SEG_STEPS * 1e3
+    bound = step_flops / FP32_OPS_PER_S * 1e3
+    print(f"[segmenter] data: {SEG_CAMS} cameras x {SEG_FRAMES} frames of {SEG_W}x{SEG_H} in "
+          f"{got['gen_s']:.3f} s "
+          f"(render, depth pass, PNG writes), launches {json.dumps(launches)} ({GPU})")
+    print(f"[segmenter] train: {SEG_STEPS} steps of batch 4 in {got['train_s']:.3f} s: "
+          f"{ms:.3f} ms/step; conv FLOPs {fwd / 1e9:.3f} G per image forward, "
+          f"{step_flops / 1e12:.4f} T per step (fwd + bwd) -> FP32 bound {bound:.3f} ms "
+          f"({ms / bound:.2f}x); peak memory {got['peak'] / 2**30:.3f} GiB ({GPU})")
+    print(f"[segmenter] report {json.dumps(report)}")
+    if launches != {"sil_fwd": SEG_CAMS}:
+        raise AssertionError(f"segmenter data: launches {launches}, not one K4f per camera")
+    if not (report["final_loss"] < 0.25 and report["val_iou_mean"] > 0.6
+            and report["val_iou_min"] > 0.5):
+        raise AssertionError("segmenter below JAX's floors (loss 0.25, IoU 0.6 / 0.5)")
+
+    # the trained U-Net's forward on one frame, card against a CPU copy
+    state = seg._as_state(seg.load_params(weights))
+    frame = got["cams"][0][2]["rgb"][0]
+    logits = {}
+    for d in (DEVICE, "cpu"):
+        m = seg.UNet(16)
+        m.load_state_dict(state)
+        m.to(d).eval()
+        with torch.no_grad():
+            x = torch.as_tensor(frame, dtype=torch.float32, device=d)[None] / 255.0
+            logits[d] = m(x)[0].cpu().numpy()
+    diff = float(np.abs(logits[DEVICE] - logits["cpu"]).max())
+    top = float(np.abs(logits["cpu"]).max())
+    flips = int(((logits[DEVICE] > 0) != (logits["cpu"] > 0)).sum())
+    print(f"[segmenter] one {SEG_W}x{SEG_H} frame, card vs cpu logits: max abs diff "
+          f"{diff:.3e} of max |logit| {top:.3f} (tol {SEG_TOL} of it: cuDNN's algorithms), "
+          f"{flips} mask pixels differ")
+    if not diff <= SEG_TOL * top:
+        raise AssertionError("U-Net logits on the card disagree with the CPU's")
+    _segmenter_profile(got["cams"][0][2])
+    rt = build_runtime(cfg, DEVICE)
+    row = k4f_large_row(rt, *got["cams"][0])
+    return weights, row, launches["sil_fwd"], got["cams"][0], rt
+
+
+def _segmenter_profile(data, steps=5):
+    """Where a training step's device time goes: ``steps`` steps (and their
+    set-up) on one camera's frames under torch.profiler, the kernels ranked
+    by device time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from easyhec_torch.models.segmentation import train_segmenter
+
+    masks = (data["masks"] > 0.5).astype(np.float32)
+    train_segmenter(data["rgb"], masks, steps=1, device=DEVICE)  # warm cuDNN
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        train_segmenter(data["rgb"], masks, steps=steps, device=DEVICE)
+        torch.cuda.synchronize()
+    kern = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0 and not e.key.startswith(("aten::", "cuda")):
+            kern[e.key] = kern.get(e.key, 0.0) + e.self_device_time_total
+    total = sum(kern.values())
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[segmenter] profile of {steps} steps: device {total / 1e3 / steps:.3f} ms/step; "
+          + "; ".join(f"{k[:60]} {v / total:.3f}" for k, v in top) + f" ({GPU})")
+
+
+def k4f_large_row(rt, Tc, K, data):
+    """K4f at 1280x720: one ring camera's 8 frames on the dense state that
+    RobotRenderer.silhouette builds there, against its plain version; its
+    CUDA-event time, plain time and bytes/ops bound (the kernels row)."""
+    import torch
+
+    from easyhec_torch.ops import pose_raster as pr
+    from easyhec_torch.render.fused import build_fused_state, cam_rows
+
+    r = rt.renderer
+    Tc_t = torch.as_tensor(Tc, dtype=torch.float32, device=DEVICE)
+    K_t = torch.as_tensor(K, dtype=torch.float32, device=DEVICE)
+    qs = torch.as_tensor(data["qpos"], dtype=torch.float32, device=DEVICE)
+    lp = rt.chain.fk(qs)[:, [rt.chain.link_index(n) for n in rt.link_names]]
+    st = build_fused_state(r, Tc_t, lp, K_t)
+    rec = pr._pad_records(st.rec, st.counts)
+    counts = pr.i32(st.counts)
+    Bf = counts.shape[0]
+    cam = cam_rows(Tc_t, K_t, Bf).contiguous()
+    c = r.tile
+    meta = pr.Meta(c.tile_h, c.tile_w, -(-SEG_W // c.tile_w), SEG_H, SEG_W, 1.0, 0.001, 10.0,
+                   c.bwd_band_only)
+    sargs = (cam, rec, counts, meta)
+    sk, _ = pr.sil_fwd_cuda(*sargs)
+    spl, _ = pr.sil_fwd_plain(*sargs)
+    err = (sk - spl).abs().max().item()
+    print(f"[kernels 1280x720] K4f image, {Bf} frames: max abs err {err:.3e} (tol 1e-3, as "
+          f"min(acc,2)); max tile count {int(st.counts.max())} (cap {c.capacity})")
+    if not err <= 1e-3:
+        raise AssertionError("K4f at 1280x720 disagrees with its plain version")
+    w = _needed_work(cam, _dense_frames(rec, counts), {}, meta)
+    _print_work("dense 1280x720", w)
+    T, P = counts.shape[1], c.tile_h * c.tile_w
+    nbytes = w["fwd"][1] * SLOT_BYTES + Bf * T * 4 + Bf * 64 + 2 * Bf * T * P * 4
+    return _row("sil_fwd 1280x720", "K4f 1280x720", "easyhec_torch/ops/csrc/pose_raster.cu",
+                "easyhec_tpu/ops/pose_raster.py:167", err, lambda: pr.sil_fwd_cuda(*sargs),
+                lambda: pr.sil_fwd_plain(*sargs), nbytes,
+                _ops(w["fwd"], OPS_FWD_PAIR, OPS_FWD_LANE), "pose_fwd_kernelILb0E",
+                spill_free=True)
+
+
+def seg_closed_loop_phase(weights, cam, rt, steps):
+    """5 held-out frames from ring camera 0's view (seed 7): masks predicted
+    by SegmenterMaskSource on the card, their IoU against the rendered GT,
+    then ``calibrate`` on the compact route (xarm7_example's tiles and cap)
+    from the GT perturbed as JAX's closed-loop test does, against JAX's
+    limits (2 cm, 2 deg), with one K2f and one K2b launch per step. Returns
+    the held-out frames [5, H, W, 3]."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.data.synthetic import generate_dataset
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.models.calib import calibrate
+    from easyhec_torch.models.segmentation import SegmenterMaskSource, load_params
+
+    Tc, K, _ = cam
+    with tempfile.TemporaryDirectory() as tmp:
+        held = generate_dataset(tmp, rt.chain, rt.renderer, rt.link_names, Tc, K,
+                                n_frames=5, seed=7)
+    src = SegmenterMaskSource(load_params(weights), device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = np.stack([src.predict(f) for f in held["rgb"]])
+    pred_s = (time.perf_counter() - t0) / len(pred)
+    gt_m = held["masks"] > 0.5
+    ious = [float((p.astype(bool) & m).sum() / max((p.astype(bool) | m).sum(), 1))
+            for p, m in zip(pred, gt_m)]
+    qs = torch.as_tensor(held["qpos"], dtype=torch.float32, device=DEVICE)
+    lp = rt.chain.fk(qs)[:, [rt.chain.link_index(n) for n in rt.link_names]]
+    init = se3.log(torch.from_numpy(np.asarray(Tc, np.float32))).numpy() + np.array(
+        [0.02, -0.02, 0.02, 0.02, -0.02, 0.03], np.float32)
+    kernels = _all_kernels()
+    torch.cuda.synchronize()
+    _reset(kernels)
+    t0 = time.perf_counter()
+    res = calibrate(init, rt.renderer, lp, K, pred, num_steps=steps, max_lr=3e-3,
+                    rebin_every=0, Tc_c2b_gt=Tc)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _launched(kernels)
+    m = res.metrics
+    print(f"[seg closed loop] predict {pred_s * 1e3:.3f} ms/frame; per-frame IoU vs rendered GT "
+          + ", ".join(f"{v:.4f}" for v in ious) + f" ({GPU})")
+    print(f"[seg closed loop] calibrate on the predicted masks, {steps} steps in {dt:.3f} s "
+          f"({dt / steps * 1e3:.3f} ms/step), {res.rebins} rebins; loss {res.losses[0]:.3f} -> "
+          f"{res.losses[-1]:.3f}; error {m['err_trans_geodesic_cm']:.4f} cm, "
+          f"{m['err_rot_geodesic_deg']:.4f} deg (limits 2, 2); launches {json.dumps(launches)}")
+    if min(ious) <= 0.5:
+        raise AssertionError("a held-out predicted mask is at IoU <= 0.5")
+    if not (m["err_trans_geodesic_cm"] < 2.0 and m["err_rot_geodesic_deg"] < 2.0):
+        raise AssertionError("closed loop on predicted masks misses 2 cm / 2 deg")
+    if res.overflow or launches != {"loss_fwd_compact": steps, "loss_bwd_compact": steps}:
+        raise AssertionError(f"closed loop: overflow, or launches {launches} for {steps} steps")
+    return held["rgb"]
+
+
+def annotate_phase(frames, weights):
+    """cli/annotate on the held-out frames written by write_png: --auto with
+    the saved weights, then --box/--point with the segmenter as the prompt
+    backend; the masks, read back by read_png, must equal
+    SegmenterMaskSource.predict (and PromptMasker's) bit for bit."""
+    import numpy as np
+
+    from easyhec_torch.cli import annotate
+    from easyhec_torch.io.annotate import PromptMasker, Prompts
+    from easyhec_torch.models.segmentation import SegmenterMaskSource, load_params
+    from easyhec_torch.utils.imaging import read_png, write_png
+
+    src = SegmenterMaskSource(load_params(weights), device=DEVICE)
+    want = [src.predict(f) > 0.5 for f in frames]
+    ys, xs = np.nonzero(want[0])
+    box = [int(xs.min()) - 20, int(ys.min()) - 20, int(xs.max()) + 20, int(ys.max()) + 20]
+    point = [int(xs[len(xs) // 2]), int(ys[len(ys) // 2]), 1]
+    prompts = Prompts()
+    prompts.add_box(*box)
+    prompts.add_point(*point)
+    want_p = [PromptMasker(backend=src).predict(f, prompts) > 0.5 for f in frames]
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "color").mkdir()
+        for i, f in enumerate(frames):
+            write_png(Path(tmp) / "color" / f"{i:06d}.png", f)
+        secs = {}
+        for mode, extra, ref in (("auto", [], want),
+                                 ("box/point", ["--box", *map(str, box), "--point",
+                                                *map(str, point), "--overwrite"], want_p)):
+            t0 = time.perf_counter()
+            rc = annotate.main(["--data-dir", tmp, "--auto", "--weights", str(weights),
+                                "--device", DEVICE, *extra])
+            secs[mode] = (time.perf_counter() - t0) / len(frames)
+            got = [read_png(Path(tmp) / "mask" / f"{i:06d}.png") > 0 for i in range(len(frames))]
+            same = all(np.array_equal(g, w) for g, w in zip(got, ref))
+            print(f"[annotate] --{mode}: rc {rc}, {secs[mode]:.4f} s/frame for {len(frames)} "
+                  f"frames of {SEG_W}x{SEG_H}; masks bit-equal to the segmenter's: {same} "
+                  f"({sum(int(g.sum()) for g in got)} px set) ({GPU})")
+            if rc != 0 or not same:
+                raise AssertionError(f"annotate --{mode}: masks differ from the predictions")
+
+
+def diagnose_phase(cfg, batch, steps=500):
+    """cli/diagnose on the trainer phase's batch (dense route: K1f/K1b fits,
+    K4f renders) with frames 2 and 5's qposes swapped: baseline, robust and
+    --repair, which must re-pair exactly those two and beat the baseline's
+    mIoU; the three artifacts and the launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from easyhec_torch.cli.diagnose import diagnose
+
+    perm = np.arange(batch.n_frames)
+    perm[[2, 5]] = [5, 2]
+    swapped = dataclasses.replace(batch, qpos=batch.qpos[perm], link_poses=batch.link_poses[perm])
+    out = Path(cfg.output_dir) / "diagnose"
+    kernels = _all_kernels()
+    torch.cuda.synchronize()
+    _reset(kernels)
+    t0 = time.perf_counter()
+    report = diagnose(copy.deepcopy(cfg), out, batch=swapped, steps=steps, repair=True,
+                      device=DEVICE)
+    dt = time.perf_counter() - t0
+    launches = _launched(kernels)
+    rep = report["repair"]
+    tail = "repair_exclude" in report
+    fits, renders = 3 + tail, 3 + 2 * tail
+    arts = [f for f in ("report.json", "report.md", "overlays.png") if (out / f).is_file()]
+    print(f"[diagnose] {batch.n_frames} frames of {W}x{H}, frames 2 and 5 swapped, {steps} "
+          f"steps a fit: {dt:.3f} s; baseline mIoU {report['baseline']['mean_iou']:.4f}, "
+          f"robust {report['robust']['mean_iou']:.4f}, repair {rep['mean_iou']:.4f} with "
+          f"assignment {rep['assignment_mask_to_qpos']}; exclude tail {tail}; artifacts "
+          f"{arts}; launches {json.dumps(launches)} ({GPU})")
+    if rep["assignment_mask_to_qpos"] != perm.tolist():
+        raise AssertionError("diagnose --repair did not re-pair exactly frames 2 and 5")
+    if not rep["mean_iou"] > report["baseline"]["mean_iou"] or len(arts) != 3:
+        raise AssertionError("diagnose: the repair's mIoU is not above the baseline's, "
+                             "or an artifact is missing")
+    want = {"loss_fwd": fits * steps, "loss_bwd": fits * steps, "sil_fwd": renders}
+    if launches != want:
+        raise AssertionError(f"diagnose launches {launches}, expected {want}")
+
+
+def lr_finder_phase(renderer, lp, K, xi, target, steps=100):
+    """find_lr (Adam, 100 steps from 1e-6 to 1) over the compact calibration
+    loss at the bench scene on one bin state built at the start pose: one
+    K2f and one K2b launch per step and a finite suggestion."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.models.calib import mask_loss, tile_masks
+    from easyhec_torch.solver.lr_finder import find_lr
+
+    d0 = (xi + 0.01).detach()
+    st = renderer.bin_state(se3.exp(d0), lp, K)
+    ref = tile_masks(target, renderer)
+    kernels = _all_kernels()
+    torch.cuda.synchronize()
+    _reset(kernels)
+    t0 = time.perf_counter()
+    res = find_lr(lambda d: mask_loss(d, renderer, lp, K, target, bin_state=st, ref_tiles=ref),
+                  d0, num_steps=steps)
+    dt = time.perf_counter() - t0
+    launches = _launched(kernels)
+    print(f"[lr_finder] {steps} Adam steps in {dt:.3f} s ({dt / steps * 1e3:.3f} ms/step): "
+          f"suggestion {res.suggestion:.4e}, diverged at {res.diverged_at}, loss "
+          f"{res.losses[0]:.3f} -> min {np.nanmin(res.losses):.3f}; launches "
+          f"{json.dumps(launches)} ({GPU})")
+    if not np.isfinite(res.suggestion) or launches != {"loss_fwd_compact": steps,
+                                                      "loss_bwd_compact": steps}:
+        raise AssertionError(f"lr_finder: suggestion {res.suggestion}, launches {launches}")
+
+
+def profiling_phase(renderer, lp, K, xi, target, steps=5):
+    """EvalTimer probes with a CUDA sync around a mask loss, and a
+    torch.profiler trace around 5 compact calibrate steps (the Chrome trace
+    must exist and hold the K2 kernels)."""
+    import torch
+
+    from easyhec_torch.models.calib import calibrate, mask_loss
+    from easyhec_torch.utils.profiling import TRACE_NAME, EvalTimer, trace
+
+    d0 = (xi + 0.01).detach()
+    timer = EvalTimer()
+    timer("start")
+    loss = mask_loss(d0, renderer, lp, K, target)
+    timer("mask_loss", sync=loss)
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            calibrate(d0.cpu().numpy(), renderer, lp, K, target, num_steps=steps, max_lr=3e-3,
+                      rebin_every=0)
+        timer("calibrate (traced)", sync=loss)
+        text = (Path(tmp) / TRACE_NAME).read_text()
+    print(f"[profiling] EvalTimer {json.dumps(timer.summary())} s; trace of {steps} calibrate "
+          f"steps: {len(text)} bytes, K2f named in it {text.count('loss_fwd_compact_kernel')} "
+          f"times ({GPU})")
+    if "loss_fwd_compact_kernel" not in text or "mask_loss" not in timer.summary():
+        raise AssertionError("profiling: the trace holds no K2f, or a probe is missing")
+
+
+def watch_phase(run_dir):
+    """utils.live.serve (cli/watch's server) in the background on the
+    trainer's run dir, on a free local port: /api/ls lists images/ and
+    live.html is served."""
+    import socket
+    import urllib.request
+
+    from easyhec_torch.utils.live import DASHBOARD_NAME, serve, write_dashboard
+
+    write_dashboard(run_dir)
+    with socket.socket() as sck:
+        sck.bind(("127.0.0.1", 0))
+        port = sck.getsockname()[1]
+    srv = serve(run_dir, port=port, background=True)
+    try:
+        base = f"http://127.0.0.1:{port}"
+        ls = json.loads(urllib.request.urlopen(f"{base}/api/ls", timeout=10).read())
+        page = urllib.request.urlopen(f"{base}/{DASHBOARD_NAME}", timeout=10).read()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    want = sorted(p.name for p in (Path(run_dir) / "images").glob("*.png"))
+    print(f"[watch] /api/ls on the trainer run dir: {len(ls)} images; {DASHBOARD_NAME} "
+          f"{len(page)} bytes")
+    if ls != want or b"easyhec_torch live" not in page:
+        raise AssertionError("watch: /api/ls or the dashboard is wrong")
+
+
 def reference_search():
     """A small global search on the card vs the plain CPU path (96×128, 3
     frames, 24×32 scoring renders, 128 candidates, top 4, 20 Adam steps).
@@ -2394,6 +2819,15 @@ def main() -> int:
     validate_phase(trainer_cfg, trainer_batch)
     tune_init_phase(trainer_cfg, trainer_batch, xi)
     pnp_phase(renderer, lp, K, xi)
+    weights, k4f_row, k4f_launches, cam0, seg_rt = segmenter_phase(work)
+    kernels.append(k4f_row)
+    launches["sil_fwd 1280x720"] = k4f_launches
+    held = seg_closed_loop_phase(weights, cam0, seg_rt, args.steps)
+    annotate_phase(held, weights)
+    diagnose_phase(trainer_cfg, trainer_batch)
+    lr_finder_phase(renderer, lp, K, xi, target)
+    profiling_phase(renderer, lp, K, xi, target)
+    watch_phase(trainer_cfg.output_dir)
     shutil.rmtree(work)
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -1,5 +1,5 @@
-"""Carry calibration state and renderer arrays between easyhec_tpu and
-easyhec_torch.
+"""Carry calibration state, renderer arrays and segmenter weights between
+easyhec_tpu and easyhec_torch.
 
 Both packages' ``calibrate(step_hook=...)`` emit, after every chunk of
 steps, a resumable dict of host arrays: ``dof``, ``step``, ``losses``,
@@ -9,12 +9,20 @@ keeps optax's leaves (solver/optim.py), so converting is a matter of
 checking the leaves and normalizing dtypes and shapes — after which a run
 interrupted in either package resumes in the other.
 
+The U-Net segmenter's weights cross as the flax parameter tree both
+packages' ``save_params`` pickle (plain dicts of numpy arrays):
+``unet_state_from_flax`` and ``unet_state_to_flax`` map it to and from the
+port's ``UNet.state_dict()`` (conv kernels HWIO <-> OIHW).
+
 This module imports neither JAX nor easyhec_tpu; the JAX side is handed in
 as plain dicts and as a renderer object whose arrays numpy can read.
 """
 from __future__ import annotations
 
+import re
+
 import numpy as np
+import torch
 
 from .robot.mesh import TriMesh
 
@@ -23,6 +31,8 @@ __all__ = [
     "state_to_jax",
     "renderer_static_arrays",
     "check_renderer_static",
+    "unet_state_from_flax",
+    "unet_state_to_flax",
 ]
 
 # optax leaf layouts: (dtype, shape-like) per opt_i leaf; "p" = dof-shaped
@@ -100,3 +110,57 @@ def check_renderer_static(torch_renderer, jax_renderer) -> None:
             raise ValueError(f"renderer static array {name} differs between packages")
     if (torch_renderer.H, torch_renderer.W) != (jax_renderer.H, jax_renderer.W):
         raise ValueError("renderer image sizes differ between packages")
+
+
+# flax module path <-> UNet.state_dict() prefix: _ConvBlock_i -> blocks.i,
+# its Conv_j / GroupNorm_j -> convj / gnj; the top-level 1x1 Conv_0 -> head.
+_FLAX_LEAF = {("conv", "kernel"): "weight", ("conv", "bias"): "bias",
+              ("gn", "scale"): "weight", ("gn", "bias"): "bias"}
+
+
+def unet_state_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """A flax U-Net parameter tree ({'params': {...}}, numpy or jax leaves)
+    -> the port's UNet state dict (f32 tensors on the CPU)."""
+    out = {}
+    for mod, leaves in tree["params"].items():
+        if mod == "Conv_0":
+            items = [("head", "conv", leaves)]
+        else:
+            i = int(re.fullmatch(r"_ConvBlock_(\d+)", mod).group(1))
+            items = []
+            for sub, sl in leaves.items():
+                kind, j = re.fullmatch(r"(Conv|GroupNorm)_(\d+)", sub).groups()
+                kind = "conv" if kind == "Conv" else "gn"
+                items.append((f"blocks.{i}.{kind}{j}", kind, sl))
+        for prefix, kind, sl in items:
+            for name, a in sl.items():
+                a = np.array(a, np.float32)
+                if name == "kernel":
+                    a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+                out[f"{prefix}.{_FLAX_LEAF[kind, name]}"] = torch.from_numpy(
+                    np.ascontiguousarray(a))
+    return out
+
+
+def unet_state_to_flax(state: dict) -> dict:
+    """The port's UNet state dict -> the flax parameter tree of numpy arrays
+    that easyhec_tpu's load_params and SegmenterMaskSource read."""
+    params: dict = {}
+    for key, t in state.items():
+        a = t.detach().cpu().numpy().astype(np.float32)
+        parts = key.split(".")
+        if parts[0] == "head":
+            mod, kind, leaf = params.setdefault("Conv_0", {}), "conv", parts[1]
+        else:
+            block = params.setdefault(f"_ConvBlock_{parts[1]}", {})
+            kind, j = re.fullmatch(r"(conv|gn)(\d+)", parts[2]).groups()
+            mod = block.setdefault(f"{'Conv' if kind == 'conv' else 'GroupNorm'}_{j}", {})
+            leaf = parts[3]
+        if kind == "conv":
+            name = "kernel" if leaf == "weight" else "bias"
+            if name == "kernel":
+                a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        else:
+            name = "scale" if leaf == "weight" else "bias"
+        mod[name] = np.ascontiguousarray(a)
+    return {"params": params}

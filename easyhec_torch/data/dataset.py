@@ -12,9 +12,9 @@ port's ``KinematicChain.fk_np``). Directory layout:
                                 "no GT", reference convention)
 
 The whole capture set loads at once: calibration datasets are 10-20 frames
-and the problem is one full-batch optimization. Frames are written with
-the standard-library PNG writer (utils.imaging.write_png); OpenCV (``cv2``)
-is imported only where an image file is read.
+and the problem is one full-batch optimization. Frames are written and
+read with the standard-library PNG codec (utils.imaging.write_png and
+read_png); OpenCV (``cv2``) is imported only to read another format.
 """
 from __future__ import annotations
 
@@ -57,6 +57,10 @@ class CalibBatch:
 
 
 def _imread(path: Path) -> np.ndarray:
+    if path.suffix.lower() == ".png":
+        from ..utils.imaging import read_png
+
+        return read_png(path)
     import cv2
 
     img = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)

@@ -1,18 +1,25 @@
 """Live run monitoring: a zero-dependency dashboard over the metrics stream.
 
-Copy of ``write_dashboard`` from easyhec_tpu/utils/live.py. The trainer
-streams ``metrics.jsonl`` and ``images/*.png`` into the run dir
-(utils/logging.MetricsWriter); ``write_dashboard(run_dir)`` drops a
-self-contained ``live.html`` beside them (inline JS/canvas, no external
-assets) that polls ``metrics.jsonl`` every 2 s, plots every scalar series,
-and shows the newest image panel per tag (it lists ``images/`` through an
-``/api/ls`` endpoint, which easyhec_tpu's ``cli.watch`` server provides).
+Copy of easyhec_tpu/utils/live.py. The trainer streams ``metrics.jsonl``
+and ``images/*.png`` into the run dir (utils/logging.MetricsWriter):
+
+- ``write_dashboard(run_dir)`` drops a self-contained ``live.html`` beside
+  them (inline JS/canvas, no external assets) that polls ``metrics.jsonl``
+  every 2 s, plots every scalar series, and shows the newest image panel
+  per tag.
+- ``serve(run_dir, port)`` runs a threaded standard-library HTTP server
+  rooted at the run dir on 127.0.0.1 (browsers block file:// fetches), with
+  an ``/api/ls`` endpoint listing ``images/``.
+- CLI: ``python -m easyhec_torch.cli.watch <run_dir>`` does both and blocks.
 """
 from __future__ import annotations
 
+import json
+import threading
+from http.server import SimpleHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 
-__all__ = ["write_dashboard", "DASHBOARD_NAME"]
+__all__ = ["write_dashboard", "serve", "DASHBOARD_NAME"]
 
 DASHBOARD_NAME = "live.html"
 
@@ -112,3 +119,45 @@ def write_dashboard(run_dir: str | Path) -> Path:
     path = run_dir / DASHBOARD_NAME
     path.write_text(_HTML)
     return path
+
+
+class _Handler(SimpleHTTPRequestHandler):
+    def do_GET(self):  # noqa: N802 (stdlib API)
+        if self.path.startswith("/api/ls"):
+            img_dir = Path(self.directory) / "images"
+            files = sorted(p.name for p in img_dir.glob("*.png")) if img_dir.is_dir() else []
+            body = json.dumps(files).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+            return
+        super().do_GET()
+
+    def log_message(self, *args):  # quiet
+        pass
+
+
+def serve(
+    run_dir: str | Path, port: int = 8008, background: bool = False
+) -> ThreadingHTTPServer:
+    """Serve the run dir (with /api/ls) on 127.0.0.1:port. background=True
+    runs in a daemon thread and returns the server (call .shutdown() and
+    .server_close())."""
+    run_dir = str(Path(run_dir).resolve())
+
+    def handler(*args, **kw):
+        return _Handler(*args, directory=run_dir, **kw)
+
+    srv = ThreadingHTTPServer(("127.0.0.1", port), handler)
+    if background:
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        return srv
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:  # pragma: no cover - interactive
+        pass
+    finally:
+        srv.server_close()
+    return srv

@@ -718,3 +718,48 @@ def test_explorer_score_cuda_matches_cpu_and_counts_launches(dev, shared):
     assert np.array_equal(fk, fp) and not ok and not op
     assert np.abs(vp).max() > 1.0
     np.testing.assert_allclose(vk, vp, rtol=0, atol=1e-4 * np.abs(vp).max())
+
+
+def test_unet_forward_and_training_step_cuda_matches_cpu(dev):
+    """The segmenter's U-Net (cuDNN convolutions, TF32 off as every entry
+    point sets it) on the card against the CPU: the forward's logits at
+    3e-3 of their largest magnitude (cuDNN picks FFT and Winograd FP32
+    algorithms, and GroupNorm divides each layer's rounding by its spread;
+    chip_smoke.py holds the trained U-Net at 1280x720 to the same); one
+    training step's loss at rtol 1e-5 and its logits within 5 % of how far
+    the step moved them (Adam's first step is ±lr whatever a gradient's
+    size, so weights whose gradient is near roundoff may step either way;
+    tests/test_torch_segmentation.py)."""
+    from easyhec_torch import resolve_device
+    from easyhec_torch.models import segmentation as seg
+
+    resolve_device(dev)
+    rng = np.random.default_rng(0)
+    rgb = rng.integers(0, 60, (4, 72, 96, 3)).astype(np.uint8)
+    masks = np.zeros((4, 72, 96), np.float32)
+    for i in range(4):
+        rgb[i, 10 + 5 * i:50, 20:70] = 180
+        masks[i, 10 + 5 * i:50, 20:70] = 1.0
+    m0 = seg.UNet(16)
+    seg._flax_init(m0, torch.Generator().manual_seed(0))
+    state = {k: v.clone() for k, v in m0.state_dict().items()}
+
+    def logits(st, d):
+        m = seg.UNet(16)
+        m.load_state_dict(st)
+        m.to(d).eval()
+        with torch.no_grad():
+            x = torch.as_tensor(rgb, dtype=torch.float32, device=d) / 255.0
+            return m(x).cpu().numpy()
+
+    l_cpu, l_dev = logits(state, "cpu"), logits(state, dev)
+    np.testing.assert_allclose(l_dev, l_cpu, rtol=0, atol=3e-3 * np.abs(l_cpu).max())
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        st, loss = seg.train_segmenter(rgb, masks, steps=1, base=16, init_params=state,
+                                       device=d)
+        out[d.type] = (logits({k: v.cpu() for k, v in st.items()}, "cpu"), loss)
+    (a, la), (b, lb) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(la, lb, rtol=1e-5)
+    moved = np.abs(b - l_cpu).max()
+    assert moved > 1e-3 and np.abs(a - b).max() <= 0.05 * moved

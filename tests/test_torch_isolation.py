@@ -1,8 +1,9 @@
 """easyhec_torch stands alone: no module of it (nor chip_smoke.py) imports
 jax, optax, easyhec_tpu or __graft_entry__, and its entry points refuse to
 fall back to the CPU when the caller did not ask for it. The GPU machine has
-no PyYAML, OpenCV or matplotlib either: every module imports without them,
-and they are needed only to read or write files and plots.
+no PyYAML, OpenCV, PIL or matplotlib either: every module imports without
+them, and they are needed only to read config files, OpenCV's GrabCut and
+window, and formats other than PNG.
 """
 import json
 import pkgutil
@@ -51,9 +52,18 @@ def test_every_module_imports_without_jax():
 
 # Modules added with the dense route and the offline trainer, with the
 # unfused route (K5), the global search, the tiled depth pass and the
-# simulator, with the online loop, and with the offline tools and the
-# kernel-free render options.
+# simulator, with the online loop, with the offline tools and the
+# kernel-free render options, and with perception and the remaining tools.
 NEW_MODULES = (
+    "easyhec_torch.cli.annotate",
+    "easyhec_torch.cli.diagnose",
+    "easyhec_torch.cli.train_segmenter",
+    "easyhec_torch.cli.watch",
+    "easyhec_torch.convert",
+    "easyhec_torch.io.annotate",
+    "easyhec_torch.models.segmentation",
+    "easyhec_torch.solver.lr_finder",
+    "easyhec_torch.utils.profiling",
     "easyhec_torch.cli.tune_init",
     "easyhec_torch.cli.validate",
     "easyhec_torch.data.batching",
@@ -91,7 +101,7 @@ NEW_MODULES = (
 _HOST_PROBE = f"""
 import importlib, json, pkgutil, sys, tempfile
 from pathlib import Path
-for k in {BLOCKED + ("yaml", "cv2", "matplotlib")!r}:
+for k in {BLOCKED + ("yaml", "cv2", "matplotlib", "PIL")!r}:
     sys.modules[k] = None  # any import of it now raises ImportError
 sys.path.insert(0, {str(ROOT)!r})
 import easyhec_torch
@@ -103,6 +113,11 @@ cfg = Config()
 out = Path(tempfile.mkdtemp()) / "config.yaml"
 save_config(cfg, out)
 assert json.loads(out.read_text())["render"]["compact_chunks"] == 0
+import numpy as np
+from easyhec_torch.utils.imaging import read_png, write_png
+img = (np.arange(48 * 64 * 3) % 251).astype(np.uint8).reshape(48, 64, 3)
+write_png(out.parent / "x.png", img)
+assert (read_png(out.parent / "x.png") == img).all()
 print(json.dumps(names))
 """
 
