@@ -99,7 +99,23 @@ Phases, in order (any failure exits non-zero):
    Adam steps, one K2f/K2b pair a step. ``[profiling]``: EvalTimer with a
    CUDA sync and a torch.profiler trace of 5 calibrate steps. ``[watch]``:
    utils.live.serve answering /api/ls on the trainer's run dir.
-10. Reference checks on small inputs, compact, dense and unfused, a small
+10. Multi-device (easyhec_torch.parallel). ``[parallel nccl]``: an NCCL
+   process group of one rank and the (1, 1) DeviceMesh; sharded_calibrate
+   against calibrate on the bench scene's compact route (1000 steps each,
+   JAX's early-trace tolerance, one K2f/K2b pair per step).
+   ``[parallel 2x2]`` at config (5)'s widths (scripts/config5_chip.py: 4
+   ring views x 20 frames of 1920x1080, f = 1400, the view offsets folded
+   into the link poses) on the mini arm: the bin audit (printed) sets the
+   caps; ``[parallel band kernels]`` holds K2f, K2b and K3 on the second
+   540-row band (cy shifted by 540) against their plain versions (kernels-
+   line rows); calibrate of the 80 frame-views on this process, then 4
+   gloo ranks on the one card, each its own process (``--parallel-worker``),
+   on a (2 data x 2 tile) mesh, 1000 steps of sharded_calibrate: ranks
+   bit-identical, each rank's launches, ms/step against the one rank's,
+   peak memory, rebins, the gloo all-reduce's share of a step.
+   ``[parallel comm]``: all_gather_arrays, all_gather_objects, reduce_dict
+   and sync across the 4 ranks.
+11. Reference checks on small inputs, compact, dense and unfused, a small
    global search and a small explorer scoring pass: the card against the
    plain versions on the CPU.
 
@@ -564,10 +580,10 @@ def kernel_phase(renderer, lp, K, xi, target):
     ]
 
 
-def check_tile_acc(tag, cam, st, th, tw):
+def check_tile_acc(tag, cam, st, th, tw, H=H, W=W):
     """compact_tile_acc (K3: the compact forward kernel with a zero
     reference, which renders the target masks) against the plain forward
-    on the compact bin state st of th x tw tiles."""
+    on the compact bin state st of th x tw tiles of an H x W image."""
     import torch
 
     from easyhec_torch.ops import pose_raster_compact as prc
@@ -2702,13 +2718,506 @@ def _divergence(a, b, scenes) -> float:
     return float(gap.max())
 
 
+# ---- multi-rank calibration (easyhec_torch.parallel) -------------------------
+
+C5_H, C5_W, C5_F = 1080, 1920, 1400.0  # config (5): scripts/config5_chip.py:48-93
+C5_VIEWS, C5_FRAMES = 4, 20  # ring views x frames: 80 frame-views
+C5_DATA, C5_TILE = 2, 2  # the (data x tile) mesh: 40 frame-views and 540 rows a rank
+C5_TH, C5_TW, C5_MARGIN = 16, 64, 4.0
+C5_OFFSET = [0.01, -0.01, 0.01, 0.005, -0.005, 0.01]  # the script's start offset
+C5_STEPS = 1000  # [parallel 2x2]'s steps, both runs
+C5_WORKER_S = 900  # the 2x2 ranks' time limit
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _compact_k():
+    from easyhec_torch.ops import pose_raster_compact as prc
+
+    return {"loss_fwd_compact": prc.loss_fwd_compact_cuda,
+            "loss_bwd_compact": prc.loss_bwd_compact_cuda}
+
+
+def _held(tag, losses, dof, history, ref, early_trace=True):
+    """A sharded run against the one-rank calibrate `ref`. Always held: the
+    loss at every step whose pose is still bit-identical to the one-rank
+    run's within 1e-5 relative (the same inputs; the band split changes only
+    the summation order), and the final pose within JAX's atol 5e-3
+    (tests/test_sharding.py). early_trace also holds JAX's early-trace
+    tolerance, the first 10 losses within rtol 3e-3 and atol 1e-3; where
+    it is not held its worst ratio is printed: once the poses part by an
+    ulp, Adam and the loss's steepness amplify the gap (PERF.md §6)."""
+    import numpy as np
+
+    l10 = np.abs(losses[:10] - ref.losses[:10])
+    lim = 1e-3 + 3e-3 * np.abs(ref.losses[:10])
+    dh = np.abs(history - ref.history).max(axis=1)
+    same = int(np.argmax(dh > 0)) if (dh > 0).any() else len(dh)
+    rel_same = float((np.abs(losses[:same] - ref.losses[:same])
+                      / np.abs(ref.losses[:same])).max()) if same else 0.0
+    ddof = float(np.abs(dof - ref.dof).max())
+    print(f"[{tag}] first 10 steps: loss relative difference "
+          + np.array2string(l10 / np.abs(ref.losses[:10]), precision=2, max_line_width=200)
+          + "; pose difference before the step "
+          + np.array2string(dh[:10], precision=2, max_line_width=200))
+    print(f"[{tag}] against the one-rank calibrate: poses bit-identical for the first "
+          f"{same} steps, their losses within {rel_same:.3e} relative (tol 1e-5); first 10 "
+          f"losses max abs diff {l10.max():.3e} (JAX's tol 1e-3 + 3e-3*|ref|, worst ratio "
+          f"{(l10 / lim).max():.3f}, {'held' if early_trace else 'printed'}); final dof max "
+          f"abs diff {ddof:.3e} (tol 5e-3); final losses {losses[-1]:.4f} and "
+          f"{ref.losses[-1]:.4f}")
+    if not (same >= 1 and rel_same <= 1e-5 and ddof <= 5e-3
+            and (not early_trace or (l10 <= lim).all())):
+        raise AssertionError(f"[{tag}] the sharded run leaves its tolerances")
+
+
+def parallel_nccl_phase(renderer, lp, K, xi, target, steps):
+    """[parallel nccl]: an NCCL process group of one rank and the (1, 1)
+    DeviceMesh; sharded_calibrate against calibrate on the bench scene's
+    compact route, both in this phase. Returns the sharded run's launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from easyhec_torch.models.calib import calibrate
+    from easyhec_torch.parallel import comm, init_distributed, make_mesh, sharded_calibrate
+
+    init_distributed(f"127.0.0.1:{_free_port()}", num_processes=1, process_id=0,
+                     backend="nccl")
+    try:
+        t = torch.arange(4.0, device=DEVICE)
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        mesh = make_mesh(1, 1)
+        print(f"[parallel nccl] backend {dist.get_backend()}, world {dist.get_world_size()}, "
+              f"mesh {type(mesh).__name__} {tuple(mesh.shape)} {mesh.mesh_dim_names}; NCCL "
+              f"all_reduce {t.tolist()}; comm {comm.all_gather_objects('rank0')}")
+        if t.tolist() != [0.0, 1.0, 2.0, 3.0] or comm.process_count() != 1:
+            raise AssertionError("[parallel nccl] one-rank collectives are not identities")
+        d0 = (xi + 0.01).cpu().numpy()
+        kern = _compact_k()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = calibrate(d0, renderer, lp, K, target, num_steps=steps, max_lr=3e-3,
+                        rebin_every=0)
+        torch.cuda.synchronize()
+        ms_ref = (time.perf_counter() - t0) / steps * 1e3
+        _reset(kern)
+        t0 = time.perf_counter()
+        dof, losses, history = sharded_calibrate(d0, renderer, mesh, lp, K, target,
+                                                 num_steps=steps, max_lr=3e-3,
+                                                 rebin_every=0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        launches = {k: fn.launches for k, fn in kern.items()}
+    finally:
+        dist.destroy_process_group()
+    losses, dof = losses.cpu().numpy(), dof.cpu().numpy()
+    print(f"[parallel nccl] {steps} steps: sharded_calibrate {ms:.3f} ms/step, calibrate "
+          f"{ms_ref:.3f} ms/step ({GPU}); launches {json.dumps(launches)}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError("[parallel nccl] non-finite or rising loss")
+    _held("parallel nccl", losses, dof, history.cpu().numpy(), ref)
+    if list(launches.values()) != [steps, steps]:
+        raise AssertionError(f"[parallel nccl] launches {launches} for {steps} steps")
+    return launches
+
+
+def config5_scene():
+    """Config (5)'s widths (scripts/config5_chip.py:48-93) on the mini arm
+    (the xArm7 is not in the repo): 4 ring views (radius 1.2, height 0.8,
+    target [0, 0, 0.3]) x 20 frames at 1920x1080, f = 1400, qposes uniform
+    in 0.4x the joint limits (numpy seed 0). Each view's offset is folded
+    into the link poses as the script does (lp' = inv(Tc0) Tc_v lp), so one
+    pose, camera 0's, is solved over the 80 frame-views.
+    Returns (meshes, lp [80, L, 4, 4], K, xi_gt) on the card."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.geometry import camera, se3
+    from easyhec_torch.robot import build_chain, load_link_meshes, parse_urdf
+    from easyhec_torch.robot.mesh import subdivide_to_max_edge
+
+    model = parse_urdf(ROOT / "assets" / "mini_arm.urdf")
+    chain = build_chain(model)
+    names = ["base", "upper", "fore"]
+    meshes = load_link_meshes(model, link_names=names)
+    mesh_list = [subdivide_to_max_edge(meshes[n], 0.008) for n in names]
+    Tcs = se3.inverse(camera.ring_poses(C5_VIEWS, 1.2, 0.8,
+                                        target=torch.tensor([0.0, 0.0, 0.3])))
+    lim = chain.joint_limits * 0.4
+    qs = np.random.default_rng(0).uniform(lim[:, 0], lim[:, 1], (C5_FRAMES, chain.n_dof))
+    lp1 = chain.fk(torch.tensor(qs, dtype=torch.float32))[:, [chain.link_index(n)
+                                                              for n in names]]
+    offs = torch.einsum("ij,vjk->vik", se3.inverse(Tcs[0]), Tcs)
+    lp = torch.einsum("vij,fljk->vflik", offs, lp1).reshape(-1, len(names), 4, 4)
+    K = torch.tensor([[C5_F, 0, C5_W / 2], [0, C5_F, C5_H / 2], [0, 0, 1]])
+    return mesh_list, lp.to(DEVICE), K.to(DEVICE), se3.log(Tcs[0]).to(DEVICE)
+
+
+def _c5_audit(mesh_list, lp, K, xis):
+    """The scene's bin loads under each pose of xis, over the full image and
+    each band (the band's grid starts at its own first row): the largest
+    tile load, count of triangles outside the 2x1-tile span class (big_k),
+    tile span in rows and columns, and chunks of 128 slots per frame (ncu),
+    counted as the counting binner counts them (the margin-dilated bboxes of
+    the valid, on-screen, front-facing triangles)."""
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.render import RobotRenderer, TileConfig
+    from easyhec_torch.render.projection import setup_triangles_corners
+
+    r = RobotRenderer(mesh_list, C5_H, C5_W, tile=TileConfig(C5_TH, C5_TW), device=DEVICE)
+    a = dict(load=0, big=0, span_y=0, span_x=0, ncu=0)
+    bh = C5_H // C5_TILE
+    for xi in xis:
+        Tc_c2l = torch.einsum("ij,bljk->blik", se3.exp(xi), lp)
+        for h, y0 in [(C5_H, 0)] + [(bh, t * bh) for t in range(C5_TILE)]:
+            Kb = K.clone()
+            Kb[1, 2] -= y0
+            tris = setup_triangles_corners(r.corners_rest, r.face_link_onehot, Tc_c2l, Kb,
+                                           cull_backfaces=True)
+            m = C5_MARGIN
+            lox, hix = tris.u.amin(-2) - m, tris.u.amax(-2) + m
+            loy, hiy = tris.v.amin(-2) - m, tris.v.amax(-2) + m
+            n_ty, n_tx = -(-h // C5_TH), -(-C5_W // C5_TW)
+            use = tris.valid & (hix > 0) & (lox < C5_W) & (hiy > 0) & (loy < h)
+            ty0 = torch.clamp(torch.floor(loy / C5_TH).long(), 0, n_ty - 1)
+            ty1 = torch.clamp(torch.floor(hiy / C5_TH).long(), 0, n_ty - 1)
+            tx0 = torch.clamp(torch.floor(lox / C5_TW).long(), 0, n_tx - 1)
+            tx1 = torch.clamp(torch.floor(hix / C5_TW).long(), 0, n_tx - 1)
+            sy, sx = ty1 - ty0 + 1, tx1 - tx0 + 1
+            big = use & ((sy > 2) | (sx > 1))
+            bi = torch.arange(use.shape[0], device=DEVICE)[:, None].expand_as(use)[use]
+            d = torch.zeros((use.shape[0], n_ty + 1, n_tx + 1), dtype=torch.long,
+                            device=DEVICE)
+            for yy, xx, sgn in ((ty0, tx0, 1), (ty0, tx1 + 1, -1), (ty1 + 1, tx0, -1),
+                                (ty1 + 1, tx1 + 1, 1)):
+                d.index_put_((bi, yy[use], xx[use]),
+                             torch.full_like(bi, sgn), accumulate=True)
+            loads = d.cumsum(1).cumsum(2)[:, :n_ty, :n_tx]
+            a["load"] = max(a["load"], int(loads.max()))
+            a["big"] = max(a["big"], int(big.sum(-1).max()))
+            a["span_y"] = max(a["span_y"], int(sy[use].max()))
+            a["span_x"] = max(a["span_x"], int(sx[use].max()))
+            a["ncu"] = max(a["ncu"], int((-(-loads // 128)).sum((1, 2)).max()))
+    return a
+
+
+def config5_tile(audit):
+    """The 1080p tile config of config (5) (16x64 tiles, margin 4, compact
+    chunks and the boundary-prefix map at 400, row-subsorted counting bins,
+    culling, band-only backward) with capacities from the audit and the
+    script's headroom policy against drift: cap and big_k 1.3x the audit
+    (rounded up to 128 and 256), the rect window 2 rows and 1 column over
+    the widest span, and the chunk budget 400 unless 1.3x the audit's ncu
+    needs more."""
+    import math
+
+    nc = max(400, math.ceil(1.3 * audit["ncu"]))
+    return dict(tile_h=C5_TH, tile_w=C5_TW, capacity=128 * math.ceil(1.3 * audit["load"] / 128),
+                binner="count", rect_y=audit["span_y"] + 2, rect_x=audit["span_x"] + 1,
+                margin=C5_MARGIN, cull_backfaces=True, fused=True, bwd_band_only=True,
+                bin_big_k=256 * math.ceil(1.3 * audit["big"] / 256), bin_subsort_rows=True,
+                compact_chunks=nc, bwd_chunks=nc)
+
+
+def parallel_band_kernel_phase(mesh_list, tile, lp, K, d0, target):
+    """[parallel band kernels]: K2f, K2b (on the boundary-prefix map) and K3
+    on the tile-1 band of config (5) (rows 540-1079: the principal point
+    shifted to cy - 540 = 0, the band's top edge) for data rank 0's 40
+    frame-views at the start
+    pose, against their plain versions as [kernels] holds them; returns
+    their kernels-line rows."""
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.models.calib import tile_masks
+    from easyhec_torch.ops import pose_raster_compact as prc
+    from easyhec_torch.ops.pose_raster import loss_cotangent
+    from easyhec_torch.parallel.sharding import _band_K
+    from easyhec_torch.render import RobotRenderer, TileConfig
+    from easyhec_torch.render.fused import cam_rows
+
+    bh = C5_H // C5_TILE
+    nb = lp.shape[0] // C5_DATA
+    band = RobotRenderer(mesh_list, bh, C5_W, tile=TileConfig(**tile), device=DEVICE)
+    Kb = _band_K(K, bh)
+    lpb = lp[:nb]
+    Tc = se3.exp(torch.as_tensor(d0, device=DEVICE))
+    st = band.bin_state(Tc, lpb, Kb)  # K3 builds the boundary-prefix map
+    if bool(st.overflow):
+        raise AssertionError("[parallel band kernels] bin overflow at the start pose")
+    cam = cam_rows(Tc, Kb, nb).contiguous()
+    ref = tile_masks(target[:nb, bh:], band).contiguous()
+    n_tx = -(-C5_W // C5_TW)
+    meta = prc.Meta(C5_TH, C5_TW, n_tx, bh, C5_W, 1.0, 0.001, 10.0, True)
+    tag = "band 1"
+    print(f"[parallel band kernels] {nb} frame-views of {C5_W}x{bh}, cy {float(Kb[1, 2]):.1f}; "
+          f"loads max tile {int(st.counts.max())} (cap {tile['capacity']}), max ncu "
+          f"{int(st.ncu.max())}, backward chunks {int((st.bwd_nlive > 0).sum())} (budget "
+          f"{tile['bwd_chunks']} a frame)")
+    fargs = (cam, st.rec, st.nlive, st.ctmap, st.ncu, ref, meta)
+    got = prc.loss_fwd_compact_cuda(*fargs)
+    f_err = _check_loss_fwd(f"K2f {tag}", got, prc.loss_fwd_compact_plain(*fargs))
+    _check_repeat(f"K2f {tag}", lambda: _fwd_out(prc.loss_fwd_compact_cuda(*fargs)))
+    gb = torch.full((nb,), 1.0 / nb, device=DEVICE)
+    bargs = (cam, st.rec, st.bwd_nlive, st.bwd_ctmap, st.bwd_cpos, ref, got[1], gb, meta)
+    b_err = _check_dcam(f"K2b {tag}", prc.loss_bwd_compact_cuda(*bargs).sum(1),
+                        prc.loss_bwd_compact_plain(*bargs).sum(1))
+    _check_repeat(f"K2b {tag}", lambda: prc.loss_bwd_compact_cuda(*bargs).sum(1))
+    check_tile_acc(f"K3 {tag}", cam, st, C5_TH, C5_TW, H=bh, W=C5_W)
+
+    T, P, nc = ref.shape[1], C5_TH * C5_TW, st.nlive.shape[1]
+    frames = [(prc._chunks_of(st.rec[b]), st.ctmap[b].long(), st.nlive[b].long())
+              for b in range(nb)]
+    gp = loss_cotangent(got[1].reshape(nb, T, P), ref.reshape(nb, T, P), gb[:, None, None],
+                        torch.arange(T, device=DEVICE), meta)
+    w = _needed_work(cam, frames, {"K2b": gp}, meta)
+    _print_work(f"compact {tag}", w)
+    maps = nb * (nc * 8 + 4 + 64)
+    src = "easyhec_torch/ops/csrc/pose_raster_compact.cu"
+    shape = f"{C5_W}x{bh} band"
+    return [
+        _row(f"loss_fwd_compact {shape}", f"K2f {tag}", src,
+             "easyhec_tpu/ops/pose_raster_compact.py:66", f_err,
+             lambda: prc.loss_fwd_compact_cuda(*fargs), lambda: prc.loss_fwd_compact_plain(*fargs),
+             w["fwd"][1] * SLOT_BYTES + w["tiles"] * P * 4 + nb * T * (P + 1) * 4 + maps,
+             _ops(w["fwd"], OPS_FWD_PAIR, OPS_FWD_LANE), "loss_fwd_compact_kernel"),
+        _row(f"loss_bwd_compact {shape}", f"K2b {tag}", src,
+             "easyhec_tpu/ops/pose_raster_compact.py:105", b_err,
+             lambda: prc.loss_bwd_compact_cuda(*bargs), lambda: prc.loss_bwd_compact_plain(*bargs),
+             w["K2b"][1] * SLOT_BYTES + w["tiles"] * 2 * P * 4 + maps + nb * nc * (4 + 48),
+             _ops(w["K2b"], OPS_BWD_PAIR, OPS_BWD_LANE), "loss_bwd_compact_kernel"),
+    ]
+
+
+def parallel_worker(rank: int, rdv: str, work: Path) -> int:
+    """One rank of [parallel 2x2] and [parallel comm] (``chip_smoke.py
+    --parallel-worker RANK RDV DIR``): gloo on the card's CUDA tensors,
+    rendezvous at RDV; its inputs and results are pickles in DIR."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from easyhec_torch.parallel import comm, init_distributed, make_mesh, sharded_calibrate
+    from easyhec_torch.render import RobotRenderer, TileConfig
+    from easyhec_torch.robot.mesh import TriMesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(rdv, num_processes=C5_DATA * C5_TILE, process_id=rank, backend="gloo")
+    inp = pickle.loads((work / "in.pkl").read_bytes())
+    mesh = make_mesh(C5_DATA, C5_TILE)
+    out = {"coords": (mesh.get_local_rank("data"), mesh.get_local_rank("tile")),
+           "gather": comm.all_gather_arrays(np.full(3, rank, np.float64)),
+           "objects": comm.all_gather_objects({"rank": rank, "pad": "x" * (1000 * rank)}),
+           "reduced": comm.reduce_dict({"rank": float(rank), "one": 1.0}),
+           "summed": comm.reduce_dict({"rank": float(rank)}, average=False)}
+    comm.sync()
+    band = RobotRenderer([TriMesh(v, f) for v, f in inp["meshes"]], C5_H // C5_TILE, C5_W,
+                         tile=TileConfig(**inp["tile"]), device=DEVICE)
+    masks = np.load(work / "target.npy").astype(np.float32)
+    rebins = [0]
+    bin_state = band.bin_state
+
+    def counted(*a, **k):
+        rebins[0] += 1
+        return bin_state(*a, **k)
+
+    band.bin_state = counted
+    kern = _compact_k()
+    torch.cuda.synchronize()
+    comm.sync()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kern)
+    t0 = time.perf_counter()
+    dof, losses, hist = sharded_calibrate(inp["d0"], band, mesh, inp["lp"], inp["K"], masks,
+                                          num_steps=inp["steps"], max_lr=3e-3, rebin_every=0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out.update(dof=dof.cpu().numpy(), losses=losses.cpu().numpy(),
+               history=hist.cpu().numpy(), ms=dt / inp["steps"] * 1e3,
+               launches={k: fn.launches for k, fn in kern.items()}, rebins=rebins[0],
+               peak=torch.cuda.max_memory_allocated())
+    # the combine's all-reduce alone: 7 floats of the card over gloo
+    buf = torch.zeros(7, device=DEVICE)
+    comm.sync()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(200):
+        h = buf.cpu()
+        dist.all_reduce(h)
+        buf.copy_(h)
+    torch.cuda.synchronize()
+    out["staged_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+    comm.sync()
+    dist.destroy_process_group()
+    (work / f"out{rank}.pkl").write_bytes(pickle.dumps(out))
+    return 0
+
+
+def parallel_2x2_phase(steps, work):
+    """[parallel band kernels], [parallel 2x2] and [parallel comm]: config
+    (5)'s scene and tile config from the audit (printed); the targets
+    rendered through K2f/K3 at the GT pose; calibrate of the 80 frame-views
+    at full height on this rank; then 4 gloo ranks on the one card, each in
+    its own process, on a (2 data x 2 tile) mesh: sharded_calibrate over 40
+    frame-views and one 540-row band each, with the same steps. Holds every
+    rank bit-identical; against the one-rank run, the losses while the poses
+    are bit-identical and the final pose (_held; JAX's early-trace
+    tolerance is printed); the pose within config (5)'s limits (0.5 cm,
+    0.1 deg: scripts/config5_chip.py); no overflow; one K2b launch per
+    step and one K2f per step and per rebin (K3 builds each rebin's
+    boundary-prefix map); and the comm helpers across the ranks. Returns
+    (band kernel rows, rank 1's launches)."""
+    import os
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.models.calib import calibrate
+    from easyhec_torch.render import RobotRenderer, TileConfig
+    from easyhec_torch.render.fused import silhouette_compact
+
+    t_phase = time.perf_counter()
+    mesh_list, lp, K, xi = config5_scene()
+    d0 = (xi + torch.tensor(C5_OFFSET, device=DEVICE)).cpu().numpy()
+    audit = _c5_audit(mesh_list, lp, K, [xi, torch.as_tensor(d0, device=DEVICE)])
+    tile = config5_tile(audit)
+    print(f"[parallel 2x2] config (5) widths: {lp.shape[0]} frame-views of {C5_W}x{C5_H}, "
+          f"f {C5_F}, {sum(m.n_faces for m in mesh_list)} triangles; bin audit at the GT and "
+          f"start poses (full image and both bands): {json.dumps(audit)} -> cap "
+          f"{tile['capacity']}, big_k {tile['bin_big_k']}, rect {tile['rect_y']}x"
+          f"{tile['rect_x']}, compact and backward chunks {tile['compact_chunks']}")
+    full = RobotRenderer(mesh_list, C5_H, C5_W, tile=TileConfig(**tile), device=DEVICE)
+    with torch.no_grad():
+        st = full.bin_state(se3.exp(xi), lp, K)
+        if bool(st.overflow):
+            raise AssertionError("[parallel 2x2] bin overflow at the GT pose")
+        target = (silhouette_compact(full, se3.exp(xi), K, st) > 0.5).float()
+    del st
+    print(f"[parallel 2x2] target masks: {float(target.mean()):.4f} of pixels set")
+    rows = parallel_band_kernel_phase(mesh_list, tile, lp, K, d0, target)
+
+    kern = _compact_k()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kern)
+    t0 = time.perf_counter()
+    ref = calibrate(d0, full, lp, K, target, num_steps=steps, max_lr=3e-3, rebin_every=0,
+                    Tc_c2b_gt=se3.exp(xi).cpu().numpy())
+    torch.cuda.synchronize()
+    ms_ref = (time.perf_counter() - t0) / steps * 1e3
+    peak_ref = torch.cuda.max_memory_allocated()
+    launches_ref = {k: fn.launches for k, fn in kern.items()}
+    print(f"[parallel 2x2] one rank, {lp.shape[0]} frame-views at full height: {steps} steps at "
+          f"{ms_ref:.3f} ms/step, {ref.rebins} rebins, peak {peak_ref / 2**30:.3f} GiB, "
+          f"launches {json.dumps(launches_ref)}, loss {ref.losses[0]:.2f} -> "
+          f"{ref.losses[-1]:.2f}, pose error {json.dumps(ref.metrics)} ({GPU})")
+    if ref.overflow:
+        raise AssertionError("[parallel 2x2] overflow in the one-rank run")
+    np.save(work / "target.npy", target.to(torch.uint8).cpu().numpy())
+    (work / "in.pkl").write_bytes(pickle.dumps(dict(
+        meshes=[(m.vertices, m.faces) for m in mesh_list], tile=tile,
+        lp=lp.cpu().numpy(), K=K.cpu().numpy(), d0=d0, steps=steps)))
+    del full, target
+    torch.cuda.empty_cache()
+
+    n = C5_DATA * C5_TILE
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--parallel-worker", str(r),
+         f"file://{work / 'rdv'}", str(work)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    try:
+        logs = [p.communicate(timeout=C5_WORKER_S)[0] for p in procs]
+    finally:
+        for p in procs:  # no rank outlives the phase
+            p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"[parallel 2x2] rank {r} exited {p.returncode}:\n"
+                                 f"{log[-4000:]}")
+    outs = [pickle.loads((work / f"out{r}.pkl").read_bytes()) for r in range(n)]
+
+    # [parallel comm]
+    for r, o in enumerate(outs):
+        ok = (np.array_equal(o["gather"], np.repeat(np.arange(n, dtype=np.float64)[:, None],
+                                                      3, 1))
+              and o["objects"] == [{"rank": q, "pad": "x" * (1000 * q)} for q in range(n)]
+              and o["reduced"] == {"one": 1.0, "rank": 1.5} and o["summed"] == {"rank": 6.0}
+              and o["coords"] == (r // C5_TILE, r % C5_TILE))
+        if not ok:
+            raise AssertionError(f"[parallel comm] rank {r}: {o['gather']}, {o['reduced']}, "
+                                 f"{o['summed']}, {o['coords']}")
+    print(f"[parallel comm] {n} gloo ranks: all_gather_arrays, all_gather_objects (payloads "
+          f"of 0-{1000 * (n - 1)} bytes of padding), reduce_dict (mean and sum, f64) and "
+          "sync agree on every rank")
+
+    # [parallel 2x2]
+    o0 = outs[0]
+    same = all(np.array_equal(o["dof"], o0["dof"]) and np.array_equal(o["losses"], o0["losses"])
+               and np.array_equal(o["history"], o0["history"]) for o in outs)
+    for r, o in enumerate(outs):
+        print(f"[parallel 2x2] rank {r} (data {o['coords'][0]}, band {o['coords'][1]}): "
+              f"{o['ms']:.3f} ms/step, {o['rebins']} rebins, peak {o['peak'] / 2**30:.3f} GiB, "
+              f"launches {json.dumps(o['launches'])}, gloo all-reduce of 7 floats "
+              f"{o['allreduce_ms']:.4f} ms ({o['allreduce_ms'] / o['ms']:.4f} of a step), "
+              f"through a host copy {o['staged_ms']:.4f} ms")
+        fwd, bwd = o["launches"].values()
+        if bwd != steps or fwd != steps + o["rebins"]:
+            raise AssertionError(f"[parallel 2x2] rank {r} launches {o['launches']} for "
+                                 f"{steps} steps and {o['rebins']} rebins")
+    from easyhec_torch.models.calib import pose_metrics
+
+    err = pose_metrics(o0["dof"], se3.exp(xi).cpu().numpy())
+    print(f"[parallel 2x2] {steps} steps on 4 ranks: {max(o['ms'] for o in outs):.3f} ms/step "
+          f"(slowest rank) against one rank's {ms_ref:.3f}; rebins (mesh max) "
+          f"{max(o['rebins'] for o in outs)}; ranks' wall {wall:.1f} s with start-up; every "
+          f"rank's dof, losses and history bit-identical: {same}; loss {o0['losses'][0]:.2f} -> "
+          f"{o0['losses'][-1]:.2f}; pose error {json.dumps(err)} ({GPU})")
+    if not same:
+        raise AssertionError("[parallel 2x2] the ranks' results differ")
+    if not (np.isfinite(o0["losses"]).all() and o0["losses"][-1] < o0["losses"][0]):
+        raise AssertionError("[parallel 2x2] non-finite or rising loss")
+    _held("parallel 2x2", o0["losses"], o0["dof"], o0["history"], ref, early_trace=False)
+    if not (err["err_trans_geodesic_cm"] < 0.5 and err["err_rot_geodesic_deg"] < 0.1):
+        raise AssertionError("[parallel 2x2] the sharded pose misses config (5)'s limits "
+                             "(0.5 cm, 0.1 deg)")
+    print(f"[parallel 2x2] phase {time.perf_counter() - t_phase:.1f} s")
+    return rows, outs[1]["launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=1000)
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="replay the compact, dense and unfused calibrate runs under "
                          "torch.profiler and write their summaries into DIR")
+    ap.add_argument("--parallel-worker", nargs=3, metavar=("RANK", "RDV", "DIR"),
+                    help=argparse.SUPPRESS)  # one rank of [parallel 2x2]
     args = ap.parse_args()
+    if args.parallel_worker:
+        rank, rdv, work_dir = args.parallel_worker
+        return parallel_worker(int(rank), rdv, Path(work_dir))
 
     import torch
 
@@ -2828,6 +3337,12 @@ def main() -> int:
     lr_finder_phase(renderer, lp, K, xi, target)
     profiling_phase(renderer, lp, K, xi, target)
     watch_phase(trainer_cfg.output_dir)
+    parallel_nccl_phase(renderer, lp, K, xi, target, args.steps)
+    (work / "parallel").mkdir()
+    band_rows, band_launches = parallel_2x2_phase(C5_STEPS, work / "parallel")
+    kernels += band_rows
+    for row, n in zip(band_rows, band_launches.values()):
+        launches[row["name"]] = n
     shutil.rmtree(work)
     for k in kernels:
         k["launches"] = launches[k["name"]]

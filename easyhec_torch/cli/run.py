@@ -10,15 +10,18 @@ the online loop (trainer.run_iterative). With no hardware adapters on the
 command line, it runs the simulated closed loop against the ground truth of
 a dataset written by ``easyhec_torch.cli.simulate`` (``K.txt`` and
 ``Tc_c2b.txt`` in ``dataset.data_dir``), starting from that ground truth
-perturbed in se(3) unless the config sets an initial pose. Multi-process
-runs (``WORLD_SIZE`` > 1) are not ported yet (ROADMAP.md, queue 1,
-multi-device) and raise.
+perturbed in se(3) unless the config sets an initial pose.
+
+Multi-process runs rendezvous from the environment, as the JAX CLI's do
+(parallel.maybe_init_from_env): ``EASYHEC_COORDINATOR=host:port
+EASYHEC_NUM_PROCESSES=N EASYHEC_PROCESS_ID=i`` starts a process group
+(NCCL on CUDA, gloo with ``--device cpu``); each process then runs the run
+it was given.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import pathlib
 
 import numpy as np
@@ -60,15 +63,15 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = ap.parse_args(argv)
 
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "multi-process runs (WORLD_SIZE > 1) are not ported to easyhec_torch "
-            "yet (ROADMAP.md, queue 1, multi-device)"
-        )
-
     from ..config import load_config
 
     cfg = load_config(args.config_file, args.opts)
+
+    # Multi-process rendezvous from env (the reference's WORLD_SIZE/
+    # LOCAL_RANK + NCCL bootstrap, tools/run_easyhec.py:41-50).
+    from ..parallel import maybe_init_from_env
+
+    maybe_init_from_env(backend="gloo" if args.device == "cpu" else None)
     if args.iterative:
         from ..trainer import run_iterative
 

@@ -193,7 +193,8 @@ def make_drift_probe_fn(probes: torch.Tensor, K: torch.Tensor):
 
 
 def opt_scan(dof, opt_state, opt, loss_of, bin_state_of, chunk: int,
-             rebin_every: int = 1, probe_fn=None, drift_budget: float = 0.0):
+             rebin_every: int = 1, combine=None, probe_fn=None,
+             drift_budget: float = 0.0):
     """``chunk`` optimizer steps with amortized rebinning.
 
     loss_of(dof, bin_state) -> scalar; bin_state_of(dof) -> bin state.
@@ -207,13 +208,23 @@ def opt_scan(dof, opt_state, opt, loss_of, bin_state_of, chunk: int,
     - fixed cadence: a fresh state every ``rebin_every`` steps; like the JAX
       version, the last window runs to its end and the trace is cut to
       ``chunk`` entries.
+
+    combine: the sharded path's hook (parallel.sharding). When set, loss_of
+    returns (local_objective, local_true_loss); the step differentiates the
+    local objective and combine(true_local, grad) -> (loss, grad) reduces
+    both over the mesh.
     """
     losses, history = [], []
 
     def step(dof, opt_state, state):
         d = dof.detach().requires_grad_(True)
-        loss = loss_of(d, state)
-        (g,) = torch.autograd.grad(loss, d)
+        if combine is None:
+            loss = loss_of(d, state)
+            (g,) = torch.autograd.grad(loss, d)
+        else:
+            obj, true_local = loss_of(d, state)
+            (g,) = torch.autograd.grad(obj, d)
+            loss, g = combine(true_local.detach(), g)
         updates, opt_state = opt.update(g, opt_state, dof)
         losses.append(loss.detach())
         history.append(dof)

@@ -763,3 +763,48 @@ def test_unet_forward_and_training_step_cuda_matches_cpu(dev):
     np.testing.assert_allclose(la, lb, rtol=1e-5)
     moved = np.abs(b - l_cpu).max()
     assert moved > 1e-3 and np.abs(a - b).max() <= 0.05 * moved
+
+
+def test_band_renders_match_full_rows(dev):
+    """A band renderer (H/2 rows, the principal point shifted by
+    parallel.sharding._band_K) through K4f draws the full render's rows of
+    that band: the sharded path's premise, on the card."""
+    from easyhec_torch.parallel.sharding import _band_K
+
+    r, _, t = _dense_scene(dev, True)
+    bh = HD // 2
+    band = RobotRenderer(r.meshes, bh, WD, tile=r.tile, device=dev)
+    with torch.no_grad():
+        full = r.silhouette(se3.exp(t["xi"]), t["lp"], t["K"])
+        for ti in range(2):
+            part = band.silhouette(se3.exp(t["xi"]), t["lp"], _band_K(t["K"], ti * bh))
+            np.testing.assert_allclose(part.cpu(), full[:, ti * bh:(ti + 1) * bh].cpu(),
+                                       atol=1e-4)
+
+
+def test_sharded_calibrate_one_nccl_rank_matches_calibrate(dev, tmp_path):
+    """An NCCL process group of one rank and the (1, 1) DeviceMesh: the
+    sharded optimizer runs the compact kernels once per step and tracks the
+    one-device calibrate (JAX's tolerances, tests/test_sharding.py)."""
+    import torch.distributed as dist
+
+    from easyhec_torch.models.calib import calibrate
+    from easyhec_torch.parallel import init_distributed, make_mesh, sharded_calibrate
+
+    r, _, t = _scene(dev, True)
+    init_distributed(f"file://{tmp_path / 'rdv'}", num_processes=1, process_id=0,
+                     backend="nccl")
+    try:
+        init = (t["xi"] + 0.01).cpu().numpy()
+        ref = calibrate(init, r, t["lp"], t["K"], t["target"], num_steps=30, rebin_every=0)
+        f0, b0 = prc.loss_fwd_compact_cuda.launches, prc.loss_bwd_compact_cuda.launches
+        dof, losses, _ = sharded_calibrate(init, r, make_mesh(1, 1), t["lp"], t["K"],
+                                           t["target"], num_steps=30, rebin_every=0)
+        torch.cuda.synchronize()
+        assert prc.loss_fwd_compact_cuda.launches == f0 + 30
+        assert prc.loss_bwd_compact_cuda.launches == b0 + 30
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(losses.cpu().numpy()[:10], ref.losses[:10], rtol=3e-3,
+                               atol=1e-3)
+    np.testing.assert_allclose(dof.cpu().numpy(), ref.dof, atol=5e-3)

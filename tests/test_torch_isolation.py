@@ -53,8 +53,13 @@ def test_every_module_imports_without_jax():
 # Modules added with the dense route and the offline trainer, with the
 # unfused route (K5), the global search, the tiled depth pass and the
 # simulator, with the online loop, with the offline tools and the
-# kernel-free render options, and with perception and the remaining tools.
+# kernel-free render options, with perception and the remaining tools, and
+# with multi-device.
 NEW_MODULES = (
+    "easyhec_torch.parallel",
+    "easyhec_torch.parallel.comm",
+    "easyhec_torch.parallel.distributed",
+    "easyhec_torch.parallel.sharding",
     "easyhec_torch.cli.annotate",
     "easyhec_torch.cli.diagnose",
     "easyhec_torch.cli.train_segmenter",

@@ -241,10 +241,24 @@ def test_overflow_precheck_bins_frame0(sim_data, monkeypatch, caplog, capacity, 
 
 
 def test_cli_refuses_unported_modes(monkeypatch):
+    """No mode is refused since multi-device was ported: under WORLD_SIZE > 1
+    both modes run, after the EASYHEC_* rendezvous (gloo with --device cpu),
+    as the JAX CLI does; tests/test_torch_parallel.py runs two processes."""
+    import easyhec_torch.parallel as tpar
+    import easyhec_torch.trainer as ttr
+
     monkeypatch.setenv("WORLD_SIZE", "2")
+    calls = []
+
+    class Result:
+        Tc_c2b, metrics = np.eye(4), {}
+
+    monkeypatch.setattr(tpar, "maybe_init_from_env", lambda backend=None: calls.append(backend))
+    for name in ("run_offline_calibration", "run_iterative"):
+        monkeypatch.setattr(ttr, name, lambda cfg, name=name, **kw: calls.append(name) or Result)
     for extra in ([], ["--iterative"]):
-        with pytest.raises(NotImplementedError, match="WORLD_SIZE > 1"):
-            t_run.main(["-c", SIM, "--device", "cpu", *extra])
+        assert t_run.main(["-c", SIM, "--device", "cpu", *extra]) == 0
+    assert calls == ["gloo", "run_offline_calibration", "gloo", "run_iterative"]
 
 
 def test_metrics_writer_without_matplotlib(tmp_path, monkeypatch, caplog):
