@@ -65,6 +65,10 @@ Phases, in order (any failure exits non-zero):
 8. The remaining options and offline tools. ``[schedules]``: the compact
    route's calibrate under warmup_cosine (100 warmup steps), its lr at
    four steps against the closed form, one K2f/K2b pair per step.
+   ``[optimizer groups]``: make_optimizer over the U-Net's parameter tree
+   (base 16, 118,913 params, 21 bias leaves) under grad_clip_value,
+   weight_decay, bias_lr_factor, weight_decay_bias and all of them (adam;
+   sgd with all), 20 steps, card against CPU.
    ``[brute]`` and ``[xla tiled 80x60]``: RobotRenderer(mode="brute") and a
    use_pallas=False renderer (no kernel) on the bench arm at 80x60, 4
    frames: their silhouettes against K5f's at the same pose, their pose
@@ -98,7 +102,9 @@ Phases, in order (any failure exits non-zero):
    ``[lr_finder]``: find_lr over the compact loss on one bin state, 100
    Adam steps, one K2f/K2b pair a step. ``[profiling]``: EvalTimer with a
    CUDA sync and a torch.profiler trace of 5 calibrate steps. ``[watch]``:
-   utils.live.serve answering /api/ls on the trainer's run dir.
+   utils.live.serve answering /api/ls on the trainer's run dir, which
+   holds its mid-run panels (an error_map and a rendered PNG every
+   log_interval steps) and error_maps.png, written without matplotlib.
 10. Multi-device (easyhec_torch.parallel). ``[parallel nccl]``: an NCCL
    process group of one rank and the (1, 1) DeviceMesh; sharded_calibrate
    against calibrate on the bench scene's compact route (1000 steps each,
@@ -1165,7 +1171,7 @@ def trainer_phase(lp, K, xi, qs, target, steps, out_dir):
     launches = {k: fn.launches for k, fn in kernels.items()}
     out = Path(out_dir)
     want = ["Tc_c2b.txt", "metrics.json", "eval.json", "config.yaml",
-            "checkpoints/final.npz", "metrics.jsonl"]
+            "checkpoints/final.npz", "metrics.jsonl", "error_maps.png"]
     missing = [f for f in want if not (out / f).is_file()]
     wall = json.loads((out / "checkpoints" / "final.json").read_text())["wall_time_s"]
     evals = json.loads((out / "eval.json").read_text())
@@ -1419,6 +1425,103 @@ def schedules_phase(renderer, lp, K, xi, target, steps):
         raise AssertionError("warmup_cosine calibrate: overflow or no fall in the loss")
     if launches.get("loss_fwd_compact", 0) < steps or launches.get("loss_bwd_compact") != steps:
         raise AssertionError(f"K2 launches {launches} for {steps} steps")
+
+
+OPT_GROUPS = {  # make_optimizer's options beyond the calibration's, alone and together
+    "grad_clip_value": dict(grad_clip_value=2e-3),
+    "weight_decay": dict(weight_decay=0.1),
+    "bias_lr_factor": dict(bias_lr_factor=2.0),
+    "weight_decay_bias": dict(weight_decay_bias=0.05),
+    "all": dict(grad_clip=0.05, grad_clip_value=2e-3, weight_decay=0.1, bias_lr_factor=2.0,
+                weight_decay_bias=0.05),
+    "sgd all": dict(name="sgd", grad_clip=0.05, grad_clip_value=2e-3, weight_decay=0.1,
+                    bias_lr_factor=2.0, weight_decay_bias=0.05),
+}
+
+
+def _tree_map(f, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(f, *(t[k] for t in trees)) for k in trees[0]}
+    return f(*trees)
+
+
+def optimizer_groups_phase(steps=20):
+    """make_optimizer over the U-Net's parameter dict (base 16, 118,913
+    parameters in the flax-layout tree: 21 conv and GroupNorm "bias" leaves
+    form the bias group) under each option beyond the calibration's, adam
+    and sgd, warmup_cosine over ``steps`` steps, on the card and on the CPU
+    from the same params and gradients (the BCE gradient at the initial
+    params on two 64x64 images, plus seeded noise of each leaf's scale, one
+    draw per step). The card's final params and state leaves are held to
+    the CPU's at rtol 1e-6 with a floor of one ulp of the leaf's largest
+    entry per step (steps·eps·max|leaf|): the ops are the same elementwise
+    ops, the global norm sums in another order."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.convert import unet_state_to_flax
+    from easyhec_torch.models.segmentation import UNet, _bce_loss, _flax_init
+    from easyhec_torch.solver.optim import _flatten, make_optimizer
+
+    model = UNet(16)
+    _flax_init(model, torch.Generator().manual_seed(0))
+    names, params = zip(*model.named_parameters())
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand((2, 64, 64, 3), generator=gen)
+    y = (torch.rand((2, 64, 64), generator=gen) > 0.5).float()
+    g0 = torch.autograd.grad(_bce_loss(model(x), y), params)
+    p0 = unet_state_to_flax(dict(zip(names, (p.detach() for p in params))))
+    g0 = unet_state_to_flax(dict(zip(names, g0)))
+    leaves, labels = _flatten(p0)  # the leaves in optax's order, each with its group
+    n_par = sum(a.size for a in leaves)
+    n_bias = labels.count("bias")
+    noise = torch.Generator().manual_seed(2)
+    grads = [_tree_map(lambda g: g + g.std() * torch.randn(g.shape, generator=noise).numpy(),
+                       g0) for _ in range(steps)]
+    eps = float(np.finfo(np.float32).eps)
+    worst = 0.0
+    for label, kw in OPT_GROUPS.items():
+        kw = dict(kw)
+        name = kw.pop("name", "adam")
+        opt = make_optimizer(name, max_lr=1e-3, total_steps=steps, scheduler="warmup_cosine",
+                             warmup_steps=5, **kw)
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            p = _tree_map(lambda a: torch.tensor(a, device=dev), p0)
+            gs = [_tree_map(lambda a: torch.tensor(a, device=dev), g) for g in grads]
+            st = opt.init(p)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for g in gs:
+                u, st = opt.update(g, st, p)
+                p = _tree_map(lambda a, b: a + b, p, u)
+            torch.cuda.synchronize()
+            out[dev] = (time.perf_counter() - t0, _flatten(p)[0], opt.leaves(st))
+        (dt, pk, sk), (_, pc, sc) = out[DEVICE], out["cpu"]
+        err = rel = 0.0
+        for a, b in zip(pk + sk, pc + sc):
+            a, b = a.cpu(), b.cpu()
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"[optimizer groups] {label}: leaf {a.dtype} "
+                                     f"{tuple(a.shape)} against {b.dtype} {tuple(b.shape)}")
+            if b.dtype == torch.int32:
+                if not torch.equal(a, b):
+                    raise AssertionError(f"[optimizer groups] {label}: counts differ")
+                continue
+            d = (a - b).abs()
+            err = max(err, float(d.max()))
+            floor = steps * eps * float(b.abs().max())
+            rel = max(rel, float((d / (1e-6 * b.abs() + floor)).max()) if floor else 0.0)
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=floor)
+        worst = max(worst, err)
+        print(f"[optimizer groups] {label} ({name}, {json.dumps(kw)}): {steps} steps over "
+              f"{len(pk)} leaves, {len(sk)} state leaves: card {dt / steps * 1e3:.3f} ms/step "
+              f"(host-timed, {GPU}); card vs CPU max abs err {err:.3e}, {rel:.3f} of the "
+              f"tolerance")
+    print(f"[optimizer groups] U-Net base 16: {n_par} params in {len(leaves)} leaves, "
+          f"{n_bias} of them bias; worst card-vs-CPU error {worst:.3e}")
+    if n_par != 118913 or n_bias != 21:
+        raise AssertionError(f"U-Net tree: {n_par} params, {n_bias} bias leaves")
 
 
 def option_routes_phase(renderer, lp, K, xi, frames=4, Ho=60, Wo=80, steps=20):
@@ -2085,13 +2188,18 @@ def profiling_phase(renderer, lp, K, xi, target, steps=5):
         raise AssertionError("profiling: the trace holds no K2f, or a probe is missing")
 
 
-def watch_phase(run_dir):
+def watch_phase(run_dir, steps, log_interval):
     """utils.live.serve (cli/watch's server) in the background on the
-    trainer's run dir, on a free local port: /api/ls lists images/ and
-    live.html is served."""
+    trainer's run dir, on a free local port: /api/ls lists images/, which
+    holds the trainer's mid-run panels (an error_map and a rendered PNG
+    every log_interval steps, written without matplotlib), error_maps.png
+    is beside it, and live.html is served."""
     import socket
     import urllib.request
 
+    import numpy as np
+
+    from easyhec_torch.utils.imaging import read_png
     from easyhec_torch.utils.live import DASHBOARD_NAME, serve, write_dashboard
 
     write_dashboard(run_dir)
@@ -2106,11 +2214,26 @@ def watch_phase(run_dir):
     finally:
         srv.shutdown()
         srv.server_close()
-    want = sorted(p.name for p in (Path(run_dir) / "images").glob("*.png"))
-    print(f"[watch] /api/ls on the trainer run dir: {len(ls)} images; {DASHBOARD_NAME} "
+    run_dir = Path(run_dir)
+    want = sorted(p.name for p in (run_dir / "images").glob("*.png"))
+    panels = sorted(f"{tag}_{s:06d}.png" for s in range(log_interval, steps + 1, log_interval)
+                    for tag in ("error_map", "rendered"))
+    shapes = {tuple(read_png(run_dir / "images" / n).shape) for n in panels if n in want}
+    colors = len(np.unique(read_png(run_dir / "images" / panels[-1]).reshape(-1, 3), axis=0)) \
+        if panels[-1] in want else 0
+    grid = read_png(run_dir / "error_maps.png").shape if (run_dir / "error_maps.png").is_file() \
+        else None
+    print(f"[watch] /api/ls on the trainer run dir: {len(ls)} images ({len(panels)} mid-run "
+          f"panels expected, every {log_interval} steps: shapes {sorted(shapes)}, "
+          f"{colors} colors in {panels[-1]}); error_maps.png {grid}; {DASHBOARD_NAME} "
           f"{len(page)} bytes")
-    if ls != want or b"easyhec_torch live" not in page:
+    if not ls or ls != want or b"easyhec_torch live" not in page:
         raise AssertionError("watch: /api/ls or the dashboard is wrong")
+    if not set(panels) <= set(want) or shapes != {(H, W, 3)} or colors < 2:
+        raise AssertionError(f"watch: the trainer's mid-run panels are missing or wrong: "
+                             f"{sorted(set(panels) - set(want))}")
+    if grid is None or grid[2] != 3:
+        raise AssertionError("watch: error_maps.png is missing")
 
 
 def reference_search():
@@ -3322,6 +3445,7 @@ def main() -> int:
     kernels.append(explore_kernel_phase(explore_in, iter_launches["K3"], n_explored))
     launches["compact_tile_acc"] = iter_launches["K3"]
     schedules_phase(renderer, lp, K, xi, target, args.steps)
+    optimizer_groups_phase()
     option_routes_phase(renderer, lp, K, xi)
     xla_tiled_phase(renderer, lp, K, xi, target)
     ring_phase(renderer, K)
@@ -3336,7 +3460,7 @@ def main() -> int:
     diagnose_phase(trainer_cfg, trainer_batch)
     lr_finder_phase(renderer, lp, K, xi, target)
     profiling_phase(renderer, lp, K, xi, target)
-    watch_phase(trainer_cfg.output_dir)
+    watch_phase(trainer_cfg.output_dir, args.steps, trainer_cfg.solver.log_interval)
     parallel_nccl_phase(renderer, lp, K, xi, target, args.steps)
     (work / "parallel").mkdir()
     band_rows, band_launches = parallel_2x2_phase(C5_STEPS, work / "parallel")

@@ -10,7 +10,7 @@ import torch
 
 from . import so3
 
-__all__ = ["exp", "log", "inverse", "from_rt"]
+__all__ = ["exp", "log", "inverse", "from_rt", "transform_points", "matrix_3x4_to_4x4"]
 
 
 def _V_coeffs(theta2: torch.Tensor):
@@ -92,3 +92,15 @@ def inverse(T: torch.Tensor) -> torch.Tensor:
     Rt = R.transpose(-1, -2)
     t_inv = -torch.einsum("...ij,...j->...i", Rt, t)
     return from_rt(Rt, t_inv)
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply [..., 4, 4] to points [..., N, 3] -> [..., N, 3]."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    return torch.einsum("...ij,...nj->...ni", R, pts) + t[..., None, :]
+
+
+def matrix_3x4_to_4x4(M: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 4] -> [..., 4, 4] with the homogeneous bottom row."""
+    return torch.cat([M, _bottom_row(M)], dim=-2)

@@ -12,7 +12,7 @@ import math
 
 import torch
 
-__all__ = ["hat", "vee", "exp", "log", "rotx", "roty", "rotz"]
+__all__ = ["hat", "vee", "exp", "log", "geodesic_distance", "rotx", "roty", "rotz"]
 
 
 def hat(w: torch.Tensor) -> torch.Tensor:
@@ -123,6 +123,14 @@ def log(R: torch.Tensor) -> torch.Tensor:
     theta_sym = math.pi - torch.arcsin(sin_from_skew)
     w_sym = theta_sym[..., None] * axis_sym
     return torch.where(use_sym[..., None], w_sym, w_skew)
+
+
+def geodesic_distance(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
+    """Rotation angle in radians between two rotations: [..., 3, 3] -> [...].
+
+    trace(R1ᵀ R2) as the elementwise sum Σ R1⊙R2, not a matmul."""
+    trace = torch.sum(R1 * R2, dim=(-1, -2))
+    return torch.arccos(torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0))
 
 
 def _rot(a, rows):

@@ -52,26 +52,36 @@ class _LocalMesh:
     def get_local_rank(self, mesh_dim=None) -> int:
         return 0
 
+    def get_coordinate(self) -> list[int]:
+        return [0, 0]
 
-def make_mesh(n_data: int, n_tile: int = 1):
-    """A ("data", "tile") DeviceMesh over ranks 0..n_data·n_tile−1, rank r
-    at (r // n_tile, r % n_tile). Without a process group only (1, 1) is
-    possible, and its collectives are identities. Raises ValueError when
-    the world is smaller than the mesh, and also when it is larger (the JAX
-    package takes the first devices; here every rank must hold a cell)."""
+
+def make_mesh(n_data: int, n_tile: int = 1, devices=None):
+    """A ("data", "tile") DeviceMesh over the first n_data·n_tile of
+    ``devices`` (global ranks; None: 0..world−1), laid out row-major: the
+    i-th at (i // n_tile, i % n_tile). Without a process group only (1, 1)
+    is possible, and its collectives are identities. Raises ValueError when
+    fewer ranks are given than the mesh needs, and also when the world is
+    larger than the mesh (the JAX package takes the first devices; here
+    every rank must hold a cell)."""
     need = n_data * n_tile
-    have = dist.get_world_size() if dist.is_initialized() else 1
-    if have < need:
-        raise ValueError(f"need {need} devices, have {have}")
-    if have > need:
-        raise ValueError(f"mesh of {need} ranks in a world of {have}: every rank "
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    ranks = list(range(world)) if devices is None else [int(r) for r in devices]
+    for have in (len(ranks), world):
+        if have < need:
+            raise ValueError(f"need {need} devices, have {have}")
+    if world > need:
+        raise ValueError(f"mesh of {need} ranks in a world of {world}: every rank "
                          "must hold a cell of the mesh")
+    ranks = ranks[:need]
+    if sorted(ranks) != list(range(world)):
+        raise ValueError(f"devices {ranks} are not the ranks 0..{world - 1}, each once")
     if not dist.is_initialized():
         return _LocalMesh()
     from torch.distributed.device_mesh import DeviceMesh
 
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(device_type, torch.arange(need).reshape(n_data, n_tile),
+    return DeviceMesh(device_type, torch.tensor(ranks).reshape(n_data, n_tile),
                       mesh_dim_names=("data", "tile"))
 
 
@@ -84,10 +94,12 @@ class _Layout(NamedTuple):
 
 
 def _layout(mesh) -> _Layout:
+    # the rank's place in the mesh tensor (get_local_rank is its rank in the
+    # axis' group, whose members torch sorts: not the place when devices
+    # reorder the ranks)
     n_data, n_tile = mesh.size(0), mesh.size(1)
-    return _Layout(n_data, n_tile, mesh.get_local_rank("data"),
-                   mesh.get_local_rank("tile"),
-                   mesh.get_group("tile") if n_tile > 1 else None)
+    di, ti = mesh.get_coordinate()
+    return _Layout(n_data, n_tile, di, ti, mesh.get_group("tile") if n_tile > 1 else None)
 
 
 def _all_reduce(t: torch.Tensor, n: int, group=None, op=dist.ReduceOp.SUM):
@@ -174,8 +186,10 @@ def sharded_silhouette(renderer: RobotRenderer, mesh, band_h: int):
         with torch.no_grad():
             sil = renderer.silhouette(torch.as_tensor(_host(Tc_c2b), device=dev), lp[sl], Kb)
         # gloo gathers host tensors only: the bands travel as host arrays,
-        # in rank order r = di * n_tile + ti.
+        # in rank order, put in mesh order (position di * n_tile + ti)
         parts = comm.all_gather_arrays(sil.cpu().numpy())  # [P, b, band_h, W]
+        if not isinstance(mesh, _LocalMesh):
+            parts = parts[mesh.mesh.flatten().tolist()]
         b, W = parts.shape[1], parts.shape[-1]
         out = parts.reshape(lay.n_data, lay.n_tile, b, band_h, W).transpose(0, 2, 1, 3, 4)
         return torch.as_tensor(np.ascontiguousarray(out).reshape(-1, lay.n_tile * band_h, W),

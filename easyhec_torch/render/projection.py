@@ -21,6 +21,8 @@ __all__ = [
     "soa_from_aos",
     "to_aos",
     "setup_triangles_corners",
+    "transform_verts_soa",
+    "setup_triangles_soa",
     "transform_verts",
     "setup_triangles",
 ]
@@ -51,6 +53,10 @@ class TrianglesSoA(NamedTuple):
     v: torch.Tensor
     z: torch.Tensor
     valid: torch.Tensor
+
+    @property
+    def n_faces(self) -> int:
+        return self.valid.shape[-1]
 
 
 def setup_triangles_corners(
@@ -87,10 +93,14 @@ def setup_triangles_corners(
         ]
 
     xs, ys, zs = zip(corner(0), corner(1), corner(2))
-    x = torch.stack(xs, dim=-2)  # [..., 3, F]
-    y = torch.stack(ys, dim=-2)
-    z = torch.stack(zs, dim=-2)
+    return _screen_soa(torch.stack(xs, dim=-2), torch.stack(ys, dim=-2),
+                       torch.stack(zs, dim=-2), K, near, far, eps, cull_backfaces)
 
+
+def _screen_soa(x, y, z, K, near, far, eps, cull_backfaces) -> TrianglesSoA:
+    """Camera-frame corners x, y, z [..., 3, F] -> projected, culled
+    TrianglesSoA (OpenCV pinhole, whole-triangle near/far cull, degenerate
+    cull, optional backface cull)."""
     fx, fy = K[0, 0], K[1, 1]
     cx, cy = K[0, 2], K[1, 2]
     z_safe = torch.where(
@@ -115,6 +125,46 @@ def setup_triangles_corners(
         nz = e1[0] * e2[1] - e1[1] * e2[0]
         valid = valid & (nx * x0 + ny * y0 + nz * z0 < 0.0)
     return TrianglesSoA(u=u, v=v, z=z, valid=valid)
+
+
+def transform_verts_soa(
+    verts_xyz: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    vert_mesh_id: torch.Tensor,
+    mesh_poses: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """SoA rigid transform of packed multi-mesh vertices.
+
+    verts_xyz: three [V] tensors; vert_mesh_id: [V] int; mesh_poses
+    [..., M, 4, 4]. Returns (x, y, z), each [..., V]."""
+    x0, y0, z0 = verts_xyz
+    idx = vert_mesh_id.long()
+
+    def row(i):
+        r = [mesh_poses[..., i, j].index_select(-1, idx) for j in range(4)]
+        return r[0] * x0 + r[1] * y0 + r[2] * z0 + r[3]
+
+    return row(0), row(1), row(2)
+
+
+def setup_triangles_soa(
+    verts_xyz: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    faces: torch.Tensor,
+    K: torch.Tensor,
+    near: float = camera.NEAR_DEFAULT,
+    far: float = camera.FAR_DEFAULT,
+    eps: float = 1e-9,
+    cull_backfaces: bool = False,
+) -> TrianglesSoA:
+    """Project SoA camera-frame vertices (three [..., V]) and gather
+    per-triangle records for faces [F, 3] int, with setup_triangles_corners'
+    culls. Off the render paths, which go through setup_triangles_corners."""
+    f = faces.long()
+
+    def gather(a):  # [..., V] -> [..., 3, F]
+        return torch.stack([a.index_select(-1, f[:, i]) for i in range(3)], dim=-2)
+
+    x, y, z = verts_xyz
+    return _screen_soa(gather(x), gather(y), gather(z), K, near, far, eps, cull_backfaces)
 
 
 def soa_from_aos(t: Triangles2D) -> TrianglesSoA:

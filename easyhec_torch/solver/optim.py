@@ -1,9 +1,10 @@
 """Optimizer and LR schedule factories: optax's chains, written out in torch.
 
 Torch counterpart of easyhec_tpu/solver/optim.py (``make_optimizer``,
-``make_schedule``) for the configurations calibration runs: ``adam`` or
-``sgd`` (momentum 0.9), optionally after ``clip_by_global_norm``, under any
-of the JAX package's schedules:
+``make_schedule``): ``adam`` (AdamW under ``weight_decay``) or ``sgd``
+(momentum 0.9), after optional ``clip_by_global_norm`` and ``clip`` (by
+value), over one tensor or a tree of tensors with optional bias/weight
+parameter groups, under any of the JAX package's schedules:
 
     constant; cosine / cosine_annealing; warmup_cosine; multistep /
     warmup_multistep (absolute milestones, gamma); exponential;
@@ -18,6 +19,12 @@ resumes across the two packages:
 
     adam: (count, mu, nu, schedule count)   = opt_0..opt_3
     sgd:  (trace, schedule count)           = opt_0..opt_1
+
+for one tensor; over a tree, mu, nu and trace hold one leaf per tensor in
+jax.tree_util's order (dict keys sorted), and with groups the state is the
+"bias" group's leaves, then the "weight" group's (each group's mu, nu or
+trace over its own tensors only). The clips and the weight decay add no
+leaf. The state is that tuple of tensors.
 
 The optimizer is functional: ``init(params) -> state`` and
 ``update(grads, state, params) -> (updates, state)``; the caller applies
@@ -197,9 +204,56 @@ def make_schedule(
     raise ValueError(f"unknown scheduler {name!r}")
 
 
-def _clip_by_global_norm(g: torch.Tensor, max_norm: float) -> torch.Tensor:
-    g_norm = torch.sqrt(torch.sum(g * g))
-    return torch.where(g_norm < max_norm, g, (g / g_norm) * max_norm)
+def _flatten(tree):
+    """Leaves of a tree of tensors (nested dict, list, tuple) in
+    jax.tree_util.tree_leaves' order (dict keys sorted), each with its
+    group: "bias" when a key on its path contains "bias" (JAX's _is_bias),
+    else "weight"."""
+    leaves, labels = [], []
+
+    def walk(node, bias):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], bias or "bias" in str(k))
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            for k, x in zip(node._fields, node):
+                walk(x, bias or "bias" in k)
+        elif isinstance(node, (list, tuple)):
+            for x in node:
+                walk(x, bias)
+        elif node is not None:
+            leaves.append(node)
+            labels.append("bias" if bias else "weight")
+
+    walk(tree, False)
+    return leaves, labels
+
+
+def _unflatten(like, leaves):
+    """The tree of ``like``'s structure holding ``leaves`` (in _flatten's
+    order)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            out = {k: build(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*[build(x) for x in node])
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(x) for x in node)
+        return None if node is None else next(it)
+
+    return build(like)
+
+
+def _clip_by_global_norm(gs: list, max_norm: float) -> list:
+    """optax.clip_by_global_norm: the norm over every leaf."""
+    total = torch.sum(gs[0] * gs[0])
+    for g in gs[1:]:
+        total = total + torch.sum(g * g)
+    g_norm = torch.sqrt(total)
+    return [torch.where(g_norm < max_norm, g, (g / g_norm) * max_norm) for g in gs]
 
 
 def make_optimizer(
@@ -208,69 +262,116 @@ def make_optimizer(
     total_steps: int = 1000,
     scheduler: str = "constant",
     grad_clip: float = 0.0,
+    grad_clip_value: float = 0.0,
+    weight_decay: float = 0.0,
+    warmup_steps: int = 0,
+    momentum: float = 0.9,
+    bias_lr_factor: float = 1.0,
+    weight_decay_bias: float = 0.0,
     b1: float = 0.9,
     b2: float = 0.999,
     eps: float = 1e-8,
-    momentum: float = 0.9,
-    warmup_steps: int = 0,
     **sched_kwargs,
 ) -> Optimizer:
-    """Build the gradient transformation for one parameter tensor.
-    ``warmup_steps`` and ``sched_kwargs`` (gamma, milestones, decay_steps,
-    min_factor, warmup_factor, warmup_method) go to make_schedule."""
+    """Build the gradient transformation for a tensor or a tree of tensors
+    (nested dict, list, tuple). ``warmup_steps`` and ``sched_kwargs``
+    (gamma, milestones, decay_steps, min_factor, warmup_factor,
+    warmup_method) go to make_schedule.
+
+    In optax's order: clip by global norm (``grad_clip``), clip by value
+    (``grad_clip_value``), then the core. ``weight_decay`` != 0 makes Adam
+    AdamW (decay added after the Adam scaling, before −lr; sgd ignores it,
+    as in the JAX package). When ``bias_lr_factor`` != 1 or
+    ``weight_decay_bias`` != ``weight_decay`` the leaves split into a
+    "bias" group (lr · bias_lr_factor, decay weight_decay_bias) and a
+    "weight" group, each with its own core and state, as
+    optax.multi_transform."""
     sched = make_schedule(scheduler, max_lr, total_steps, warmup_steps=warmup_steps,
                           **sched_kwargs)
     lname = name.lower()
-
-    def scale(u, sched_count):  # no host-to-device copy: a float lr rides as a scalar
-        lr = sched(sched_count)
-        return (-lr.to(u.dtype) if torch.is_tensor(lr) else -lr) * u
-
-    def clip(g):
-        return _clip_by_global_norm(g, grad_clip) if grad_clip > 0 else g
-
-    if lname == "adam":
-        class State(NamedTuple):
-            count: torch.Tensor
-            mu: torch.Tensor
-            nu: torch.Tensor
-            sched_count: torch.Tensor
-
-        def init(params):
-            z = torch.zeros((), dtype=torch.int32, device=params.device)
-            return State(z, torch.zeros_like(params), torch.zeros_like(params), z.clone())
-
-        def update(g, state, params=None):
-            g = clip(g)
-            mu = (1 - b1) * g + b1 * state.mu
-            nu = (1 - b2) * (g * g) + b2 * state.nu
-            count = _inc(state.count)
-            cf = count.to(g.dtype)
-            mu_hat = mu / (1 - torch.pow(torch.tensor(b1, dtype=g.dtype, device=g.device), cf))
-            nu_hat = nu / (1 - torch.pow(torch.tensor(b2, dtype=g.dtype, device=g.device), cf))
-            u = mu_hat / (torch.sqrt(nu_hat) + eps)
-            u = scale(u, state.sched_count)
-            return u, State(count, mu, nu, _inc(state.sched_count))
-
-    elif lname == "sgd":
-        class State(NamedTuple):
-            trace: torch.Tensor
-            sched_count: torch.Tensor
-
-        def init(params):
-            return State(torch.zeros_like(params),
-                         torch.zeros((), dtype=torch.int32, device=params.device))
-
-        def update(g, state, params=None):
-            trace = clip(g) + momentum * state.trace
-            return scale(trace, state.sched_count), State(trace, _inc(state.sched_count))
-
-    else:
+    if lname not in ("adam", "sgd"):
         raise ValueError(f"unknown optimizer {name!r}")
+    adam = lname == "adam"
+    # (label, lr scale, weight decay) per group, in optax's leaf order:
+    # multi_transform's groups flatten by sorted key, "bias" before "weight"
+    if bias_lr_factor != 1.0 or weight_decay_bias != weight_decay:
+        groups = (("bias", bias_lr_factor, weight_decay_bias),
+                  ("weight", 1.0, weight_decay))
+    else:
+        groups = ((None, 1.0, weight_decay),)
+    needs_params = adam and any(wd != 0 for _, _, wd in groups)
 
-    return Optimizer(
-        init=init,
-        update=update,
-        leaves=lambda state: list(state),
-        from_leaves=lambda leaves: State(*leaves),
-    )
+    def split(tree):
+        if torch.is_tensor(tree):  # the calibration's dof: no tree walk
+            return [tree], ("weight",)
+        return _flatten(tree)
+
+    def members(labels, label):
+        return [i for i, lab in enumerate(labels) if label is None or lab == label]
+
+    def scale(us, sched_count, lr_scale):  # a float lr rides as a scalar
+        if not us:
+            return []
+        lr = sched(sched_count)
+        if lr_scale != 1.0:
+            lr = lr * lr_scale
+        neg = -lr.to(us[0].dtype) if torch.is_tensor(lr) else -lr
+        return [neg * u for u in us]
+
+    def core_init(ps, device):
+        z = torch.zeros((), dtype=torch.int32, device=device)
+        if adam:
+            return [z, *map(torch.zeros_like, ps), *map(torch.zeros_like, ps), z.clone()]
+        return [*map(torch.zeros_like, ps), z]
+
+    def core_update(gs, st, ps, lr_scale, wd):
+        n = len(gs)
+        if adam:  # optax.adam, or adamw when wd != 0
+            mu = [(1 - b1) * g + b1 * m for g, m in zip(gs, st[1:1 + n])]
+            nu = [(1 - b2) * (g * g) + b2 * v for g, v in zip(gs, st[1 + n:1 + 2 * n])]
+            count = _inc(st[0])
+            us = []
+            if n:
+                dt, dev = gs[0].dtype, gs[0].device
+                cf = count.to(dt)
+                c1 = 1 - torch.pow(torch.tensor(b1, dtype=dt, device=dev), cf)
+                c2 = 1 - torch.pow(torch.tensor(b2, dtype=dt, device=dev), cf)
+                us = [(m / c1) / (torch.sqrt(v / c2) + eps) for m, v in zip(mu, nu)]
+                if wd != 0:
+                    us = [u + wd * p for u, p in zip(us, ps)]
+            return scale(us, st[-1], lr_scale), [count, *mu, *nu, _inc(st[-1])]
+        trace = [g + momentum * t for g, t in zip(gs, st[:n])]
+        return scale(trace, st[-1], lr_scale), [*trace, _inc(st[-1])]
+
+    def init(params):
+        ps, labels = split(params)
+        device = ps[0].device
+        state = []
+        for label, _, _ in groups:
+            state += core_init([ps[i] for i in members(labels, label)], device)
+        return tuple(state)
+
+    def update(grads, state, params=None):
+        gs, labels = split(grads)
+        if grad_clip > 0:
+            gs = _clip_by_global_norm(gs, grad_clip)
+        if grad_clip_value > 0:
+            gs = [torch.clamp(g, -grad_clip_value, grad_clip_value) for g in gs]
+        if needs_params:
+            if params is None:
+                raise ValueError("weight decay needs the params in update()")
+            ps = split(params)[0]
+        us, new_state, at = [None] * len(gs), [], 0
+        for label, lr_scale, wd in groups:
+            idx = members(labels, label)
+            n = 2 + 2 * len(idx) if adam else 1 + len(idx)
+            sub = [ps[i] for i in idx] if adam and wd != 0 else None
+            gu, st = core_update([gs[i] for i in idx], state[at:at + n], sub, lr_scale, wd)
+            for i, u in zip(idx, gu):
+                us[i] = u
+            new_state += st
+            at += n
+        out = us[0] if torch.is_tensor(grads) else _unflatten(grads, us)
+        return out, tuple(new_state)
+
+    return Optimizer(init=init, update=update, leaves=list, from_leaves=tuple)

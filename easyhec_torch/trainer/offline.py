@@ -6,9 +6,9 @@ pose, metrics, loss trace, evaluators, checkpoints, error maps). Runs on
 CUDA unless the caller passes ``device="cpu"``.
 
 Unlike the JAX trainer, the overflow pre-check, rendering and the
-evaluators run outside any catch-all: a failing kernel stops the run. Only
-the matplotlib panels are optional (skipped with a warning when matplotlib
-is absent).
+evaluators run outside any catch-all: a failing kernel stops the run. The
+image panels (mid-run ``images/*.png`` and ``error_maps.png``) are written
+without matplotlib, on every machine.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from ..render.tiled import TileConfig, silhouette_tiled
 from ..robot import build_chain, load_link_meshes, load_mesh, parse_urdf
 from ..robot.mesh import decimate_vertex_clustering, subdivide_to_max_edge
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.imaging import colorize, image_grid, write_png
 from ..utils.live import write_dashboard
 from ..utils.logging import LOGGER, MetricsWriter, setup_logger
 
@@ -45,6 +46,7 @@ class Runtime:
     renderer: RobotRenderer
     link_names: list[str]
     cfg: Config
+    meshes: list = dataclasses.field(default_factory=list)  # processed link meshes
 
 
 def build_runtime(cfg: Config, device=None) -> Runtime:
@@ -79,7 +81,8 @@ def build_runtime(cfg: Config, device=None) -> Runtime:
     )
     renderer = RobotRenderer(meshes, cfg.model.H, cfg.model.W, tile=tile, mode=r.mode,
                              device=device)
-    return Runtime(chain=chain, renderer=renderer, link_names=link_names, cfg=cfg)
+    return Runtime(chain=chain, renderer=renderer, link_names=link_names, cfg=cfg,
+                   meshes=meshes)
 
 
 def _warn_if_bins_overflow(rt: Runtime, batch: CalibBatch, init_dof) -> None:
@@ -255,28 +258,12 @@ def run_offline_calibration(
 
 
 def _save_error_panel(path: Path, outputs: dict, max_frames: int = 4) -> None:
-    """Rendered / reference / |error| grid of the first frames (matplotlib;
-    skipped with a warning when it is not installed)."""
-    try:
-        import matplotlib
-    except ImportError:
-        logging.getLogger(LOGGER).warning(
-            "matplotlib is not installed: %s is not written", path.name)
-        return
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    """Rendered / reference / |error| grid of the first frames as one PNG:
+    3 rows of min(max_frames, B) panels, the masks in gray and the error in
+    matplotlib's hot colormap, each over its own min and max (the JAX
+    trainer draws the same rows as a titled matplotlib figure)."""
     n = min(max_frames, outputs["rendered_masks"].shape[0])
-    fig, axes = plt.subplots(3, n, figsize=(3 * n, 9), squeeze=False)
-    for i in range(n):
-        axes[0][i].imshow(outputs["rendered_masks"][i], cmap="gray")
-        axes[0][i].set_title(f"rendered {i}")
-        axes[1][i].imshow(outputs["ref_masks"][i], cmap="gray")
-        axes[1][i].set_title(f"reference {i}")
-        axes[2][i].imshow(outputs["error_maps"][i], cmap="hot")
-        axes[2][i].set_title(f"|error| {i}")
-        for r in range(3):
-            axes[r][i].axis("off")
-    fig.tight_layout()
-    fig.savefig(path, dpi=60)
-    plt.close(fig)
+    rows = [(outputs["rendered_masks"], "gray"), (outputs["ref_masks"], "gray"),
+            (outputs["error_maps"], "hot")]
+    panels = [colorize(np.asarray(a[i]), cmap) for a, cmap in rows for i in range(n)]
+    write_png(path, image_grid(panels, cols=n))

@@ -41,6 +41,60 @@ _COLORS = np.array(
 )
 
 
+# matplotlib's viridis, 256 entries of uint8 RGB as its bytes=True lookup
+# gives them (each channel ·255, truncated)
+_VIRIDIS = np.frombuffer(bytes.fromhex(
+    "44015444025544035745055845065a45085b46095c460b5e460c5f460e61470f62471163"
+    "47126547146647156747166947186a48196b481a6c481c6e481d6f481e70482071482172"
+    "482273482374472575472676472777472878472a79472b7a472c7b462d7c462f7c46307d"
+    "46317e45327f45347f453580453681443781443982433a83433b83433c84423d84423e85"
+    "4240854141864142864043874044873f45873f47883e48883e49893d4a893d4b893d4c89"
+    "3c4d8a3c4e8a3b508a3b518a3a528b3a538b39548b39558b38568b38578c37588c37598c"
+    "365a8c365b8c355c8c355d8c345e8d345f8d33608d33618d32628d32638d31648d31658d"
+    "31668d30678d30688d2f698d2f6a8d2e6b8e2e6c8e2e6d8e2d6e8e2d6f8e2c708e2c718e"
+    "2c728e2b738e2b748e2a758e2a768e2a778e29788e29798e287a8e287a8e287b8e277c8e"
+    "277d8e277e8e267f8e26808e26818e25828e25838d24848d24858d24868d23878d23888d"
+    "23898d22898d228a8d228b8d218c8d218d8c218e8c208f8c20908c20918c1f928c1f938b"
+    "1f948b1f958b1f968b1e978a1e988a1e998a1e998a1e9a891e9b891e9c891e9d881e9e88"
+    "1e9f881ea0871fa1871fa2861fa38620a48520a58521a68521a78422a78423a88323a982"
+    "24aa8225ab8126ac8127ad8028ae7f29af7f2ab07e2bb17d2cb17d2eb27c2fb37b30b47a"
+    "32b57a33b67935b77836b87738b97639b9763bba753dbb743ebc7340bd7242be7144be70"
+    "45bf6f47c06e49c16d4bc26c4dc26b4fc36951c46853c56755c66657c66559c7645bc862"
+    "5ec96160c96062ca5f64cb5d67cc5c69cc5b6bcd596dce5870ce5672cf5574d05477d052"
+    "79d1517cd24f7ed24e81d34c83d34b86d44988d5478bd5468dd64490d64392d74195d73f"
+    "97d83e9ad83c9dd93a9fd938a2da37a5da35a7db33aadb32addc30afdc2eb2dd2cb5dd2b"
+    "b7dd29bade27bdde26bfdf24c2df22c5df21c7e01fcae01ecde01dcfe11cd2e11bd4e11a"
+    "d7e219dae218dce218dfe318e1e318e4e318e7e419e9e419ece41aeee51bf1e51cf3e51e"
+    "f6e61ff8e621fae622fde724"
+), np.uint8).reshape(256, 3)
+_X = np.linspace(0.0, 1.0, 256)
+# matplotlib's hot and gray: piecewise-linear channels sampled at 256 points
+_HOT = (np.stack([np.interp(_X, [0.0, 0.365079, 1.0], [0.0416, 1.0, 1.0]),
+                  np.interp(_X, [0.0, 0.365079, 0.746032, 1.0], [0.0, 0.0, 1.0, 1.0]),
+                  np.interp(_X, [0.0, 0.746032, 1.0], [0.0, 0.0, 1.0])], -1)
+        * 255).astype(np.uint8)
+_GRAY = np.repeat((_X * 255).astype(np.uint8)[:, None], 3, -1)
+_CMAPS = {"viridis": _VIRIDIS, "hot": _HOT, "gray": _GRAY}
+
+
+def colorize(a: np.ndarray, cmap: str = "viridis") -> np.ndarray:
+    """A 2-D map -> uint8 RGB [H, W, 3] through a 256-entry colormap, as
+    matplotlib's imsave/imshow color it: the map normalized by its own min
+    and max (in its float type; integers as float32; a constant map to 0),
+    then entry min(int(x·256), 255)."""
+    a = np.asarray(a)
+    if a.dtype.kind != "f":
+        a = a.astype(np.float32 if a.dtype.itemsize <= 2 else np.float64)
+    lo, hi = float(a.min()), float(a.max())
+    if lo == hi:
+        idx = np.zeros(a.shape, np.int64)
+    else:  # f64 scalars, rounded to the map's type after each step
+        x = (a.astype(np.float64) - lo).astype(a.dtype)
+        x = (x.astype(np.float64) / (hi - lo)).astype(a.dtype)
+        idx = np.minimum((x * a.dtype.type(256)).astype(np.int64), 255)
+    return _CMAPS[cmap][idx]
+
+
 def colormap(i: int) -> np.ndarray:
     """Stable categorical color for index i (uint8 RGB)."""
     return _COLORS[i % len(_COLORS)].copy()

@@ -107,3 +107,76 @@ def test_camera_look_at_and_projection():
     (ut, zt) = tcam.project_points(torch.from_numpy(K), torch.from_numpy(pts))
     np.testing.assert_allclose(np.asarray(uj), ut.numpy(), rtol=1e-6)
     np.testing.assert_array_equal(np.asarray(zj), zt.numpy())
+
+
+def _rotations(n, seed):
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(n, 3)).astype(np.float32)
+    return np.asarray(jso3.exp(jnp.asarray(w)))
+
+
+def test_transform_points_and_matrix_3x4_to_4x4():
+    rng = np.random.default_rng(4)
+    T = np.asarray(jse3.exp(jnp.asarray(XI[:5])))[:, None]  # [5, 1, 4, 4]
+    pts = rng.uniform(-1, 1, (5, 7, 3)).astype(np.float32)
+    pj = np.asarray(jse3.transform_points(jnp.asarray(T[:, 0]), jnp.asarray(pts)))
+    pt = tse3.transform_points(torch.from_numpy(T[:, 0]), torch.from_numpy(pts)).numpy()
+    np.testing.assert_allclose(pt, pj, rtol=1e-6, atol=1e-6)
+    M = rng.normal(size=(2, 3, 3, 4)).astype(np.float32)
+    mj, mt = _both(jse3.matrix_3x4_to_4x4, tse3.matrix_3x4_to_4x4, M)
+    np.testing.assert_array_equal(mt, mj)
+    assert mt.shape == (2, 3, 4, 4)
+
+
+def test_geodesic_distance():
+    """Elementwise trace, as JAX has it, on generic pairs and on pairs a
+    known angle apart (0.19 to 2.5 rad). Tolerance as so3.log's; angles
+    within ~1e-2 of 0 or π are left out: there arccos turns one ulp of the
+    trace into ~3e-4 rad."""
+    R1, R2 = _rotations(16, 1), _rotations(16, 2)
+    w = XI[4:9, 3:]
+    apart = R1[:5] @ np.asarray(jso3.exp(jnp.asarray(w)))
+    for a, b in ((R1, R2), (R1[:5], apart)):
+        dj = np.asarray(jso3.geodesic_distance(jnp.asarray(a), jnp.asarray(b)))
+        dt = tso3.geodesic_distance(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+        np.testing.assert_allclose(dt, dj, rtol=1e-6, atol=2e-6)
+    np.testing.assert_allclose(dt, np.linalg.norm(w, axis=1), atol=1e-5)
+
+
+@pytest.mark.parametrize("cull", [False, True])
+def test_soa_transform_and_setup(cull):
+    """transform_verts_soa and setup_triangles_soa on a seeded multi-mesh
+    scene: the culls bit-equal, values rtol 1e-6 (atol 1e-6 for the camera
+    coordinates, which cross 0)."""
+    from easyhec_torch.render import projection as tp
+    from easyhec_tpu.render import projection as jp
+
+    rng = np.random.default_rng(11)
+    V, F, M = 60, 80, 3
+    verts = [rng.uniform(-0.3, 0.3, V).astype(np.float32) for _ in range(3)]
+    mesh_id = rng.integers(0, M, V).astype(np.int32)
+    faces = rng.integers(0, V, (F, 3)).astype(np.int32)
+    xi = np.concatenate([rng.uniform(-0.2, 0.2, (2, M, 3)),
+                         rng.uniform(-0.5, 0.5, (2, M, 3))], -1).astype(np.float32)
+    poses = np.array(jse3.exp(jnp.asarray(xi)))  # [2, M, 4, 4]
+    poses[..., 2, 3] += 1.0  # in front of the camera, a few behind near
+    poses[1, 0, 2, 3] = -0.2
+    K = np.array([[90.0, 0, 40.0], [0, 90.0, 30.0], [0, 0, 1]], np.float32)
+    xyz_j = jp.transform_verts_soa(tuple(map(jnp.asarray, verts)), jnp.asarray(mesh_id),
+                                   jnp.asarray(poses))
+    xyz_t = tp.transform_verts_soa(tuple(map(torch.from_numpy, verts)),
+                                   torch.from_numpy(mesh_id), torch.from_numpy(poses))
+    for a, b in zip(xyz_j, xyz_t):
+        assert b.shape == (2, V)
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6, atol=1e-6)
+    tj = jp.setup_triangles_soa(tuple(xyz_j), jnp.asarray(faces), jnp.asarray(K),
+                                cull_backfaces=cull)
+    tt = tp.setup_triangles_soa(tuple(torch.from_numpy(np.asarray(a)) for a in xyz_j),
+                                torch.from_numpy(faces), torch.from_numpy(K),
+                                cull_backfaces=cull)
+    assert tt.n_faces == tj.n_faces == F
+    np.testing.assert_array_equal(tt.valid.numpy(), np.asarray(tj.valid))
+    assert 0 < tt.valid.sum() < 2 * F
+    for f in ("u", "v", "z"):
+        np.testing.assert_allclose(getattr(tt, f).numpy(), np.asarray(getattr(tj, f)),
+                                   rtol=1e-6)

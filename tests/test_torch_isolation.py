@@ -5,6 +5,7 @@ no PyYAML, OpenCV, PIL or matplotlib either: every module imports without
 them, and they are needed only to read config files, OpenCV's GrabCut and
 window, and formats other than PNG.
 """
+import importlib
 import json
 import pkgutil
 import shutil
@@ -133,6 +134,51 @@ def test_new_modules_import_without_host_packages():
     assert r.returncode == 0, r.stderr[-2000:]
     names = set(json.loads(r.stdout.strip().splitlines()[-1]))
     assert set(NEW_MODULES) <= names
+
+
+_EXPORTS_PROBE = f"""
+import importlib, json, sys, tempfile
+from pathlib import Path
+for k in {BLOCKED + ("yaml", "cv2", "matplotlib", "PIL")!r}:
+    sys.modules[k] = None  # any import of it now raises ImportError
+sys.path.insert(0, {str(ROOT)!r})
+from easyhec_torch.models import (CalibResult, ExploreResult, LinkSpheres, SpaceExplorer,
+                                  build_link_spheres, calibrate, mask_loss, pose_metrics,
+                                  render_outputs)
+from easyhec_torch.solver import make_optimizer, make_schedule
+from easyhec_torch.render import (Triangles2D, bin_triangles, depth_bruteforce, depth_tiled,
+                                  setup_triangles, silhouette_bruteforce, silhouette_tiled,
+                                  transform_verts)
+from easyhec_torch.geometry import (from_rt, inverse, matrix_3x4_to_4x4, se3_exp, se3_log,
+                                    so3_exp, so3_log, transform_points)
+out = {{}}
+for pkg in ("geometry", "models", "render", "solver", "parallel", "utils", "trainer", "data"):
+    m = importlib.import_module("easyhec_torch." + pkg)
+    out[pkg] = [n for n in m.__all__ if getattr(m, n, None) is not None]
+import numpy as np
+from easyhec_torch.utils.logging import MetricsWriter
+d = Path(tempfile.mkdtemp())
+w = MetricsWriter(d)
+w.image(3, "error_map", np.linspace(0, 1, 12, dtype=np.float32).reshape(3, 4))
+w.close()
+out["images"] = sorted(p.name for p in (d / "images").iterdir())
+print(json.dumps(out))
+"""
+
+
+def test_package_exports_import_without_host_packages():
+    """The package exports (JAX's names) resolve, and an image panel is
+    written, with JAX, matplotlib, OpenCV, PyYAML and PIL all blocked."""
+    r = subprocess.run([sys.executable, "-c", _EXPORTS_PROBE], capture_output=True,
+                       text=True, timeout=300, cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-2000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out.pop("images") == ["error_map_000003.png"]
+    for pkg, names in out.items():
+        assert names == list(importlib.import_module("easyhec_torch." + pkg).__all__), pkg
+    assert "calibrate" in out["models"] and "make_optimizer" in out["solver"]
+    assert {"silhouette_tiled", "Triangles2D"} <= set(out["render"])
+    assert "transform_points" in out["geometry"]
 
 
 def test_default_device_raises_without_cuda():

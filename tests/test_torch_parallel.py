@@ -12,6 +12,7 @@ and atol 1e-2, a calibrate trace's first 10 losses rtol 3e-3 and atol 1e-3
 5e-3, frame_chunk against unchunked 1e-5 (the same sums, blockwise).
 """
 import dataclasses
+import json
 import logging
 import os
 import pickle
@@ -291,6 +292,94 @@ def test_single_process_mesh_and_init(monkeypatch):
     for shape in ((2, 1), (2, 2)):
         with pytest.raises(ValueError, match=f"need {shape[0] * shape[1]} devices, have 1"):
             tpar.make_mesh(*shape)
+
+
+def test_make_mesh_devices_stand_in():
+    """make_mesh(devices=...) without a process group: the (1, 1) stand-in
+    over [0] (extra entries ignored, as JAX takes the first devices), JAX's
+    error when too few are given, and a refusal of a rank outside the
+    world."""
+    for devices in ([0], (0, 5), np.array([0])):
+        m = tpar.make_mesh(1, 1, devices=devices)
+        assert (m.size(0), m.size(1), m.get_local_rank("data")) == (1, 1, 0)
+    for make in (tpar.make_mesh, jpar.make_mesh):
+        with pytest.raises(ValueError, match="need 1 devices, have 0"):
+            make(1, 1, devices=[])
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
+        tpar.make_mesh(2, 1, devices=[0, 1])
+    with pytest.raises(ValueError, match="not the ranks"):
+        tpar.make_mesh(1, 1, devices=[3])
+
+
+MESH_WORKER = r'''
+import json, sys
+import numpy as np, torch
+torch.set_num_threads(1)
+sys.path.insert(0, {repo!r})
+rank, rdv, d = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+from easyhec_torch.parallel import init_distributed, make_mesh, sharded_silhouette
+from easyhec_torch.geometry import se3
+from easyhec_torch.render import RobotRenderer, TileConfig
+from easyhec_torch.robot import make_box
+init_distributed(rdv, num_processes=2, process_id=rank, backend="gloo")
+out = dict(layouts={{}}, errors=[])
+for key, shape, devices in (("none", (2, 1), None), ("swap", (2, 1), [1, 0]),
+                            ("long", (2, 1), [1, 0, 7]), ("tile", (1, 2), [1, 0])):
+    m = make_mesh(*shape, devices=devices)
+    out["layouts"][key] = dict(mesh=m.mesh.tolist(), coords=m.get_coordinate())
+for shape, devices in (((2, 1), [0]), ((2, 1), [0, 0]), ((1, 1), [0])):
+    try:
+        make_mesh(*shape, devices=devices)
+    except ValueError as e:
+        out["errors"].append(str(e))
+r = RobotRenderer([make_box((0.3, 0.2, 0.25), center=(0.05, 0.15, 0.0))], 16, 32,
+                  tile=TileConfig(tile_h=16, tile_w=32, capacity=128), device="cpu")
+Tc = se3.exp(torch.tensor([0.02, -0.01, 1.5, 0.3, -0.2, 0.1]))
+lp = np.repeat(np.eye(4, dtype=np.float32)[None, None], 2, 0)
+K = np.array([[40.0, 0, 16], [0, 40.0, 16], [0, 0, 1]], np.float32)
+sil = [sharded_silhouette(r, make_mesh(1, 2, devices=dv), 16)(Tc, lp, K).numpy()
+       for dv in ([0, 1], [1, 0])]
+out["sil_equal"] = bool((sil[0] == sil[1]).all())
+out["band_mass"] = [float(sil[0][:, :16].sum()), float(sil[0][:, 16:].sum())]
+open(d + f"/mesh{{rank}}.json", "w").write(json.dumps(out))
+print("MESH_OK", rank)
+'''
+
+
+def test_make_mesh_devices_two_ranks(tmp_path):
+    """make_mesh(devices=...) on a 2-rank gloo group: the given ranks laid
+    out row-major as JAX lays out its devices, the errors, and the same
+    sharded silhouette whichever rank renders which band."""
+    script = tmp_path / "mesh_worker.py"
+    script.write_text(MESH_WORKER.format(repo=str(ROOT)))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), f"file://{tmp_path / 'rdv'}",
+                               str(tmp_path)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, cwd=str(ROOT)) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0 and f"MESH_OK {r}" in log, log[-4000:]
+    outs = [json.loads((tmp_path / f"mesh{r}.json").read_text()) for r in range(2)]
+    jd = jax.devices()
+    for key, shape, order in (("none", (2, 1), [0, 1]), ("swap", (2, 1), [1, 0]),
+                              ("long", (2, 1), [1, 0, 7]), ("tile", (1, 2), [1, 0])):
+        jm = jpar.make_mesh(*shape, devices=[jd[i] for i in order])
+        want = np.vectorize(lambda dev: dev.id)(jm.devices).tolist()
+        for r, o in enumerate(outs):
+            lay = o["layouts"][key]
+            assert lay["mesh"] == want, key
+            pos = np.argwhere(np.array(want) == r)[0].tolist()
+            assert lay["coords"] == pos, key
+    for o in outs:
+        assert o["errors"][0] == "need 2 devices, have 1"
+        assert "not the ranks" in o["errors"][1]
+        assert "world of 2" in o["errors"][2]
+        top, bottom = o["band_mass"]  # bands that differ, so a swap would show
+        assert o["sil_equal"] and top > 10.0 and abs(top - bottom) > 10.0
 
 
 def test_one_rank_mesh_runs_calibrate(scene):

@@ -262,22 +262,41 @@ def test_cli_refuses_unported_modes(monkeypatch):
 
 
 def test_metrics_writer_without_matplotlib(tmp_path, monkeypatch, caplog):
+    """The mid-run panels and error_maps.png are written with matplotlib
+    blocked (the GPU machine has none), with no warning."""
+    from easyhec_torch.utils.imaging import read_png
+
     monkeypatch.setitem(sys.modules, "matplotlib", None)  # import raises
     w = MetricsWriter(tmp_path)
+    rng = np.random.default_rng(0)
+    err = rng.random((12, 16)).astype(np.float32)
     with caplog.at_level(logging.WARNING, logger="easyhec_torch"):
         logging.getLogger("easyhec_torch").propagate = True
         try:
-            w.image(1, "rendered", np.zeros((4, 4)))
-            w.image(2, "rendered", np.zeros((4, 4)))
+            w.image(1, "error_map", err)
+            w.image(2, "rendered", np.zeros((12, 16), np.float32))
         finally:
             logging.getLogger("easyhec_torch").propagate = False
     w.scalars(1, mask_loss=1.0)
     w.close()
-    assert not (tmp_path / "images").exists()
-    assert sum("matplotlib" in r.message for r in caplog.records) == 1
+    assert not caplog.records
+    assert sorted(p.name for p in (tmp_path / "images").iterdir()) == [
+        "error_map_000001.png", "rendered_000002.png"]
+    panel = read_png(tmp_path / "images" / "error_map_000001.png")
+    assert panel.shape == (12, 16, 3) and panel.dtype == np.uint8
+    # a constant map is entry 0 of viridis everywhere
+    flat = read_png(tmp_path / "images" / "rendered_000002.png")
+    assert (flat == flat[0, 0]).all() and tuple(flat[0, 0]) == (68, 1, 84)
     assert (tmp_path / "metrics.jsonl").read_text().count("mask_loss") == 1
-    t_off._save_error_panel(tmp_path / "error_maps.png", {})  # skipped, no raise
-    assert not (tmp_path / "error_maps.png").exists()
+    masks = (rng.random((5, 12, 16)) > 0.5).astype(np.float32)
+    outputs = dict(rendered_masks=masks, ref_masks=masks[::-1],
+                   error_maps=np.abs(masks - masks[::-1]))
+    t_off._save_error_panel(tmp_path / "error_maps.png", outputs)
+    grid = read_png(tmp_path / "error_maps.png")
+    pad = 2  # image_grid's: 3 rows of min(4, B) = 4 frames
+    assert grid.shape == (3 * 12 + 4 * pad, 4 * 16 + 5 * pad, 3)
+    top = grid[pad:pad + 12, pad:pad + 16]
+    np.testing.assert_array_equal(top, np.repeat(masks[0, :, :, None] * 255, 3, -1))
 
 
 def test_setup_logger_follows_output_dir(tmp_path):
@@ -335,7 +354,7 @@ def test_generate_dataset_matches_jax(tmp_path, monkeypatch):
 
 _NO_JAX = """
 import runpy, sys
-for k in ("jax", "jaxlib", "optax", "easyhec_tpu", "__graft_entry__"):
+for k in ("jax", "jaxlib", "optax", "easyhec_tpu", "__graft_entry__", "matplotlib"):
     sys.modules[k] = None  # any import of it now raises ImportError
 sys.argv = sys.argv[1:]
 runpy.run_module(sys.argv[0], run_name="__main__")
@@ -344,7 +363,8 @@ runpy.run_module(sys.argv[0], run_name="__main__")
 
 def test_simulate_then_run_without_jax(tmp_path):
     """The port's simulate CLI writes a dataset and its run CLI calibrates on
-    it, with every JAX module blocked; JAX's loader reads the dataset."""
+    it, with every JAX module and matplotlib blocked (the run still writes
+    its image panels); JAX's loader reads the dataset."""
     data = tmp_path / "data"
     size = [f"model.H={H}", f"model.W={W}"]
     r = subprocess.run([sys.executable, "-c", _NO_JAX, "easyhec_torch.cli.simulate",
@@ -361,6 +381,8 @@ def test_simulate_then_run_without_jax(tmp_path):
     assert "solved Tc_c2b" in r.stdout
     fin = np.load(tmp_path / "run" / "checkpoints" / "final.npz")
     assert np.isfinite(fin["losses"]).all()
+    assert {"error_maps.png", "images/error_map_000010.png",
+            "images/rendered_000010.png"} <= set(_files(tmp_path / "run"))
     cfg = j_load(SIM, size)
     jrt = j_build_runtime(cfg)
     jb = j_load_data(data, jrt.chain, jrt.link_names)
