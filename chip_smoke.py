@@ -121,7 +121,20 @@ Phases, in order (any failure exits non-zero):
    peak memory, rebins, the gloo all-reduce's share of a step.
    ``[parallel comm]``: all_gather_arrays, all_gather_objects, reduce_dict
    and sync across the 4 ranks.
-11. Reference checks on small inputs, compact, dense and unfused, a small
+11. The command-line tools (``[cli]``): each CLI as a user runs it,
+   ``python -m easyhec_torch.cli.<name>`` in a fresh interpreter from the
+   checkout's root, with no --device flag and PyYAML, JAX, optax,
+   easyhec_tpu, OpenCV and matplotlib blocked, so configs/*.yaml go through
+   the port's own YAML reader: configs/sim_mini.yaml's simulate and run as
+   the README gives them (dense route, 240x320, 400 steps), then
+   configs/xarm7_example.yaml at its widths on the mini arm: simulate (10
+   frames of 1280x720), run with its global-search init, run from the
+   perturbed GT passed as a nested flow list (1.5 cm, 1.5 deg), validate,
+   tune_init --global-search, simulate --ring 8, run --iterative (2 rounds;
+   1.5 cm, 1.5 deg), train_segmenter (2 x 4 frames, 50 steps), annotate
+   --auto and diagnose (100 steps). Each prints its rc, seconds, held line,
+   kernel launches and artifacts; no child may rebuild a kernel library.
+12. Reference checks on small inputs, compact, dense and unfused, a small
    global search and a small explorer scoring pass: the card against the
    plain versions on the CPU.
 
@@ -1123,9 +1136,9 @@ def main_path(renderer, lp, K, xi, target, steps, kernels, label):
 
 def trainer_phase(lp, K, xi, qs, target, steps, out_dir):
     """run_offline_calibration on the dense route at the bench scene, with an
-    in-memory Config and CalibBatch (the GPU machine has no PyYAML or
-    OpenCV, so nothing is read from disk but the URDF), writing its run
-    under ``out_dir``. Returns (launches, ms/step, the Config, the batch)."""
+    in-memory Config and CalibBatch (the bench scene has no config file;
+    [cli] runs the CLIs from configs/), writing its run under ``out_dir``.
+    Returns (launches, ms/step, the Config, the batch)."""
     import numpy as np
     import torch
 
@@ -2421,7 +2434,7 @@ ITER_H, ITER_W, ITER_F = 720, 1280, 906.8
 def iterative_config(steps, H=ITER_H, W=ITER_W, rounds=5, n_sample=1000, n_hyp=10,
                      history_start=200):
     """An in-memory Config with xarm7_example's render, solver and explorer
-    settings (the GPU machine has no PyYAML), on the mini arm."""
+    settings, on the mini arm at 8 mm edges ([cli] runs the file itself)."""
     from easyhec_torch.config import Config
 
     cfg = Config()
@@ -3329,6 +3342,228 @@ def parallel_2x2_phase(steps, work):
     return rows, outs[1]["launches"]
 
 
+# [cli]: the port's command-line tools as a user runs them, each in a fresh
+# interpreter with no --device flag (so on the card, the CLIs' default), and
+# with PyYAML, JAX, OpenCV and matplotlib blocked: configs/*.yaml read by the
+# port's own reader. configs/xarm7_example.yaml runs at its widths with the
+# arm swapped for the mini arm (the xArm7 assets are not in the repo).
+CLI_BLOCKED = ("yaml", "jax", "jaxlib", "optax", "easyhec_tpu", "cv2", "matplotlib")
+CLI_X7 = ["model.urdf_path=assets/mini_arm.urdf", "model.use_links=[base, upper, fore]",
+          "model.subdivide_max_edge=0.008", "model.decimate_voxel=0.0"]
+# Runs ``python -c CHILD easyhec_torch.cli.<name> ARGS...`` (CHILD this
+# template, filled in by _cli): blocks the host packages, runs the CLI as
+# __main__, then prints the launch count of every kernel wrapper.
+_CLI_CHILD = """
+import json, runpy, sys
+for k in {blocked!r}:
+    sys.modules[k] = None  # any import of it now raises ImportError
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_module(sys.argv[0], run_name="__main__")
+finally:
+    launches = {{}}
+    for key, mod, fn in {counters!r}:
+        m = sys.modules.get(mod)
+        launches[key] = getattr(m, fn).launches if m else 0
+    print("[launches]", json.dumps(launches), flush=True)
+"""
+
+
+def _cli(tag, module, args, expect, kernels, root=None, artifacts=()):
+    """Run ``easyhec_torch.cli.<module> ARGS`` as a child (cwd: the
+    checkout). Raises unless it exits 0, prints ``expect``, launches every
+    kernel in ``kernels``, leaves ``artifacts`` under ``root`` and rebuilds no
+    kernel library. Prints one ``[cli <tag>]`` line; returns (launches,
+    seconds)."""
+    from easyhec_torch.ops import _build
+
+    libs = sorted(_build._build_dir().glob("*.so"))
+    counters = [(k, fn.__module__, fn.__name__) for k, fn in _all_kernels().items()]
+    child = _CLI_CHILD.format(blocked=CLI_BLOCKED, counters=counters)
+    cmd = [sys.executable, "-c", child, f"easyhec_torch.cli.{module}", *args]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"[cli {tag}] rc {r.returncode}: {' '.join(cmd[3:])}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    tail = [ln for ln in r.stdout.splitlines() if ln.startswith("[launches] ")]
+    launches = {k: n for k, n in json.loads(tail[-1].split(" ", 1)[1]).items() if n}
+    held = next((ln.strip() for ln in r.stdout.splitlines() if expect in ln), None)
+    missing = [a for a in artifacts if not (Path(root) / a).exists()]
+    print(f"[cli {tag}] rc 0, {secs:.3f} s; {held!r}; launches {json.dumps(launches)}; "
+          f"artifacts {len(artifacts) - len(missing)}/{len(artifacts)} "
+          f"({', '.join(artifacts)})")
+    if held is None:
+        raise AssertionError(f"[cli {tag}] printed no line with {expect!r}:\n{r.stdout[-2000:]}")
+    if missing:
+        raise AssertionError(f"[cli {tag}] artifacts missing under {root}: {missing}")
+    if not set(kernels) <= set(launches):
+        raise AssertionError(f"[cli {tag}] launched {launches}, not every one of {kernels}")
+    if sorted(_build._build_dir().glob("*.so")) != libs:
+        raise AssertionError(f"[cli {tag}] rebuilt a kernel library: the child's build key "
+                             "differs from the parent's")
+    return launches, secs
+
+
+RUN_ARTIFACTS = ["Tc_c2b.txt", "metrics.json", "eval.json", "config.yaml", "log.txt",
+                 "checkpoints/final.npz", "checkpoints/final.json", "metrics.jsonl",
+                 "error_maps.png"]
+
+
+def _cli_run_held(tag, run, launches, secs, trainer_ms, fwd, bwd, limits=None, falling=True):
+    """A ``cli.run`` offline run dir: no bin overflow in its log, a finite
+    loss (falling unless the run starts at the GT, where Adam's first steps
+    leave the minimum), one loss kernel pair a step, the run's config.yaml
+    read back by the port's reader, its pose error (held to ``limits`` (cm,
+    deg) when given), and its ms/step beside [trainer]'s in-process one."""
+    import numpy as np
+
+    from easyhec_torch.config import load_config
+
+    losses = np.load(run / "checkpoints" / "final.npz")["losses"]
+    wall = json.loads((run / "checkpoints" / "final.json").read_text())["wall_time_s"]
+    m = json.loads((run / "metrics.json").read_text())
+    cfg = load_config(run / "config.yaml")
+    steps = cfg.solver.num_epochs
+    overflow = [ln for ln in (run / "log.txt").read_text().splitlines() if "overflow" in ln]
+    print(f"[cli {tag}] loss {losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps; "
+          f"error {m['err_trans_geodesic_cm']:.4f} cm {m['err_rot_geodesic_deg']:.4f} deg"
+          f"{' (limits %s cm, %s deg)' % limits if limits else ''}; wall_time_s / steps "
+          f"{wall / steps * 1e3:.3f} ms/step ({cfg.model.W}x{cfg.model.H}) beside [trainer]'s "
+          f"{trainer_ms:.3f} (bench scene, in process, this call); the CLI's own "
+          f"{secs - wall:.3f} s of its {secs:.3f} (start, config, data, init, artifacts); "
+          f"{GPU}")
+    if overflow:
+        raise AssertionError(f"[cli {tag}] bin overflow: {overflow}")
+    if len(losses) != steps or not np.isfinite(losses).all() or (
+            falling and not losses[-1] < losses[0]):
+        raise AssertionError(f"[cli {tag}] loss trace {losses[:3]} ... {losses[-3:]}")
+    if launches.get(fwd) != steps or launches.get(bwd) != steps:
+        raise AssertionError(f"[cli {tag}] {launches} for {steps} steps")
+    if cfg.output_dir != str(run) or cfg.model.urdf_path != "assets/mini_arm.urdf":
+        raise AssertionError(f"[cli {tag}] config.yaml reads back as {cfg}")
+    if limits and not (m["err_trans_geodesic_cm"] < limits[0]
+                       and m["err_rot_geodesic_deg"] < limits[1]):
+        raise AssertionError(f"[cli {tag}] ended at {m}")
+    return cfg
+
+
+def cli_phase(work: Path, trainer_ms: float):
+    """[cli]: every command-line tool, started as a user starts it (``python
+    -m easyhec_torch.cli.<name> -c configs/<file>.yaml ...``) in a fresh
+    interpreter with cwd at the checkout, no ``--device`` flag, and PyYAML,
+    JAX, optax, easyhec_tpu, OpenCV and matplotlib blocked; W = ``work``.
+
+    1. configs/sim_mini.yaml exactly as the README runs it: ``simulate --out
+       W/sim`` then ``run dataset.data_dir=W/sim`` (the dense fused route,
+       K1f/K1b and K4f, at its 240x320 and 400 steps, from the dataset's GT).
+    2. configs/xarm7_example.yaml at its widths (1280x720, 16x32 tiles, cap
+       1664, rect 8x5, bin_big_k 3840, compact_chunks 384, adaptive
+       rebinning, 1000 steps) with the arm swapped by CLI_X7's overrides:
+       ``simulate --n-frames 10`` (its own camera: 1.6 m, 40 deg, 0.9 m, f =
+       1.2 x 1280); ``run`` with the config's global_search init (no pose
+       limit: on the mini arm the search lands on a rolled pose); ``run``
+       from the GT perturbed as cli/run.py::perturbed_start does, passed as
+       a nested flow list with init_method=manual (1.5 cm, 1.5 deg);
+       ``validate`` and ``tune_init --global-search`` on the first run;
+       ``simulate --ring 8``; ``run --iterative`` from the perturbed GT
+       (1.5 cm, 1.5 deg); ``train_segmenter``, ``annotate --auto`` on its
+       camera 0 and ``diagnose`` on the masks annotate wrote.
+
+    Cuts: the mini arm for the xArm7; ``run --iterative`` at 2 explore
+    rounds (the config's 5); ``train_segmenter`` at 2 cameras x 4 frames and
+    50 steps (6 x 8 and 600); ``diagnose --steps 100`` (the config's 1000).
+    Every child must exit 0, print its line, launch its kernels and write its
+    artifacts; none may rebuild a kernel library."""
+    import numpy as np
+
+    from easyhec_torch.cli.run import perturbed_start
+    from easyhec_torch.ops import _build
+
+    W = Path(work)
+    W.mkdir(parents=True)
+    sim, x7 = ["-c", "configs/sim_mini.yaml"], ["-c", "configs/xarm7_example.yaml"]
+    t0 = time.perf_counter()
+    secs = {}
+    print(f"[cli] {len(CLI_BLOCKED)} packages blocked in every child: {', '.join(CLI_BLOCKED)}; "
+          f"xarm7_example's overrides: {' '.join(CLI_X7)}; {GPU}")
+
+    def cli(tag, module, args, expect, kernels, root=None, artifacts=()):
+        launches, secs[tag] = _cli(tag, module, args, expect, kernels, root, artifacts)
+        return launches, secs[tag]
+
+    data = [f"{d}/{i:06d}.{e}" for d, e in (("color", "png"), ("mask", "png"), ("qpos", "txt"))
+            for i in (0, 9)] + ["K.txt", "Tc_c2b.txt"]
+    cli("simulate", "simulate", [*sim, "--out", f"{W}/sim"], "wrote 10 frames", {"sil_fwd"},
+        W / "sim", data)
+    la, s = cli("run", "run", [*sim, f"dataset.data_dir={W}/sim", f"output_dir={W}/simrun"],
+                "solved Tc_c2b", {"loss_fwd", "loss_bwd", "sil_fwd", "tile_fwd"},
+                W / "simrun", RUN_ARTIFACTS)
+    _cli_run_held("run", W / "simrun", la, s, trainer_ms, "loss_fwd", "loss_bwd", (1.5, 1.5),
+                  falling=False)  # sim_mini's auto init starts at the dataset's GT
+
+    x7data = [f"dataset.data_dir={W}/x7"]
+    cli("simulate x7", "simulate", [*x7, "--out", f"{W}/x7", "--n-frames", "10", *CLI_X7],
+        "wrote 10 frames", {"sil_fwd"}, W / "x7", data)
+    compact = {"loss_fwd_compact", "loss_bwd_compact", "sil_fwd"}
+    la, s = cli("run x7 global_search", "run",
+                [*x7, *CLI_X7, *x7data, f"output_dir={W}/x7run"], "solved Tc_c2b",
+                compact | {"tile_fwd", "tile_bwd_counted"}, W / "x7run", RUN_ARTIFACTS)
+    _cli_run_held("run x7 global_search", W / "x7run", la, s, trainer_ms,
+                  "loss_fwd_compact", "loss_bwd_compact")
+    start = perturbed_start(np.loadtxt(W / "x7" / "Tc_c2b.txt"), 0)
+    # fixed-point digits: a float written as 1e-05 would read back as a
+    # string (a YAML 1.1 float needs a dot), as it does under PyYAML
+    flow = "[" + ", ".join("[" + ", ".join(f"{v:.9f}" for v in row) + "]" for row in start) + "]"
+    la, s = cli("run x7 manual", "run",
+                [*x7, *CLI_X7, *x7data, f"output_dir={W}/x7manual",
+                 f"model.init_Tc_c2b={flow}", "model.init_method=manual"],
+                "solved Tc_c2b", compact | {"tile_fwd"}, W / "x7manual", RUN_ARTIFACTS)
+    cfg = _cli_run_held("run x7 manual", W / "x7manual", la, s, trainer_ms,
+                        "loss_fwd_compact", "loss_bwd_compact", (1.5, 1.5))
+    if not np.allclose(cfg.model.init_Tc_c2b, start, atol=1e-8):
+        raise AssertionError(f"[cli run x7 manual] ran from {cfg.model.init_Tc_c2b}")
+    run7 = [*CLI_X7, *x7data, f"output_dir={W}/x7run"]
+    cli("validate", "validate", [*x7, *run7], '"mean_iou"', {"sil_fwd"}, W / "x7run",
+        ["validate/report.json", "validate/overlay_0009.png"])
+    cli("tune_init", "tune_init", [*x7, "--global-search", *run7], '"search_iou"',
+        {"tile_fwd", "tile_bwd_counted", "sil_fwd"}, W / "x7run", ["tune_init/tune_overlay.png"])
+    ring = [f"{d}/{i:06d}.{e}" for d, e in (("color", "png"), ("mask", "png"), ("pose", "txt"))
+            for i in (0, 7)] + ["K.txt", "diameter.txt", "model.ply", "qpos.txt"]
+    cli("simulate ring", "simulate", [*x7, "--out", f"{W}/ring", "--ring", "8", *CLI_X7],
+        "wrote 8 ring views", {"sil_fwd"}, W / "ring", ring)
+    cli("run --iterative", "run",
+        [*x7, "--iterative", *CLI_X7, *x7data, f"output_dir={W}/x7it", "model.init_method=auto",
+         "solver.explore_iters=2"], "simulated closed loop against GT", compact,
+        W / "x7it", ["Tc_c2b.txt", "metrics.json", "checkpoints/round_000.npz",
+                     "checkpoints/round_001.npz", "captures/mask/000001.png"])
+    m = json.loads((W / "x7it" / "metrics.json").read_text())
+    print(f"[cli run --iterative] error {m['err_trans_geodesic_cm']:.4f} cm "
+          f"{m['err_rot_geodesic_deg']:.4f} deg (limits 1.5 cm, 1.5 deg)")
+    if not (m["err_trans_geodesic_cm"] < 1.5 and m["err_rot_geodesic_deg"] < 1.5):
+        raise AssertionError(f"[cli run --iterative] ended at {m}")
+    cli("train_segmenter", "train_segmenter",
+        [*x7, "--out", f"{W}/seg.pkl", "--data-out", f"{W}/segdata", "--n-cams", "2",
+         "--frames-per-cam", "4", "--steps", "50", *CLI_X7, f"output_dir={W}/segrun"],
+        '"val_iou_mean"', {"sil_fwd"}, W, ["seg.pkl", "segdata/cam00/mask/000003.png",
+                                           "segdata/cam01/K.txt"])
+    cli("annotate", "annotate",
+        ["--data-dir", f"{W}/segdata/cam00", "--auto", "--weights", f"{W}/seg.pkl",
+         "--overwrite"], "wrote 4 masks", set(), W / "segdata" / "cam00",
+        ["mask/000000.png", "mask/000003.png"])
+    cli("diagnose", "diagnose",
+        [*x7, "--out", f"{W}/diag", "--steps", "100", *CLI_X7,
+         f"dataset.data_dir={W}/segdata/cam00", f"output_dir={W}/diagrun"],
+        "report written to", compact, W / "diag", ["report.json", "report.md", "overlays.png"])
+    total = time.perf_counter() - t0
+    libs = len(list(_build._build_dir().glob("*.so")))
+    print(f"[cli] {len(secs)} commands in {total:.3f} s: "
+          f"{json.dumps({k: round(v, 3) for k, v in secs.items()})}; every child loaded "
+          f"the {libs} kernel libraries built above, none rebuilt (no child [build]); {GPU}")
+    return secs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=1000)
@@ -3425,7 +3660,7 @@ def main() -> int:
         _profile(unfused, lp, K, d0, target_u, args.steps, rebins_u, Path(args.profile),
                  "unfused", "tile_fwd_kernel", "tile_bwd_kernel")
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
-    trainer_launches, _, trainer_cfg, trainer_batch = trainer_phase(
+    trainer_launches, trainer_ms, trainer_cfg, trainer_batch = trainer_phase(
         lp, K, xi, qs, target_d, args.steps, work / "trainer")
     sil_launches = silhouette_path(dense, lp, K, xi, target_d,
                                    {"sil_fwd": pr.sil_fwd_cuda, "sil_bwd": pr.sil_bwd_cuda},
@@ -3467,6 +3702,8 @@ def main() -> int:
     kernels += band_rows
     for row, n in zip(band_rows, band_launches.values()):
         launches[row["name"]] = n
+    torch.cuda.empty_cache()  # the children share the card with this process
+    cli_phase(work / "cli", trainer_ms)
     shutil.rmtree(work)
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -2,9 +2,10 @@
 
 Copy of easyhec_tpu/config/config.py: the same dataclass tree, defaults and
 dotted CLI overrides, so one configuration file drives either package. Two
-differences: PyYAML is imported only inside the functions that parse YAML
-(so ``Config`` imports on a machine without it), and ``save_config`` writes
-JSON, which is YAML too, so both packages' ``load_config`` read it.
+differences: YAML is read by ``yaml_lite.load``, the port's own reader (the
+standard library only; the values ``yaml.safe_load`` gives, PyYAML's quirks
+included), on every machine, and ``save_config`` writes JSON, which is YAML
+too, so both packages' ``load_config`` read it.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import json
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any
+
+from . import yaml_lite
 
 __all__ = [
     "Config",
@@ -178,10 +181,7 @@ def _update_dataclass(obj: Any, data: dict) -> Any:
 def load_config(path: str | Path | None = None, overrides: list[str] | None = None) -> Config:
     cfg = Config()
     if path is not None:
-        import yaml
-
-        with open(path) as f:
-            data = yaml.safe_load(f) or {}
+        data = yaml_lite.load(Path(path).read_text()) or {}
         _update_dataclass(cfg, data)
     if overrides:
         apply_overrides(cfg, overrides)
@@ -191,8 +191,6 @@ def load_config(path: str | Path | None = None, overrides: list[str] | None = No
 def apply_overrides(cfg: Config, overrides: list[str]) -> Config:
     """Dotted-path CLI overrides: ["solver.max_lr=0.01", "model.H=720"]; each
     value is parsed as YAML."""
-    import yaml
-
     for item in overrides:
         key, _, raw = item.partition("=")
         if not _:
@@ -202,7 +200,7 @@ def apply_overrides(cfg: Config, overrides: list[str]) -> Config:
         for p in parts[:-1]:
             obj = getattr(obj, p)
         getattr(obj, parts[-1])  # unknown keys raise AttributeError
-        val = yaml.safe_load(raw)
+        val = yaml_lite.load(raw)
         setattr(obj, parts[-1], val)
     return cfg
 

@@ -2,12 +2,13 @@
 jax, optax, easyhec_tpu or __graft_entry__, and its entry points refuse to
 fall back to the CPU when the caller did not ask for it. The GPU machine has
 no PyYAML, OpenCV, PIL or matplotlib either: every module imports without
-them, and they are needed only to read config files, OpenCV's GrabCut and
-window, and formats other than PNG.
+them, config files are read with the port's own YAML reader, and the others
+are needed only for OpenCV's GrabCut and window and formats other than PNG.
 """
 import importlib
 import json
 import pkgutil
+import re
 import shutil
 import subprocess
 import sys
@@ -55,8 +56,9 @@ def test_every_module_imports_without_jax():
 # unfused route (K5), the global search, the tiled depth pass and the
 # simulator, with the online loop, with the offline tools and the
 # kernel-free render options, with perception and the remaining tools, and
-# with multi-device.
+# with multi-device, and the YAML reader.
 NEW_MODULES = (
+    "easyhec_torch.config.yaml_lite",
     "easyhec_torch.parallel",
     "easyhec_torch.parallel.comm",
     "easyhec_torch.parallel.distributed",
@@ -114,11 +116,20 @@ import easyhec_torch
 names = [m.name for m in pkgutil.walk_packages(easyhec_torch.__path__, "easyhec_torch.")]
 for n in names:
     importlib.import_module(n)
-from easyhec_torch.config import Config, save_config
+from easyhec_torch.config import Config, apply_overrides, load_config, save_config
 cfg = Config()
 out = Path(tempfile.mkdtemp()) / "config.yaml"
 save_config(cfg, out)
 assert json.loads(out.read_text())["render"]["compact_chunks"] == 0
+# a config file, its overrides and the run's config.yaml, read with no PyYAML
+cfg = load_config({str(ROOT / "configs" / "franka_online.yaml")!r},
+                  ["model.H=720", "render.fused=off", "model.use_links=[a, b]"])
+assert cfg.model.init_method == "manual" and cfg.model.init_Tc_c2b[3] == [0.0, 0.0, 0.0, 1.0]
+assert (cfg.model.H, cfg.render.fused, cfg.model.use_links) == (720, False, ["a", "b"])
+apply_overrides(cfg, ["solver.max_lr=3e-3", "output_dir='runs/x: #1'"])
+assert cfg.solver.max_lr == "3e-3" and cfg.output_dir == "runs/x: #1"
+save_config(cfg, out)
+assert load_config(out) == cfg
 import numpy as np
 from easyhec_torch.utils.imaging import read_png, write_png
 img = (np.arange(48 * 64 * 3) % 251).astype(np.uint8).reshape(48, 64, 3)
@@ -126,6 +137,14 @@ write_png(out.parent / "x.png", img)
 assert (read_png(out.parent / "x.png") == img).all()
 print(json.dumps(names))
 """
+
+
+def test_no_module_imports_yaml():
+    """The port reads YAML with its own config/yaml_lite.py on every machine."""
+    pkg = ROOT / "easyhec_torch"
+    found = [str(p.relative_to(ROOT)) for p in pkg.rglob("*.py")
+             if re.search(r"^\s*(import yaml|from yaml\b)", p.read_text(), re.M)]
+    assert found == []
 
 
 def test_new_modules_import_without_host_packages():

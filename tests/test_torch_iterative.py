@@ -114,7 +114,7 @@ def test_run_iterative_matches_jax(tmp_path, monkeypatch):
 
 _NO_JAX = """
 import runpy, sys
-for k in ("jax", "jaxlib", "optax", "easyhec_tpu", "__graft_entry__"):
+for k in ("jax", "jaxlib", "optax", "easyhec_tpu", "__graft_entry__", "yaml"):
     sys.modules[k] = None  # any import of it now raises ImportError
 sys.argv = sys.argv[1:]
 runpy.run_module(sys.argv[0], run_name="__main__")
@@ -123,7 +123,7 @@ runpy.run_module(sys.argv[0], run_name="__main__")
 
 def test_cli_iterative_without_jax(tmp_path):
     """``cli.simulate`` then ``cli.run --iterative --device cpu`` on sim_mini
-    at 120×160 with every JAX module blocked: three rounds against the
+    at 120×160 with every JAX module and PyYAML blocked: three rounds against the
     simulated GT, from the GT perturbed in se(3)."""
     data = tmp_path / "data"
     size = ["model.H=120", "model.W=160"]

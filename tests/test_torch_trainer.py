@@ -51,8 +51,15 @@ H, W = 120, 160
 def test_configs_load_equal(name, monkeypatch):
     monkeypatch.chdir(ROOT)
     path = ROOT / "configs" / name
-    opts = ["solver.max_lr=0.01", "render.tile_h=8", "model.use_links=[a, b]"]
-    assert dataclasses.asdict(t_load(path, opts)) == dataclasses.asdict(j_load(path, opts))
+    opts = ["solver.max_lr=0.01", "render.tile_h=8", "model.use_links=[a, b]",
+            "model.init_Tc_c2b=[[1, 0, 0, 0.1], [0, 1, 0, -0.2], [0, 0, 1, 1.5], [0, 0, 0, 1]]",
+            "render.fused=off", "solver.max_lr=3e-3"]
+    # the port's own YAML reader against JAX's PyYAML, quirks included: 3e-3
+    # (no dot) stays a string in both
+    t_cfg, j_cfg = t_load(path, opts), j_load(path, opts)
+    assert dataclasses.asdict(t_cfg) == dataclasses.asdict(j_cfg)
+    assert t_cfg.solver.max_lr == "3e-3" and t_cfg.render.fused is False
+    assert t_cfg.model.init_Tc_c2b[2] == [0, 0, 1, 1.5]
 
 
 @pytest.fixture(scope="module")
@@ -354,7 +361,7 @@ def test_generate_dataset_matches_jax(tmp_path, monkeypatch):
 
 _NO_JAX = """
 import runpy, sys
-for k in ("jax", "jaxlib", "optax", "easyhec_tpu", "__graft_entry__", "matplotlib"):
+for k in ("jax", "jaxlib", "optax", "easyhec_tpu", "__graft_entry__", "matplotlib", "yaml"):
     sys.modules[k] = None  # any import of it now raises ImportError
 sys.argv = sys.argv[1:]
 runpy.run_module(sys.argv[0], run_name="__main__")
@@ -363,8 +370,9 @@ runpy.run_module(sys.argv[0], run_name="__main__")
 
 def test_simulate_then_run_without_jax(tmp_path):
     """The port's simulate CLI writes a dataset and its run CLI calibrates on
-    it, with every JAX module and matplotlib blocked (the run still writes
-    its image panels); JAX's loader reads the dataset."""
+    it from configs/sim_mini.yaml, with every JAX module, matplotlib and
+    PyYAML blocked (the run still writes its image panels); JAX's loader
+    reads the dataset."""
     data = tmp_path / "data"
     size = [f"model.H={H}", f"model.W={W}"]
     r = subprocess.run([sys.executable, "-c", _NO_JAX, "easyhec_torch.cli.simulate",
