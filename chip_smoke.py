@@ -38,8 +38,14 @@ Phases, in order (any failure exits non-zero):
    tile, the backwards over one 4096-pixel live list) against their plain
    versions.
 3. Main paths: ``calibrate`` at the bench scene on the compact, dense and
-   unfused routes, 1000 steps each. Asserts no overflow, a falling loss, and
-   one loss (or K5f and counted K5b) kernel pair launch per step.
+   unfused routes, 1000 steps each, each step and each rebin a replay of a
+   CUDA graph captured once per call. Asserts no overflow, a falling loss,
+   and one loss (or K5f and counted K5b) kernel pair launch per step (the
+   wrappers' counters count replays). ``[main eager]``: the same scene and
+   calibrate loop, graphed then eager (its private ``graphed=False``), three
+   turns on the compact and dense routes: traces bit-identical, ms/step
+   median and spread of each, the capture's seconds and each runner's peak
+   memory (tests/test_torch_cuda.py holds the unfused route's graphs too).
 4. Dense trainer: ``run_offline_calibration`` with an in-memory Config and
    CalibBatch. Asserts no overflow, a falling loss, one K1f and one K1b
    launch per step, one K4f launch per render_outputs call, the artifacts.
@@ -58,10 +64,13 @@ Phases, in order (any failure exits non-zero):
    frames, loss, pose error, the seconds of capture, calibrate, explore
    and plan, the explorer's statistics and the launches of K2f, K2b, K3
    and K4f. Asserts the final error under 1.5 cm and 1.5 deg and K3's
-   launches per scoring pass. Then K3 at the explorer's scoring shape (5
+   launches per scoring pass; each scoring pass replays one CUDA graph per
+   batch of 5 candidates. Then K3 at the explorer's scoring shape (5
    frames of 640x360) against its plain version, with one scoring pair's
    CUDA-event time (host-paced), host time and device busy time (the
-   profiler's sum of its device ops).
+   profiler's sum of its device ops); ``[explore eager]``: round 1's
+   scoring pass on its first 200 candidates graphed, then eager, bit for
+   bit, with the seconds of each.
 8. The remaining options and offline tools. ``[schedules]``: the compact
    route's calibrate under warmup_cosine (100 warmup steps), its lr at
    four steps against the closed form, one K2f/K2b pair per step.
@@ -141,7 +150,8 @@ Phases, in order (any failure exits non-zero):
 Prints the kernel table as one JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. With --profile DIR it
 also replays the compact, the dense and the unfused ``calibrate`` runs
-under torch.profiler and writes each run's device busy share and per-step
+under torch.profiler (the graphs captured before the trace starts) and
+writes each run's device busy share, device ops a step and per-step
 breakdown into DIR.
 """
 from __future__ import annotations
@@ -1134,6 +1144,92 @@ def main_path(renderer, lp, K, xi, target, steps, kernels, label):
     return launches, dt / steps * 1e3, res.rebins
 
 
+def _spread(xs) -> str:
+    """median (min-max) of a list of ms/step."""
+    import statistics
+
+    return f"{statistics.median(xs):.3f} ({min(xs):.3f}-{max(xs):.3f})"
+
+
+def main_eager_phase(lp, K, xi, steps, routes, reps=3):
+    """The graphed calibrate against the eager runner on the same scene, in
+    this call: per route, ``reps`` turns of (graphed, eager), each a
+    ``steps``-step run of calib._calibrate_scan (calibrate's loop; its
+    private ``graphed=False`` runs the same step and rebin functions
+    eagerly) from xi + 0.01 with adaptive rebinning. Every graphed trace
+    must equal the eager one bit for bit (losses, history, pose, rebins,
+    overflow) and launch the route's kernels as often, the backward once
+    per step. Prints ms/step median and spread per runner, the capture's
+    seconds (warmup on copies, then the rebin and step graphs) and each
+    runner's peak device memory over what was allocated before the run.
+    routes: [(label, renderer, target, {name: wrapper})]."""
+    import statistics
+
+    import torch
+
+    from easyhec_torch.models import calib
+
+    real_capture = calib._Scan._capture
+    capture_s = []
+
+    def timed_capture(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graphs = real_capture(self)
+        torch.cuda.synchronize()
+        capture_s.append(time.perf_counter() - t0)
+        return graphs
+
+    d0 = (xi + 0.01).detach()
+    calib._Scan._capture = timed_capture
+    try:
+        for label, r, target, kernels in routes:
+            ms, peak, ref = {True: [], False: []}, {True: [], False: []}, None
+            caps = []
+            for _ in range(reps):
+                for graphed in (True, False):
+                    _reset(kernels)
+                    capture_s.clear()
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    out = calib._calibrate_scan(d0, lp, K, target, r, steps, 3e-3, "adam",
+                                                "constant", 0.0, 1.0, rebin_every=0,
+                                                graphed=graphed)
+                    torch.cuda.synchronize()
+                    ms[graphed].append((time.perf_counter() - t0) / steps * 1e3)
+                    peak[graphed].append((torch.cuda.max_memory_allocated() - base) / 2**20)
+                    launches = {k: fn.launches for k, fn in kernels.items()}
+                    if graphed:
+                        caps += capture_s
+                    dof, losses, history, ov, rebins = out
+                    if ov or list(launches.values())[1] != steps:
+                        raise AssertionError(f"[main eager] {label}: overflow {ov} or "
+                                             f"launches {launches} for {steps} steps")
+                    if ref is None:
+                        ref = (out, launches)
+                        continue
+                    (d1, l1, h1, o1, r1), la = ref
+                    if not (torch.equal(losses, l1) and torch.equal(history, h1)
+                            and torch.equal(dof, d1) and (ov, rebins) == (o1, r1)
+                            and launches == la):
+                        raise AssertionError(f"[main eager] {label}: graphed={graphed} "
+                                             f"differs from the first run (rebins {rebins} "
+                                             f"vs {r1}, launches {launches} vs {la})")
+            g, e = ms[True], ms[False]
+            print(f"[main eager] {label}: {reps} turns of graphed then eager, {steps} steps "
+                  f"each; ms/step graphed {_spread(g)}, eager {_spread(e)}: eager / graphed "
+                  f"{statistics.median(e) / statistics.median(g):.2f}x; traces bit-identical "
+                  f"across all {2 * reps} runs ({ref[0][4]} rebins, launches "
+                  f"{json.dumps(ref[1])}); capture (warmup + 2 graphs) "
+                  f"{', '.join(f'{c:.3f}' for c in caps)} s; peak memory over the scene "
+                  f"graphed {max(peak[True]):.1f} MiB, eager {max(peak[False]):.1f} MiB "
+                  f"({GPU})")
+    finally:
+        calib._Scan._capture = real_capture
+
+
 def trainer_phase(lp, K, xi, qs, target, steps, out_dir):
     """run_offline_calibration on the dense route at the bench scene, with an
     in-memory Config and CalibBatch (the bench scene has no config file;
@@ -1362,17 +1458,12 @@ def trainer_search_phase(lp, K, xi, qs, target, steps):
 
 
 def _all_kernels():
-    """Every kernel wrapper's launch counter, by name."""
+    """Every kernel wrapper's launch counter (ops.pose_raster.COUNTED), by
+    its name without ``_cuda``."""
     from easyhec_torch.ops import pose_raster as pr
-    from easyhec_torch.ops import pose_raster_compact as prc
-    from easyhec_torch.ops import tile_raster as tr
+    from easyhec_torch.ops import pose_raster_compact, tile_raster  # noqa: F401
 
-    return {"loss_fwd": pr.loss_fwd_cuda, "loss_bwd": pr.loss_bwd_cuda,
-            "sil_fwd": pr.sil_fwd_cuda, "sil_bwd": pr.sil_bwd_cuda,
-            "loss_fwd_compact": prc.loss_fwd_compact_cuda,
-            "loss_bwd_compact": prc.loss_bwd_compact_cuda,
-            "tile_fwd": tr.tile_fwd_cuda, "tile_bwd": tr.tile_bwd_cuda,
-            "tile_bwd_counted": tr.tile_bwd_counted_cuda}
+    return {fn.__name__.removesuffix("_cuda"): fn for fn in pr.COUNTED}
 
 
 def _launched(kernels):
@@ -2363,42 +2454,53 @@ def silhouette_path(renderer, lp, K, xi, target, kernels, label, steps=20):
 
 def _profile(renderer, lp, K, d0, target, steps, main_rebins, out, tag, fwd_pat, bwd_pat):
     """Replay a ``calibrate`` run (same start, steps and settings, so the
-    same rebin rate) under torch.profiler. Reports that run's own device
-    busy share (device time over its wall time) and its device time per
-    step by part; writes out/profile_<tag>.txt (top ops) and
+    same rebin rate) under torch.profiler: calibrate's loop over chunks of
+    50 on the scan it sets up (calib._chunk_scan), captured as CUDA graphs
+    before the profiler starts, so the trace holds the replays. Reports
+    that run's own device busy share (device time over its wall time) and
+    its device time per step by part (each rebin replay inside a "rebin"
+    range, read as that range's span on the device); writes out/profile_<tag>.txt (top ops) and
     out/profile_breakdown_<tag>.json. No chrome trace: at 1000 steps it
     would hold millions of events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from easyhec_torch.models.calib import calibrate
+    from easyhec_torch.models import calib
 
     out.mkdir(parents=True, exist_ok=True)
-    build = renderer.bin_state
+    opt = calib.make_optimizer("adam", max_lr=3e-3, total_steps=steps)
+    d = torch.as_tensor(d0, dtype=torch.float32, device=DEVICE)
+    scan = calib._chunk_scan(d, opt.init(d), opt, lp, K, target,
+                             calib.tile_masks(target, renderer), renderer, min(50, steps),
+                             1.0, 0.0, 0, graphed=True)  # captured here
+    real_rebin = calib._Scan.rebin
 
-    def rebin(*a, **kw):
+    def rebin(self):
         with record_function("rebin"):
-            return build(*a, **kw)
+            real_rebin(self)
 
-    renderer.bin_state = rebin  # calibrate's bin builds, marked for the trace
+    calib._Scan.rebin = rebin  # the rebin replays, marked for the trace
+    rebins = 0
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            res = calibrate(d0, renderer, lp, K, target, num_steps=steps, max_lr=3e-3,
-                            rebin_every=0)
+            for done in range(0, steps, 50):
+                rebins += scan.run(min(50, steps - done))[5]
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        del renderer.bin_state
+        calib._Scan.rebin = real_rebin
     t0 = time.perf_counter()
     us = dict(total=0.0, fwd=0.0, bwd=0.0, rebin=0.0)
     n_ops = 0
     for ev in prof.events():
         if ev.device_type == DeviceType.CPU:
-            if ev.name == "rebin":  # the kernels launched inside the range
+            continue
+        if getattr(ev, "is_user_annotation", False):
+            if ev.name == "rebin":  # the device span of one rebin replay
                 us["rebin"] += ev.device_time_total
-        elif not getattr(ev, "is_user_annotation", False):
+        else:
             us["total"] += ev.device_time_total
             n_ops += 1
             if fwd_pat in ev.name:
@@ -2410,13 +2512,13 @@ def _profile(renderer, lp, K, d0, target, steps, main_rebins, out, tag, fwd_pat,
     busy = us["total"] / 1e3 / wall_ms
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
     (out / f"profile_{tag}.txt").write_text(table)
-    summary = dict(route=tag, steps=steps, rebins=res.rebins, main_path_rebins=main_rebins,
+    summary = dict(route=tag, steps=steps, rebins=rebins, main_path_rebins=main_rebins,
                    wall_ms=wall_ms, device_ms=us["total"] / 1e3, busy_share=busy,
                    device_ops_per_step=n_ops / steps, device_ms_per_step=per_step,
-                   device_ms_per_rebin=us["rebin"] / 1e3 / max(res.rebins, 1))
+                   device_ms_per_rebin=us["rebin"] / 1e3 / max(rebins, 1))
     (out / f"profile_breakdown_{tag}.json").write_text(json.dumps(summary, indent=1))
-    print(f"[profile {tag}] replay under torch.profiler: {steps} steps, "
-          f"{res.rebins} rebins (unprofiled run {main_rebins}), {wall_ms:.3f} ms wall, "
+    print(f"[profile {tag}] graphed replay under torch.profiler: {steps} steps, "
+          f"{rebins} rebins (unprofiled run {main_rebins}), {wall_ms:.3f} ms wall, "
           f"that is {wall_ms / steps:.3f} ms/step with the profiler on")
     print(f"[profile {tag}] device busy {us['total'] / 1e3:.3f} ms of that run's "
           f"{wall_ms:.3f} ms wall = {busy:.4f}; {n_ops / steps:.1f} device ops per step")
@@ -2574,7 +2676,7 @@ def iterative_phase(steps):
                 f"-> {r['res'].losses[-1]:.3f}, error {m['err_trans_geodesic_cm']:.4f} cm "
                 f"{m['err_rot_geodesic_deg']:.4f} deg, {r['res'].rebins} rebins; seconds: "
                 f"capture {r['capture_s']:.3f}, calibrate {r['calibrate_s']:.3f}, explore "
-                f"{r['explore_s']:.3f}, plan {r['plan_s']:.3f}; launches K2f {r['K2f']} "
+                f"{r['explore_s']:.3f} (graphed), plan {r['plan_s']:.3f}; launches K2f {r['K2f']} "
                 f"K2b {r['K2b']} K3 {r['K3']} K4f {r['K4f']}")
         if "explore" in r:
             e = r["explore"]
@@ -2698,6 +2800,28 @@ def explore_kernel_phase(explore_in, launches_k3, n_explored):
     print(f"[kernels explore] one scoring pair's device busy time (torch.profiler, the sum "
           f"of its device ops): {busy_ms:.4f} ms, {busy_ms * per_round / 1e3:.3f} s per round "
           f"({GPU})")
+    # The scoring pass of round 1's draw on its first 200 candidates (40
+    # batches), graphed (one graph captured per call, replayed per batch)
+    # then eager: bit for bit, and the seconds.
+    hyp, qs = hist[sel], qs[:200]
+    shared = e._can_share_bins() and \
+        e.hypothesis_spread_px(hyp, explore_in["K"]) <= float(t.margin) - 2.0
+    secs, outs = {}, {}
+    for graphed in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[graphed] = e._score(qs, hyp, explore_in["K"], shared=shared, graphed=graphed)
+        torch.cuda.synchronize()
+        secs[graphed] = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(outs[True], outs[False]))
+    print(f"[explore eager] one _score pass of round 1's draw ({len(qs)} of its "
+          f"{e.n_sample_qposes} candidates x {e.n_hypotheses}, "
+          f"{'shared' if shared else 'exact'}): graphed {secs[True]:.3f} s, "
+          f"eager {secs[False]:.3f} s ({secs[False] / secs[True]:.2f}x); variance, "
+          f"feasibility and overflow bit-identical: {same}; {e.last_bin_states} bin states "
+          f"({GPU})")
+    if not same:
+        raise AssertionError("the graphed _score differs from the eager one")
     return row
 
 
@@ -3589,7 +3713,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     secs = _build.build_all()
     print(f"[build] {sorted(secs)} built in {time.perf_counter() - t0:.2f} s")
     for name in _build.sources():
@@ -3651,7 +3775,13 @@ def main() -> int:
     launches.update(unf_launches)
     print(f"[main] dense and unfused against compact, same call: {ms_d:.3f} and {ms_u:.3f} "
           f"against {ms_c:.3f} ms/step ({ms_d / ms_c:.3f}x, {ms_u / ms_c:.3f}x)")
+    main_eager_phase(lp, K, xi, args.steps, [
+        ("compact", renderer, target, compact_k),
+        ("dense", dense, target_d, {"loss_fwd": pr.loss_fwd_cuda,
+                                    "loss_bwd": pr.loss_bwd_cuda})])
+    profile_s = 0.0
     if args.profile:
+        t0 = time.perf_counter()
         d0 = (xi + 0.01).cpu().numpy()
         _profile(renderer, lp, K, d0, target, args.steps, rebins_c, Path(args.profile),
                  "compact", "loss_fwd_compact_kernel", "loss_bwd_compact_kernel")
@@ -3659,6 +3789,7 @@ def main() -> int:
                  "dense", "pose_fwd_kernel<true>", "pose_bwd_kernel<true>")
         _profile(unfused, lp, K, d0, target_u, args.steps, rebins_u, Path(args.profile),
                  "unfused", "tile_fwd_kernel", "tile_bwd_kernel")
+        profile_s = time.perf_counter() - t0
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     trainer_launches, trainer_ms, trainer_cfg, trainer_batch = trainer_phase(
         lp, K, xi, qs, target_d, args.steps, work / "trainer")
@@ -3715,6 +3846,8 @@ def main() -> int:
     reference_search()
     reference_explore()
 
+    print(f"[smoke] {time.perf_counter() - t_start:.1f} s in all, {profile_s:.1f} of them "
+          f"in --profile's replays")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: d[k] for k in order} for d in kernels]}))

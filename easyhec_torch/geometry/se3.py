@@ -44,8 +44,10 @@ def _V_coeffs(theta2: torch.Tensor):
 
 
 def _bottom_row(top: torch.Tensor) -> torch.Tensor:
-    row = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype, device=top.device)
-    return row.expand(top.shape[:-2] + (1, 4))
+    """[..., 1, 4] rows (0, 0, 0, 1), made on top's device with no copy from
+    the host, so exp can run inside a CUDA graph capture."""
+    return torch.cat([torch.zeros_like(top[..., :1, :3]), torch.ones_like(top[..., :1, :1])],
+                     dim=-1)
 
 
 def exp(xi: torch.Tensor) -> torch.Tensor:

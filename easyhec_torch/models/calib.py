@@ -10,15 +10,21 @@ gradient through the record pack and the triangle setup to the pose. Bin
 states are rebuilt only when the projected drift of the probe points
 exceeds the margin budget (adaptive rebinning, ``opt_scan``).
 
-Where the JAX package runs ``lax.scan`` over a chunk of steps, this runs a
-Python loop: PyTorch executes eagerly, and a rebin decision is one host
-read of the drift scalar per step (the cost is in PERF.md; CUDA graphs are
-the tool that would remove it). Steps still go in chunks of ``chunk`` (50):
-overflow is checked and ``step_hook`` fires once per chunk, exactly as in
-the JAX package, so states and traces line up across the two.
+Where the JAX package compiles a chunk of steps into one program
+(``lax.scan``, the rebin a ``lax.cond`` inside it), this captures one step
+and one rebin as CUDA graphs (``_Scan``, once per ``calibrate`` call) over
+static tensors: the pose, the optimizer's leaves, the bin state, the probe
+pixels, the flags and a device step index that writes the chunk's loss and
+pose traces. The host replays the step graph, reads the drift flag that its
+tail computed on the device (one read per step) and replays the rebin graph
+when the flag is set. On the CPU, and on the sharded path, the same two
+functions run eagerly. Steps still go in chunks of ``chunk`` (50): overflow
+is checked and ``step_hook`` fires once per chunk, exactly as in the JAX
+package, so states and traces line up across the two.
 """
 from __future__ import annotations
 
+import copy
 import logging
 from dataclasses import dataclass
 
@@ -192,6 +198,139 @@ def make_drift_probe_fn(probes: torch.Tensor, K: torch.Tensor):
     return probe_fn
 
 
+def _trace_len(chunk: int, rebin_every: int) -> int:
+    """Steps a chunk runs: ``chunk``, or with a fixed cadence whole windows
+    of ``rebin_every`` steps (the last runs to its end, as in the JAX
+    package, and the trace is cut to ``chunk``)."""
+    inner = min(max(rebin_every, 1), max(chunk, 1))
+    return -(-chunk // inner) * inner
+
+
+class _Scan:
+    """opt_scan's loop over static tensors: the pose, the optimizer's
+    leaves, the bin state, the probe pixels, the overflow flag, the rebin
+    count, a device step index and the loss and pose traces of a chunk
+    (``length`` entries). ``_step`` and ``_rebin`` read and write them in
+    place, so one pair of functions runs eagerly (the CPU; the sharded path,
+    whose collectives cannot be captured) or, with ``graphed``, as two CUDA
+    graphs captured once and replayed at every step and every rebin: the
+    counterpart of the JAX package's one compiled program per chunk. The
+    buffers carry over from chunk to chunk."""
+
+    def __init__(self, dof, opt_state, opt, loss_of, bin_state_of, length: int,
+                 rebin_every: int = 1, combine=None, probe_fn=None,
+                 drift_budget: float = 0.0, graphed: bool = False):
+        dev = dof.device
+        self.opt, self.loss_of, self.bin_state_of = opt, loss_of, bin_state_of
+        self.combine, self.probe_fn, self.budget = combine, probe_fn, float(drift_budget)
+        self.rebin_every = rebin_every
+        self.adaptive = rebin_every >= 1 and probe_fn is not None and drift_budget > 0
+        self.dof = dof.detach().clone()
+        self.leaves = [leaf.detach().clone() for leaf in opt.leaves(opt_state)]
+        self.losses = torch.zeros(length, dtype=torch.float32, device=dev)
+        self.history = torch.zeros((length,) + tuple(dof.shape), dtype=dof.dtype, device=dev)
+        self.idx = torch.zeros(1, dtype=torch.int64, device=dev)  # step within the chunk
+        self.ov = torch.zeros((), dtype=torch.bool, device=dev)
+        self.nrb = torch.zeros((), dtype=torch.int32, device=dev)
+        self.need = torch.zeros((), dtype=torch.bool, device=dev)  # rebin before the next step
+        self.state = self.pix = None  # written by _rebin
+        self.graphs = self._capture() if graphed else None
+
+    def _rebin(self):
+        self.state = self.bin_state_of(self.dof)
+        if self.adaptive:
+            self.pix = self.probe_fn(self.dof)
+        self.ov |= torch.any(self.state.overflow)
+        self.nrb += 1
+
+    def _step(self):
+        d = self.dof.detach().requires_grad_(True)
+        if self.combine is None:
+            loss = self.loss_of(d, self.state)
+            (g,) = torch.autograd.grad(loss, d)
+        else:
+            obj, true_local = self.loss_of(d, self.state)
+            (g,) = torch.autograd.grad(obj, d)
+            loss, g = self.combine(true_local.detach(), g)
+        updates, opt_state = self.opt.update(g, self.opt.from_leaves(self.leaves), self.dof)
+        self.losses.index_copy_(0, self.idx, loss.detach().reshape(1))
+        self.history.index_copy_(0, self.idx, self.dof[None])  # the pose BEFORE the update
+        self.dof.copy_(self.dof + updates)
+        for buf, leaf in zip(self.leaves, self.opt.leaves(opt_state)):
+            buf.copy_(leaf)
+        self.idx += 1
+        if self.adaptive:  # the next step's drift test, on the device
+            drift = torch.max(torch.abs(self.probe_fn(self.dof) - self.pix))
+            torch.gt(drift, self.budget, out=self.need)
+
+    def _capture(self) -> dict:
+        """Warm up once on copies of the buffers, then capture the rebin and
+        the step (in that order: the step reads the state the rebin writes),
+        sharing one memory pool. -> {"rebin": Graph, "step": Graph}."""
+        from ..utils.cuda_graph import Counters, Graph, warm_up
+
+        counters = Counters.kernels()
+        stateful = self.rebin_every >= 1
+        warm = copy.copy(self)
+        for name in ("dof", "losses", "history", "idx", "ov", "nrb", "need"):
+            setattr(warm, name, getattr(self, name).clone())
+        warm.leaves = [b.clone() for b in self.leaves]
+
+        def once():
+            if stateful:
+                warm._rebin()
+            warm._step()
+
+        with torch.cuda.device(self.dof.device):
+            warm_up(once, counters, self.dof.device)
+            del warm
+            graphs = {}
+            pool = None
+            if stateful:
+                graphs["rebin"] = Graph(self._rebin, counters)
+                pool = graphs["rebin"].graph.pool()
+            graphs["step"] = Graph(self._step, counters, pool=pool)
+        return graphs
+
+    def step(self):
+        if self.graphs:
+            self.graphs["step"].replay()
+        else:
+            self._step()
+
+    def rebin(self):
+        if self.graphs:
+            self.graphs["rebin"].replay()
+        else:
+            self._rebin()
+
+    def run(self, chunk: int):
+        """``chunk`` steps on from the buffers' pose and optimizer state ->
+        (dof, opt_state, losses [chunk], history [chunk, 6], overflow,
+        rebins), copies of the buffers: opt_scan's result."""
+        self.idx.zero_()
+        self.ov.zero_()
+        self.nrb.zero_()
+        if self.rebin_every < 1:
+            for _ in range(chunk):
+                self.step()
+        elif self.adaptive:
+            self.rebin()  # a fresh state at the chunk's start (JAX's state0)
+            for i in range(chunk):
+                if i and bool(self.need):  # one host read per step
+                    self.rebin()
+                self.step()
+        else:
+            inner = min(self.rebin_every, chunk)
+            for _ in range(-(-chunk // inner)):
+                self.rebin()
+                for _ in range(inner):
+                    self.step()
+        return (self.dof.clone(), self.opt.from_leaves([b.clone() for b in self.leaves]),
+                self.losses[:chunk].clone(), self.history[:chunk].clone(),
+                bool(self.ov), int(self.nrb))
+
+
 def opt_scan(dof, opt_state, opt, loss_of, bin_state_of, chunk: int,
              rebin_every: int = 1, combine=None, probe_fn=None,
              drift_budget: float = 0.0):
@@ -204,68 +343,34 @@ def opt_scan(dof, opt_state, opt, loss_of, bin_state_of, chunk: int,
 
     - rebin_every < 1: no bin states (overflow False, rebins 0).
     - ADAPTIVE (probe_fn and drift_budget > 0): the state is rebuilt before
-      a render whenever probe drift from its build pose exceeds the budget.
+      a render whenever probe drift from its build pose exceeds the budget
+      (tested on the device at the end of each step; the host reads that
+      one flag per step).
     - fixed cadence: a fresh state every ``rebin_every`` steps; like the JAX
       version, the last window runs to its end and the trace is cut to
       ``chunk`` entries.
 
-    combine: the sharded path's hook (parallel.sharding). When set, loss_of
-    returns (local_objective, local_true_loss); the step differentiates the
-    local objective and combine(true_local, grad) -> (loss, grad) reduces
-    both over the mesh.
+    On CUDA the step and the rebin run as CUDA graphs (_Scan), captured at
+    this call. combine: the sharded path's hook
+    (parallel.sharding), which runs eagerly. When set, loss_of returns
+    (local_objective, local_true_loss); the step differentiates the local
+    objective and combine(true_local, grad) -> (loss, grad) reduces both
+    over the mesh.
     """
-    losses, history = [], []
-
-    def step(dof, opt_state, state):
-        d = dof.detach().requires_grad_(True)
-        if combine is None:
-            loss = loss_of(d, state)
-            (g,) = torch.autograd.grad(loss, d)
-        else:
-            obj, true_local = loss_of(d, state)
-            (g,) = torch.autograd.grad(obj, d)
-            loss, g = combine(true_local.detach(), g)
-        updates, opt_state = opt.update(g, opt_state, dof)
-        losses.append(loss.detach())
-        history.append(dof)
-        return (dof + updates).detach(), opt_state
-
-    def out(dof, opt_state, ov, nrb):
-        return (dof, opt_state, torch.stack(losses[:chunk]),
-                torch.stack(history[:chunk]), bool(ov), int(nrb))
-
-    if rebin_every < 1:
-        for _ in range(chunk):
-            dof, opt_state = step(dof, opt_state, None)
-        return out(dof, opt_state, False, 0)
-
-    if probe_fn is not None and drift_budget > 0:
-        state = bin_state_of(dof)
-        pix = probe_fn(dof)
-        ov, nrb = torch.any(state.overflow), 1
-        for _ in range(chunk):
-            drift = torch.max(torch.abs(probe_fn(dof) - pix))
-            if bool(drift > drift_budget):  # one host read per step
-                state = bin_state_of(dof)
-                pix = probe_fn(dof)
-                ov, nrb = ov | torch.any(state.overflow), nrb + 1
-            dof, opt_state = step(dof, opt_state, state)
-        return out(dof, opt_state, ov, nrb)
-
-    inner = min(rebin_every, chunk)
-    n_outer = -(-chunk // inner)
-    ov = False
-    for _ in range(n_outer):
-        state = bin_state_of(dof)
-        ov = ov | torch.any(state.overflow)
-        for _ in range(inner):
-            dof, opt_state = step(dof, opt_state, state)
-    return out(dof, opt_state, ov, n_outer)
+    scan = _Scan(dof, opt_state, opt, loss_of, bin_state_of,
+                 _trace_len(chunk, rebin_every), rebin_every, combine, probe_fn,
+                 drift_budget, graphed=dof.device.type == "cuda" and combine is None)
+    return scan.run(chunk)
 
 
-def _calibrate_chunk(dof, opt_state, opt, link_poses, K, masks_ref, ref_tiles,
-                     renderer, chunk, sharpness, robust_delta, rebin_every):
-    """``chunk`` optimization steps (the JAX package's one scan dispatch)."""
+def _chunk_scan(dof, opt_state, opt, link_poses, K, masks_ref, ref_tiles, renderer,
+                chunk, sharpness, robust_delta, rebin_every, graphed):
+    """The counterpart of the JAX package's jitted ``_calibrate_chunk``: the
+    _Scan whose run(n) makes n <= ``chunk`` optimization steps, set up once
+    per calibrate call. ``graphed`` (on CUDA) captures it as CUDA graphs on
+    the routes with a reusable bin state (compact, dense and unfused);
+    the stateless routes (top-k binner, brute, use_pallas=False) run it
+    eagerly."""
 
     def loss_of(d, bin_state):
         return mask_loss(d, renderer, link_poses, K, masks_ref, sharpness,
@@ -289,16 +394,19 @@ def _calibrate_chunk(dof, opt_state, opt, link_poses, K, masks_ref, ref_tiles,
             budget = max(adaptive_drift_budget(renderer.tile, sharpness), 0.0)
             if budget > 0:
                 probe_fn = make_drift_probe_fn(drift_probe_points(renderer, link_poses), K)
-    return opt_scan(dof, opt_state, opt, loss_of, bin_state_of, chunk, eff,
-                    probe_fn=probe_fn, drift_budget=budget)
+    return _Scan(dof, opt_state, opt, loss_of, bin_state_of, _trace_len(chunk, eff), eff,
+                 probe_fn=probe_fn, drift_budget=budget,
+                 graphed=graphed and dof.device.type == "cuda" and eff > 0)
 
 
 def _calibrate_scan(
     init_dof, link_poses, K, masks_ref, renderer, num_steps, max_lr,
     optimizer_name, scheduler, grad_clip, sharpness, robust_delta=0.0,
     chunk=50, rebin_every=1, resume_state=None, step_hook=None,
-    on_overflow="raise",
+    on_overflow="raise", graphed=True,
 ):
+    """calibrate's loop over chunks. graphed=False runs the same step and
+    rebin eagerly on CUDA too (the card's comparison for the graphs)."""
     opt = make_optimizer(optimizer_name, max_lr=max_lr, total_steps=num_steps,
                          scheduler=scheduler, grad_clip=grad_clip)
     dev = init_dof.device
@@ -322,12 +430,13 @@ def _calibrate_scan(
     ref_tiles = tile_masks(masks_ref, renderer)
     overflowed = False
     rebins = 0
+    scan = None
     while done < num_steps:
         n = min(chunk, num_steps - done)
-        dof, opt_state, l, h, ov, nrb = _calibrate_chunk(
-            dof, opt_state, opt, link_poses, K, masks_ref, ref_tiles, renderer,
-            n, sharpness, robust_delta, rebin_every,
-        )
+        if scan is None:  # captured once per call, replayed in every chunk
+            scan = _chunk_scan(dof, opt_state, opt, link_poses, K, masks_ref, ref_tiles,
+                               renderer, n, sharpness, robust_delta, rebin_every, graphed)
+        dof, opt_state, l, h, ov, nrb = scan.run(n)
         losses.append(l)
         history.append(h)
         done += n

@@ -11,12 +11,16 @@ the host-side motion planner (easyhec_torch.io.planner).
 
 Where the JAX package compiles the whole scoring pass into one program
 (``lax.map`` over candidate batches, ``lax.scan`` over hypotheses), this
-runs the same loops eagerly: one bin state and one render per (batch,
-hypothesis) pair on the exact path (one bin state per batch on the shared
-path). The overflow flags are OR-ed on the device and read once per
-``_score`` call. The random draws come from a ``torch.Generator`` on the CPU
-(``draw_hypotheses_and_candidates``), so the card and the CPU draw the same
-numbers; they are not JAX's.
+captures one candidate batch as a CUDA graph, once per ``_score`` call, and
+replays it for every batch: all hypotheses' bin states and renders (one bin
+state and one render per hypothesis on the exact path, one bin state per
+batch on the shared path) and the variance sums, reading the batch through
+a device index. On the CPU the same batch function runs eagerly, and so do
+the stateless routes (the top-k binner, brute, use_pallas=False) on any
+device. The overflow flags are OR-ed on the device and read once per
+``_score`` call. The random draws come from a ``torch.Generator`` on the
+CPU (``draw_hypotheses_and_candidates``), so the card and the CPU draw the
+same numbers; they are not JAX's.
 """
 from __future__ import annotations
 
@@ -235,7 +239,9 @@ class SpaceExplorer:
         mode. The overflow flag covers both bin saturation and rect-window
         misses: candidate qposes can swing links close to the camera, where
         triangle spans exceed any capacity-only escalation. ``_score`` keeps
-        no state across calls, so nothing of the old renderer survives."""
+        no state across calls (its CUDA graph, captured at the old shapes,
+        is dropped when the call returns, as the JAX package clears its
+        jitted programs here), so nothing of the old renderer survives."""
         r = self.renderer
         t = r.tile
         n_ty = -(-r.H // t.tile_h)
@@ -252,10 +258,12 @@ class SpaceExplorer:
                                       device=r.device)
 
     @torch.no_grad()
-    def _score(self, qposes, hyp_dofs, K, shared: bool = False):
+    def _score(self, qposes, hyp_dofs, K, shared: bool = False, graphed: bool = True):
         """Variance score per candidate and feasibility, on the renderer's
         device: -> (var [C] with -inf where infeasible, feasible [C] bool,
-        overflow [] bool), all tensors on that device."""
+        overflow [] bool), all tensors on that device. graphed=False runs the
+        state-driven batches eagerly on CUDA too (the card's comparison for
+        the graph)."""
         r = self.renderer
         dev = r.device
         f32 = torch.float32
@@ -274,69 +282,101 @@ class SpaceExplorer:
         if pad:
             lp = torch.cat([lp, lp[:1].expand((pad,) + lp.shape[1:])])
         batches = lp.reshape((-1, cb) + lp.shape[1:])
+        nb = batches.shape[0]
 
         t = r.tile
         compact_renderer = t.fused and t.compact_chunks > 0
         # A count-binner renderer exposes an explicit bin state, the only
         # way the per-render overflow flag is observable.
         counted = r.kernel_route and t.binner == "count"
-        overflow = torch.zeros((), dtype=torch.bool, device=dev)
         # introspection: bin states built, and the largest tile load among
         # them (read by explore after the overflow flag, no extra sync)
         self.last_bin_states = 0
         self._max_load = torch.zeros((), dtype=torch.int64, device=dev)
-
-        def bin_state(T, lp_b):
-            st = r.bin_state(T, lp_b, K)
-            self.last_bin_states += 1
-            self._max_load = torch.maximum(self._max_load, st.counts.max().long())
-            return st
-
-        def render(T_h, lp_b, state):
-            if isinstance(state, CompactState):
-                sil = silhouette_compact(r, T_h, K, state)
-            else:
-                sil = r.silhouette(T_h, lp_b, K, bin_state=state)
-            return sil, torch.any(state.overflow)
-
-        var = []
-        if shared or compact_renderer or counted:
-            # State-driven scoring, hypothesis after hypothesis:
-            # - shared: bin once per batch at the MEAN hypothesis pose and
-            #   render every hypothesis against the same bins (the caller
-            #   gates on hypothesis_spread_px <= margin - 2);
-            # - exact: bin at each hypothesis pose.
-            T_mean = se3.exp(hyp_dofs.mean(dim=0))
-            for lp_b in batches:
-                st0 = bin_state(T_mean, lp_b) if shared else None
-
-                def state_at(T_h):
-                    return st0 if shared else bin_state(T_h, lp_b)
-
-                # Variance from the deviations from hypothesis 0's
-                # silhouette: E[d²] − E[d]² with d_0 = 0. The uncentered
-                # E[x²] − E[x]² cancels two O(1) sums and leaves ~3e-5 of
-                # float noise on identical hypotheses.
-                sil0, ov = render(Ts[0], lp_b, state_at(Ts[0]))
-                s = torch.zeros_like(sil0)
-                s2 = torch.zeros_like(sil0)
-                for h in range(1, Hh):
-                    sil, ov_h = render(Ts[h], lp_b, state_at(Ts[h]))
-                    d = sil - sil0
-                    s, s2, ov = s + d, s2 + d * d, ov | ov_h
-                var.append(torch.sum(s2 / Hh - (s / Hh) ** 2, dim=(-2, -1)))
-                overflow = overflow | ov
-        else:
+        if not (shared or compact_renderer or counted):
+            # Stateless routes: one batched render of every hypothesis per
+            # batch, eagerly (their overflow flag is not observable).
             L = lp.shape[1]
+            var = []
             for lp_b in batches:
                 lp_full = lp_b[:, None].expand(cb, Hh, L, 4, 4).reshape(cb * Hh, L, 4, 4)
                 Ts_full = Ts[None].expand(cb, Hh, 4, 4).reshape(cb * Hh, 4, 4)
                 sils = r.silhouette(Ts_full, lp_full, K)
                 sils = sils.reshape((cb, Hh) + sils.shape[-2:])
                 var.append(torch.sum(torch.var(sils, dim=1, unbiased=False), dim=(-2, -1)))
-        var = torch.cat(var)[:C]
+            var = torch.cat(var)[:C]
+            overflow = torch.zeros((), dtype=torch.bool, device=dev)
+            return torch.where(feasible, var, torch.full_like(var, -torch.inf)), feasible, overflow
+
+        # State-driven scoring, hypothesis after hypothesis:
+        # - shared: bin once per batch at the MEAN hypothesis pose and render
+        #   every hypothesis against the same bins (the caller gates on
+        #   hypothesis_spread_px <= margin - 2);
+        # - exact: bin at each hypothesis pose.
+        # One batch is one function of static tensors (the batches, a device
+        # batch index, the scores and flags it writes); on CUDA it is captured
+        # as one graph and replayed for every batch (the JAX package maps one
+        # compiled program over the batches).
+        T_mean = se3.exp(hyp_dofs.mean(dim=0))
+        bufs = dict(
+            bidx=torch.zeros(1, dtype=torch.int64, device=dev),
+            var=torch.zeros((nb, cb), dtype=f32, device=dev),
+            overflow=torch.zeros((), dtype=torch.bool, device=dev),
+            max_load=self._max_load,
+        )
+
+        def batch(b):
+            def bin_state(T):
+                st = r.bin_state(T, lp_b, K)
+                self.last_bin_states += 1
+                torch.maximum(b["max_load"], st.counts.max().long(), out=b["max_load"])
+                return st
+
+            def render(T_h, state):
+                if isinstance(state, CompactState):
+                    sil = silhouette_compact(r, T_h, K, state)
+                else:
+                    sil = r.silhouette(T_h, lp_b, K, bin_state=state)
+                return sil, torch.any(state.overflow)
+
+            lp_b = batches.index_select(0, b["bidx"])[0]
+            st0 = bin_state(T_mean) if shared else None
+
+            def state_at(T_h):
+                return st0 if shared else bin_state(T_h)
+
+            # Variance from the deviations from hypothesis 0's silhouette:
+            # E[d²] − E[d]² with d_0 = 0. The uncentered E[x²] − E[x]²
+            # cancels two O(1) sums and leaves ~3e-5 of float noise on
+            # identical hypotheses.
+            sil0, ov = render(Ts[0], state_at(Ts[0]))
+            s = torch.zeros_like(sil0)
+            s2 = torch.zeros_like(sil0)
+            for h in range(1, Hh):
+                sil, ov_h = render(Ts[h], state_at(Ts[h]))
+                d = sil - sil0
+                s, s2, ov = s + d, s2 + d * d, ov | ov_h
+            v = torch.sum(s2 / Hh - (s / Hh) ** 2, dim=(-2, -1))
+            b["var"].index_copy_(0, b["bidx"], v[None])
+            b["overflow"] |= ov
+            b["bidx"] += 1
+
+        if graphed and dev.type == "cuda":
+            from ..utils.cuda_graph import Counters, Graph, warm_up
+
+            counters = Counters.kernels((self, "last_bin_states"))
+            copies = {k: v.clone() for k, v in bufs.items()}
+            with torch.cuda.device(dev):
+                warm_up(lambda: batch(copies), counters, dev)
+                graph = Graph(lambda: batch(bufs), counters)
+                for _ in range(nb):
+                    graph.replay()
+        else:
+            for _ in range(nb):
+                batch(bufs)
+        var = bufs["var"].reshape(-1)[:C]
         var = torch.where(feasible, var, torch.full_like(var, -torch.inf))
-        return var, feasible, overflow
+        return var, feasible, bufs["overflow"]
 
     def explore(
         self,

@@ -565,8 +565,20 @@ def sil_bwd_cuda(cam, rec, counts, acc, g, meta: Meta):
     return parts
 
 
-for _fn in (loss_fwd_cuda, loss_bwd_cuda, sil_fwd_cuda, sil_bwd_cuda):
-    _fn.launches = 0
+COUNTED = []  # every kernel wrapper of ops/, each counting its launches in .launches
+
+
+def count_launches(*wrappers):
+    """Give each kernel wrapper its launch counter (``.launches``, which the
+    wrapper raises by one where it launches its kernel) and list it in
+    COUNTED, whose counters a CUDA graph's replays advance
+    (utils.cuda_graph.Counters)."""
+    for fn in wrappers:
+        fn.launches = 0
+        COUNTED.append(fn)
+
+
+count_launches(loss_fwd_cuda, loss_bwd_cuda, sil_fwd_cuda, sil_bwd_cuda)
 
 
 def dispatch(cuda_fn, plain_fn, *args):

@@ -43,6 +43,7 @@ from .pose_raster import (
     _dcam,
     check_tensor,
     check_tile,
+    count_launches,
     crop_mask,
     dispatch,
     i32,
@@ -206,8 +207,7 @@ def loss_bwd_compact_cuda(cam, rec, bnl, bct, bcp, ref_tiles, acc, gb, meta: Met
     return parts
 
 
-loss_fwd_compact_cuda.launches = 0
-loss_bwd_compact_cuda.launches = 0
+count_launches(loss_fwd_compact_cuda, loss_bwd_compact_cuda)
 
 
 def _fwd(*args):

@@ -46,6 +46,7 @@ from .pose_raster import (
     _stream,
     check_tensor,
     check_tile,
+    count_launches,
     dispatch,
     pix_grids,
     raise_on,
@@ -287,15 +288,13 @@ def tile_bwd_counted_cuda(tri, counts, acc, g, meta: TileMeta, n_tx: int, cap_bi
     if not 0 < cap_bins <= tri.shape[-1]:
         raise ValueError(f"bins' cap {cap_bins} outside (0, {tri.shape[-1]}]")
     dg = torch.empty((B, 13, T * cap_bins + 1), dtype=torch.float32, device=tri.device)
-    dg[:, :, -1] = 0.0
+    dg[:, :, -1].zero_()
     _bwd_launch(1, tri, counts, acc, g, dg, meta, int(n_tx), int(cap_bins))
     tile_bwd_counted_cuda.launches += 1
     return dg
 
 
-tile_fwd_cuda.launches = 0
-tile_bwd_cuda.launches = 0
-tile_bwd_counted_cuda.launches = 0
+count_launches(tile_fwd_cuda, tile_bwd_cuda, tile_bwd_counted_cuda)
 
 
 def pad_cap(tri):

@@ -104,7 +104,7 @@ def _bin_count_flat(lox, loy, hix, hiy, valid, suby, H, W, th, tw, cap, ry, rx,
         if NCLS == 2:
             tkey = tkey * 2 + _cls(ty, suby[..., None, None])
         keys = torch.where(inside, tkey, SENT).reshape(B, F * R_out)
-        fid = ar(F).repeat_interleave(R_out).expand(B, F * R_out)
+        fid = ar(F)[:, None].expand(F, R_out).reshape(-1).expand(B, F * R_out)
         big_ids = None
     else:
         # ---- span-classed enumeration: bboxes spanning <= 2 tile rows x 1
@@ -140,9 +140,9 @@ def _bin_count_flat(lox, loy, hix, hiy, valid, suby, H, W, th, tw, cap, ry, rx,
         keys = torch.cat(
             [keys_b.reshape(B, F * by), keys_g.reshape(B, big_k * ry * rx)], dim=-1
         )
-        fid = torch.cat(
-            [ar(F).repeat_interleave(by).expand(B, F * by),
-             big_ids.repeat_interleave(ry * rx, dim=-1)],
+        fid = torch.cat(  # each id repeated over its entries (no repeat_interleave)
+            [ar(F)[:, None].expand(F, by).reshape(-1).expand(B, F * by),
+             big_ids[..., None].expand(B, big_k, ry * rx).reshape(B, -1)],
             dim=-1,
         )
         R_out = by + ry * rx

@@ -332,10 +332,11 @@ def make_optimizer(
             count = _inc(st[0])
             us = []
             if n:
-                dt, dev = gs[0].dtype, gs[0].device
-                cf = count.to(dt)
-                c1 = 1 - torch.pow(torch.tensor(b1, dtype=dt, device=dev), cf)
-                c2 = 1 - torch.pow(torch.tensor(b2, dtype=dt, device=dev), cf)
+                cf = count.to(gs[0].dtype)
+                # b ** count with a scalar base: no host-to-device copy, so
+                # the update can be captured in a CUDA graph
+                c1 = 1 - torch.pow(b1, cf)
+                c2 = 1 - torch.pow(b2, cf)
                 us = [(m / c1) / (torch.sqrt(v / c2) + eps) for m, v in zip(mu, nu)]
                 if wd != 0:
                     us = [u + wd * p for u, p in zip(us, ps)]

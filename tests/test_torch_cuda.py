@@ -808,3 +808,109 @@ def test_sharded_calibrate_one_nccl_rank_matches_calibrate(dev, tmp_path):
     np.testing.assert_allclose(losses.cpu().numpy()[:10], ref.losses[:10], rtol=3e-3,
                                atol=1e-3)
     np.testing.assert_allclose(dof.cpu().numpy(), ref.dof, atol=5e-3)
+
+
+# ---------------------------------------------------------------------------
+# The captured CUDA graphs (models.calib._Scan, SpaceExplorer._score) against
+# the same functions run eagerly on the card: bit for bit (the same kernels
+# on the same inputs in the same order), with the launch counters counting
+# the replays.
+# ---------------------------------------------------------------------------
+
+
+def _count_replays(monkeypatch):
+    """Count utils.cuda_graph.Graph replays into the returned list."""
+    from easyhec_torch.utils import cuda_graph
+
+    replays = []
+    real = cuda_graph.Graph.replay
+
+    def replay(self):
+        replays.append(self)
+        real(self)
+
+    monkeypatch.setattr(cuda_graph.Graph, "replay", replay)
+    return replays
+
+
+@pytest.mark.parametrize("route", ["compact", "dense", "unfused"])
+def test_graphed_calibrate_matches_eager(dev, route, monkeypatch):
+    """calibrate's loop (_calibrate_scan) graphed and eager on the card,
+    60 steps (chunks of 50 and 10) with adaptive rebinning: losses, history,
+    pose, rebins and overflow equal bit for bit; the route's loss kernels
+    launch once per step in both; the graphed run replays one step graph
+    per step and one rebin graph per rebin, the eager run none."""
+    from easyhec_torch.models import calib
+    from easyhec_torch.ops import tile_raster as tr_
+
+    if route == "compact":
+        r, _, t = _scene(dev, True)
+        kernels = (prc.loss_fwd_compact_cuda, prc.loss_bwd_compact_cuda)
+    else:
+        r, _, t = _dense_scene(dev, True)
+        kernels = (pr.loss_fwd_cuda, pr.loss_bwd_cuda)
+        if route == "unfused":
+            r = RobotRenderer(r.meshes, HD, WD, tile=UNFUSED, device=dev)
+            kernels = (tr_.tile_fwd_cuda, tr_.tile_bwd_counted_cuda)
+    replays = _count_replays(monkeypatch)
+    steps, out, launches, n_replays = 60, {}, {}, {}
+    for graphed in (True, False):
+        for k in kernels:
+            k.launches = 0
+        replays.clear()
+        out[graphed] = calib._calibrate_scan(
+            t["xi"] + 0.01, t["lp"], t["K"], t["target"], r, steps, 3e-3, "adam",
+            "constant", 0.0, 1.0, rebin_every=0, on_overflow="warn", graphed=graphed)
+        torch.cuda.synchronize()
+        launches[graphed] = [k.launches for k in kernels]
+        n_replays[graphed] = len(replays)
+    (dg, lg, hg, ovg, rbg), (de, le, he, ove, rbe) = out[True], out[False]
+    assert torch.equal(lg, le) and torch.equal(hg, he) and torch.equal(dg, de)
+    assert (ovg, rbg) == (ove, rbe) and rbg >= 2 and lg.shape == (steps,)
+    assert launches[True] == launches[False] == [steps, steps]
+    assert n_replays == {True: steps + rbg, False: 0}
+
+
+@pytest.mark.parametrize("route", ["compact", "counted"])
+@pytest.mark.parametrize("shared", [False, True], ids=["exact", "shared"])
+def test_graphed_score_matches_eager(dev, shared, route, monkeypatch):
+    """SpaceExplorer._score graphed (one graph per call, replayed per batch
+    of 5 candidates) and eager on the card, 12 candidates × 4 hypotheses:
+    variance, feasibility and overflow equal bit for bit, the same K3 (or
+    K5f) launches and bin states; the graphed call replays its graph once
+    per batch."""
+    from pathlib import Path
+
+    from easyhec_torch.models.explorer import SpaceExplorer, draw_hypotheses_and_candidates
+    from easyhec_torch.ops import tile_raster as tr_
+    from easyhec_torch.robot import build_chain, load_link_meshes, parse_urdf
+
+    names = ["base", "upper", "fore"]
+    model = parse_urdf(Path(__file__).resolve().parents[1] / "assets" / "mini_arm.urdf")
+    chain = build_chain(model)
+    meshes = load_link_meshes(model, link_names=names)
+    lim = chain.joint_limits * np.float32(0.9)
+    _, q = draw_hypotheses_and_candidates(0, 1, 1, 12, lim[:, 0], lim[:, 1])
+    Tc = np.eye(4, dtype=np.float32)
+    Tc[2, 3] = 1.2
+    hyp = (se3.log(torch.from_numpy(Tc)).numpy()
+           + np.random.default_rng(0).normal(0, 0.01, (4, 6))).astype(np.float32)
+    K = np.array([[80.0, 0, 48], [0, 80.0, 32], [0, 0, 1]], np.float32)
+    tile = CFG if route == "compact" else UNFUSED
+    kernel = prc.loss_fwd_compact_cuda if route == "compact" else tr_.tile_fwd_cuda
+    r = RobotRenderer([meshes[n] for n in names], H, W, tile=tile, device=dev)
+    e = SpaceExplorer(chain, r, names, score_batch=5, max_dist=None)
+    replays = _count_replays(monkeypatch)
+    out, counts = {}, {}
+    for graphed in (True, False):
+        kernel.launches = 0
+        replays.clear()
+        out[graphed] = e._score(q, hyp, K, shared=shared, graphed=graphed)
+        torch.cuda.synchronize()
+        counts[graphed] = (kernel.launches, e.last_bin_states, len(replays),
+                           int(e._max_load))
+    for a, b in zip(out[True], out[False]):
+        assert torch.equal(a, b)
+    assert counts[True][:2] == counts[False][:2] == (3 * 4, 3 if shared else 12)
+    assert counts[True][2] == 3 and counts[False][2] == 0
+    assert counts[True][3] == counts[False][3] > 0

@@ -1,0 +1,228 @@
+"""The calibration step over static buffers (easyhec_torch.models.calib._Scan),
+run eagerly on the CPU against the JAX package's compiled chunk
+(easyhec_tpu.models.calib._calibrate_chunk and opt_scan, Pallas in interpret
+mode), and the launch counters that CUDA-graph replays advance
+(easyhec_torch.utils.cuda_graph).
+
+Scene: the mini arm at 48×64, the compact fused route, 2 frames. Tolerances
+are tests/test_torch_calib.py's: over an Adam trajectory the loss trace is
+held to rtol 1e-3 and history and pose to atol 1e-4, with equal rebin counts
+and overflow flags. On the card the same step runs as captured graphs, held
+bit for bit against this eager runner (tests/test_torch_cuda.py).
+"""
+import contextlib
+import tempfile
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from __graft_entry__ import MINI_URDF
+from easyhec_torch.models import calib as tc
+from easyhec_torch.ops import pose_raster_compact as prc
+from easyhec_torch.render import RobotRenderer as TR
+from easyhec_torch.render import TileConfig as TTC
+from easyhec_torch.render.fused import silhouette_compact
+from easyhec_torch.solver.optim import make_optimizer as t_make_optimizer
+from easyhec_torch.utils import cuda_graph
+from easyhec_tpu.geometry import se3 as jse3
+from easyhec_tpu.models import calib as jc
+from easyhec_tpu.render import RobotRenderer as JR
+from easyhec_tpu.render import TileConfig as JTC
+from easyhec_tpu.robot import build_chain, load_link_meshes, parse_urdf
+from easyhec_tpu.solver.optim import make_optimizer as j_make_optimizer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+
+H, W = 48, 64
+K = np.array([[60.0, 0, W / 2], [0, 60.0, H / 2], [0, 0, 1]], np.float32)
+LINKS = ["base", "upper", "fore"]
+CFG = dict(tile_h=16, tile_w=32, capacity=256, binner="count", fused=True,
+           margin=2.0, bin_big_k=128, compact_chunks=16, bwd_band_only=True)
+OFFSET = np.array([0.02, -0.02, 0.015, 0.01, -0.01, 0.015], np.float32)
+LR = 3e-3
+
+
+@pytest.fixture(scope="module")
+def rig():
+    with tempfile.NamedTemporaryFile("w", suffix=".urdf", delete=False) as f:
+        f.write(MINI_URDF)
+        path = f.name
+    model = parse_urdf(path)
+    chain = build_chain(model)
+    meshes = load_link_meshes(model, link_names=LINKS)
+    mesh_list = [meshes[n] for n in LINKS]
+    jr = JR(mesh_list, H, W, tile=JTC(**CFG))
+    tr = TR(mesh_list, H, W, tile=TTC(**CFG), device="cpu")
+    qs = jnp.linspace(-0.3, 0.3, 2 * chain.n_dof).reshape(2, chain.n_dof)
+    lp = np.array(jax.vmap(chain.fk)(qs)[:, jnp.asarray([0, 1, 2])])
+    Tc = np.eye(4, dtype=np.float32)
+    Tc[2, 3] = 1.2
+    gt = np.asarray(jse3.log(jnp.asarray(Tc)))
+    args = (torch.from_numpy(Tc), torch.from_numpy(lp), torch.from_numpy(K))
+    target = (silhouette_compact(tr, args[0], args[2], tr.bin_state(*args)) > 0.5)
+    return jr, tr, lp, gt, target.float().numpy()
+
+
+def _port_scan(rig, chunk, rebin_every):
+    """_chunk_scan as calibrate sets it up (graphed is ignored on the CPU)."""
+    _, tr, lp, gt, target = rig
+    opt = t_make_optimizer("adam", max_lr=LR, total_steps=chunk)
+    d0 = torch.from_numpy(gt + OFFSET)
+    scan = tc._chunk_scan(d0, opt.init(d0), opt, torch.from_numpy(lp), torch.from_numpy(K),
+                          torch.from_numpy(target), tc.tile_masks(target, tr), tr, chunk,
+                          1.0, 0.0, rebin_every, graphed=True)
+    assert scan.graphs is None  # no graph on the CPU
+    return scan
+
+
+def _check_chunk(port, jax_out, n_leaves=4):
+    dof, st, losses, hist, ov, nrb = port
+    jdof, jst, jl, jh, jov, jnrb = jax_out
+    assert nrb == int(jnrb) and ov == bool(jov) and not ov
+    assert losses.shape == jl.shape and hist.shape == jh.shape
+    np.testing.assert_allclose(losses.numpy(), np.asarray(jl), rtol=1e-3)
+    np.testing.assert_allclose(hist.numpy(), np.asarray(jh), atol=1e-4)
+    np.testing.assert_allclose(dof.numpy(), np.asarray(jdof), atol=1e-4)
+    leaves_j = jax.tree_util.tree_leaves(jst)
+    assert len(leaves_j) == len(st) == n_leaves
+    assert int(st[0]) == int(leaves_j[0])  # Adam's count: the steps run
+
+
+@pytest.mark.parametrize("rebin_every", [0, 3], ids=["adaptive", "every3"])
+def test_chunk_matches_jax_calibrate_chunk(rig, rebin_every):
+    """One chunk of 10 steps, adaptive (a rebin whenever the probes drift
+    past the budget, tested on the device at each step's end) or at a fixed
+    cadence of 3 (four windows: 12 steps run, the trace cut to 10)."""
+    jr, _, lp, gt, target = rig
+    chunk = 10
+    jopt = j_make_optimizer("adam", max_lr=LR, total_steps=chunk)
+    d0 = jnp.asarray(gt + OFFSET)
+    jout = jc._calibrate_chunk(d0, jopt.init(d0), jnp.asarray(lp), jnp.asarray(K),
+                               jnp.asarray(target), jr, chunk, chunk, LR, "adam",
+                               "constant", 0.0, 1.0, 0.0, rebin_every)
+    scan = _port_scan(rig, chunk, rebin_every)
+    out = scan.run(chunk)
+    _check_chunk(out, jout)
+    steps = 12 if rebin_every == 3 else chunk
+    assert int(scan.idx) == steps and int(out[1][0]) == steps
+    if rebin_every == 3:
+        assert out[5] == 4
+    else:
+        assert out[5] >= 2  # the start's state and at least one drift rebin
+
+
+def test_opt_scan_without_bin_states_matches_jax(rig):
+    """rebin_every < 1: no bin state (the loss builds its own each step),
+    through each package's public opt_scan."""
+    jr, tr, lp, gt, target = rig
+    chunk = 8
+    jopt = j_make_optimizer("adam", max_lr=LR, total_steps=chunk)
+    topt = t_make_optimizer("adam", max_lr=LR, total_steps=chunk)
+    jt = dict(lp=jnp.asarray(lp), K=jnp.asarray(K), m=jnp.asarray(target))
+    tt = {k: torch.from_numpy(np.asarray(v)) for k, v in jt.items()}
+
+    def j_loss(d, state):
+        assert state is None
+        return jc.mask_loss(d, jr, jt["lp"], jt["K"], jt["m"], bin_state=state)
+
+    def t_loss(d, state):
+        assert state is None
+        return tc.mask_loss(d, tr, tt["lp"], tt["K"], tt["m"], bin_state=state)
+
+    d0 = gt + OFFSET
+    jout = jc.opt_scan(jnp.asarray(d0), jopt.init(jnp.asarray(d0)), jopt, j_loss, None,
+                       chunk, 0)
+    tout = tc.opt_scan(torch.from_numpy(d0), topt.init(torch.from_numpy(d0)), topt, t_loss,
+                       None, chunk, 0)
+    _check_chunk(tout, jout)
+    assert tout[5] == 0
+
+
+def test_step_index_fills_traces_across_a_short_last_chunk(rig):
+    """53 steps in chunks of 50 and 3 through one _Scan (calibrate's loop):
+    the device step index restarts at each chunk, writes the 3 entries of
+    the last chunk in order and leaves the rest of the [50] buffers as the
+    first chunk wrote them; the traces match JAX's 53-step run (the losses
+    to rtol 1e-3 above a floor of 1e-6 of the largest)."""
+    jr, tr, lp, gt, target = rig
+    jdof, jl, jh, jov, jrb = jc._calibrate_scan(
+        jnp.asarray(gt + OFFSET), jnp.asarray(lp), jnp.asarray(K), jnp.asarray(target), jr,
+        53, LR, "adam", "constant", 0.0, 1.0, chunk=50, rebin_every=0)
+    scan = _port_scan(rig, 50, 0)
+    assert scan.losses.shape == (50,)
+    a = scan.run(50)
+    first = scan.losses.clone()
+    b = scan.run(3)
+    assert int(scan.idx) == 3
+    assert torch.equal(scan.losses[:3], b[2]) and torch.equal(scan.history[:3], b[3])
+    assert torch.equal(scan.losses[3:], first[3:])
+    # near the optimum the loss falls to ~1e-6 of its start, where rtol
+    # 1e-3 is below its float noise: a floor of 1e-6 of the largest loss
+    jl = np.asarray(jl)
+    np.testing.assert_allclose(torch.cat([a[2], b[2]]).numpy(), jl, rtol=1e-3,
+                               atol=1e-6 * jl.max())
+    np.testing.assert_allclose(torch.cat([a[3], b[3]]).numpy(), np.asarray(jh), atol=1e-4)
+    np.testing.assert_allclose(b[0].numpy(), np.asarray(jdof), atol=1e-4)
+    assert a[5] + b[5] == jrb and not (a[4] or b[4] or jov)
+    # calibrate's own loop gives the same trace
+    _, losses, hist, ov, rebins = tc._calibrate_scan(
+        torch.from_numpy(gt + OFFSET), torch.from_numpy(lp), torch.from_numpy(K),
+        torch.from_numpy(target), tr, 53, LR, "adam", "constant", 0.0, 1.0, chunk=50,
+        rebin_every=0)
+    assert torch.equal(losses, torch.cat([a[2], b[2]])) and rebins == jrb and not ov
+
+
+class _StubGraph:
+    """Stands in for torch.cuda.CUDAGraph: a replay runs no Python."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+    def pool(self):
+        return "pool"
+
+
+def test_graph_replays_advance_the_launch_counters(monkeypatch):
+    """A capture records how far the wrappers' Python counters moved and
+    takes it back (nothing ran); each replay adds it again. The warmup's
+    launches are taken back too."""
+    pools = []
+
+    @contextlib.contextmanager
+    def stub_capture(graph, pool=None):
+        pools.append(pool)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StubGraph)
+    monkeypatch.setattr(torch.cuda, "graph", stub_capture)
+
+    class Explorer:
+        last_bin_states = 0
+
+    ex = Explorer()
+    counters = cuda_graph.Counters.kernels((ex, "last_bin_states"))
+    assert (prc.loss_fwd_compact_cuda, "launches") in counters.slots
+    f0, b0 = prc.loss_fwd_compact_cuda.launches, prc.loss_bwd_compact_cuda.launches
+
+    def step():  # what one captured step's wrappers count
+        prc.loss_fwd_compact_cuda.launches += 1
+        prc.loss_bwd_compact_cuda.launches += 1
+        ex.last_bin_states += 2
+
+    moved = counters.moved_by(step)  # the warmup's bookkeeping
+    assert sum(moved) == 4 and counters.read()[-1] == 0
+    g = cuda_graph.Graph(step, counters, pool="shared")
+    assert pools == ["shared"]
+    assert (prc.loss_fwd_compact_cuda.launches, ex.last_bin_states) == (f0, 0)
+    for _ in range(5):
+        g.replay()
+    assert g.graph.replays == 5
+    assert prc.loss_fwd_compact_cuda.launches == f0 + 5
+    assert prc.loss_bwd_compact_cuda.launches == b0 + 5
+    assert ex.last_bin_states == 10
+    prc.loss_fwd_compact_cuda.launches, prc.loss_bwd_compact_cuda.launches = f0, b0

@@ -144,11 +144,14 @@ class _Ops(TorchDispatchMode):
 
 
 @pytest.mark.parametrize("name,kw,n_ops", [
-    ("adam", {}, 26), ("adam", dict(grad_clip=1.0), 33), ("sgd", {}, 6),
+    ("adam", {}, 24), ("adam", dict(grad_clip=1.0), 31), ("sgd", {}, 6),
 ])
 def test_default_tensor_path_ops(name, kw, n_ops):
     """The calibration's path (a bare tensor, no new option) runs the aten
-    ops it ran before the options were added: no tree walk, no extra op."""
+    ops it ran before the options were added: no tree walk, no extra op.
+    Adam's bias corrections raise a scalar base to the count (pow.Scalar),
+    with no scalar tensor made on the device (two lift_fresh fewer than
+    before), so the update can be captured in a CUDA graph."""
     opt = t_make_optimizer(name, max_lr=3e-3, **kw)
     p = torch.linspace(-1, 1, 6)
     s, g = opt.init(p), p * 0.5
@@ -156,3 +159,4 @@ def test_default_tensor_path_ops(name, kw, n_ops):
         opt.update(g, s, p)
     assert len(rec.ops) == n_ops, rec.ops
     assert not any("cat" in o or "stack" in o for o in rec.ops)
+    assert "aten.lift_fresh.default" not in rec.ops  # no tensor from a host scalar
