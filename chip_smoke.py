@@ -38,14 +38,17 @@ Phases, in order (any failure exits non-zero):
    tile, the backwards over one 4096-pixel live list) against their plain
    versions.
 3. Main paths: ``calibrate`` at the bench scene on the compact, dense and
-   unfused routes, 1000 steps each, each step and each rebin a replay of a
-   CUDA graph captured once per call. Asserts no overflow, a falling loss,
-   and one loss (or K5f and counted K5b) kernel pair launch per step (the
-   wrappers' counters count replays). ``[main eager]``: the same scene and
-   calibrate loop, graphed then eager (its private ``graphed=False``), three
+   unfused routes, 1000 steps each, each step a replay of one CUDA graph
+   captured once per call, the rebin a conditional node inside it that the
+   device takes when the probes drift past the budget; the host reads once
+   per chunk of 50. Asserts no overflow, a falling loss, and one loss (or
+   K5f and counted K5b) kernel pair launch per step (the wrappers' counters
+   count replays). ``[main eager]``: the same scene and
+   calibrate loop, graphed then eager (its private ``graphed=False``), five
    turns on the compact and dense routes: traces bit-identical, ms/step
-   median and spread of each, the capture's seconds and each runner's peak
-   memory (tests/test_torch_cuda.py holds the unfused route's graphs too).
+   median and spread of each, the capture's seconds by part, each runner's peak
+   memory and host reads per chunk (graphed: only the read after it)
+   (tests/test_torch_cuda.py holds the unfused route's graphs too).
 4. Dense trainer: ``run_offline_calibration`` with an in-memory Config and
    CalibBatch. Asserts no overflow, a falling loss, one K1f and one K1b
    launch per step, one K4f launch per render_outputs call, the artifacts.
@@ -115,9 +118,11 @@ Phases, in order (any failure exits non-zero):
    holds its mid-run panels (an error_map and a rendered PNG every
    log_interval steps) and error_maps.png, written without matplotlib.
 10. Multi-device (easyhec_torch.parallel). ``[parallel nccl]``: an NCCL
-   process group of one rank and the (1, 1) DeviceMesh; sharded_calibrate
-   against calibrate on the bench scene's compact route (1000 steps each,
-   JAX's early-trace tolerance, one K2f/K2b pair per step).
+   process group of one rank and the (1, 1) DeviceMesh; sharded_calibrate,
+   graphed, against calibrate on the bench scene's compact route (1000
+   steps each, JAX's early-trace tolerance, one K2f/K2b pair per step) and
+   against itself eager, bit for bit; one NCCL all_reduce captured in a
+   CUDA graph and replayed.
    ``[parallel 2x2]`` at config (5)'s widths (scripts/config5_chip.py: 4
    ring views x 20 frames of 1920x1080, f = 1400, the view offsets folded
    into the link poses) on the mini arm: the bin audit (printed) sets the
@@ -150,13 +155,15 @@ Phases, in order (any failure exits non-zero):
 Prints the kernel table as one JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. With --profile DIR it
 also replays the compact, the dense and the unfused ``calibrate`` runs
-under torch.profiler (the graphs captured before the trace starts) and
+under torch.profiler (the graph captured before the trace starts) and
 writes each run's device busy share, device ops a step and per-step
-breakdown into DIR.
+breakdown into DIR; the rebin's device time is read from its conditional
+body captured alone and replayed.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import re
@@ -1117,11 +1124,13 @@ def main_path(renderer, lp, K, xi, target, steps, kernels, label):
 
     from easyhec_torch.geometry import se3
     from easyhec_torch.models.calib import calibrate
+    from easyhec_torch.utils.cuda_graph import _CondExec
 
     d0 = (xi + 0.01).cpu().numpy()
     gt = se3.exp(xi).cpu().numpy()
     torch.cuda.synchronize()
     _reset(kernels)
+    _CondExec.launches = 0
     t0 = time.perf_counter()
     res = calibrate(d0, renderer, lp, K, target, num_steps=steps, max_lr=3e-3,
                     rebin_every=0, Tc_c2b_gt=gt)
@@ -1129,7 +1138,11 @@ def main_path(renderer, lp, K, xi, target, steps, kernels, label):
     dt = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernels.items()}
     print(f"[{label}] {steps} steps in {dt:.3f} s: {dt / steps * 1e3:.3f} ms/step, "
-          f"{steps * B * H * W / dt:.0f} px/s fwd+bwd, {res.rebins} rebins")
+          f"{steps * B * H * W / dt:.0f} px/s fwd+bwd, {res.rebins} rebins; "
+          f"{_CondExec.launches} launches of the step graph with its conditional rebin")
+    if _CondExec.launches != steps:
+        raise AssertionError(f"[{label}] {_CondExec.launches} step-graph launches for "
+                             f"{steps} steps")
     print(f"[{label}] loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}; launches "
           f"{json.dumps(launches)}; pose error {json.dumps(res.metrics)}")
     if res.overflow:
@@ -1151,19 +1164,102 @@ def _spread(xs) -> str:
     return f"{statistics.median(xs):.3f} ({min(xs):.3f}-{max(xs):.3f})"
 
 
-def main_eager_phase(lp, K, xi, steps, routes, reps=3):
+def _host_reads(fn) -> list[str]:
+    """Run fn() under torch.cuda.set_sync_debug_mode("warn") -> where it made
+    each synchronizing CUDA operation (a host read of the device), as
+    "file:line" of the Python line that made it."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{Path(w.filename).name}:{w.lineno}" for w in seen
+            if str(w.message).startswith("called a synchronizing CUDA operation")]
+
+
+@contextlib.contextmanager
+def _capture_parts(parts: list):
+    """Time each part of the graph captures made inside the block, appending
+    (part, seconds) to ``parts`` in the order they ran: "warmup"
+    (utils.cuda_graph.warm_up), "gc" and "empty_cache" (gc.collect and
+    torch.cuda.empty_cache, which torch.cuda.graph runs before each
+    capture), "capture" (the rest of each torch.cuda.graph block: the
+    captured Python, capture_begin and capture_end) and "instantiate"
+    (utils.cuda_graph._CondExec: the conditional graph's assembly and
+    cudaGraphInstantiate). The card is synchronized around each part."""
+    import gc
+
+    import torch
+
+    from easyhec_torch.utils import cuda_graph
+
+    def timed(holder, name, part):
+        real = getattr(holder, name)
+
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                parts.append((part, time.perf_counter() - t0))
+
+        setattr(holder, name, wrapper)
+        return lambda: setattr(holder, name, real)
+
+    real_graph = torch.cuda.graph
+
+    class timed_graph(real_graph):
+        def __enter__(self):
+            torch.cuda.synchronize()
+            self.t0, self.n = time.perf_counter(), len(parts)
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            out = super().__exit__(*exc)
+            torch.cuda.synchronize()
+            inner = sum(t for _, t in parts[self.n:])  # gc and empty_cache
+            parts.append(("capture", time.perf_counter() - self.t0 - inner))
+            return out
+
+    with contextlib.ExitStack() as undo:
+        undo.callback(timed(cuda_graph, "warm_up", "warmup"))
+        undo.callback(timed(gc, "collect", "gc"))
+        undo.callback(timed(torch.cuda, "empty_cache", "empty_cache"))
+        undo.callback(timed(cuda_graph._CondExec, "__init__", "instantiate"))
+        torch.cuda.graph = timed_graph
+        undo.callback(setattr, torch.cuda, "graph", real_graph)
+        yield parts
+
+
+def main_eager_phase(lp, K, xi, steps, routes, reps=5):
     """The graphed calibrate against the eager runner on the same scene, in
     this call: per route, ``reps`` turns of (graphed, eager), each a
     ``steps``-step run of calib._calibrate_scan (calibrate's loop; its
-    private ``graphed=False`` runs the same step and rebin functions
-    eagerly) from xi + 0.01 with adaptive rebinning. Every graphed trace
-    must equal the eager one bit for bit (losses, history, pose, rebins,
-    overflow) and launch the route's kernels as often, the backward once
-    per step. Prints ms/step median and spread per runner, the capture's
-    seconds (warmup on copies, then the rebin and step graphs) and each
-    runner's peak device memory over what was allocated before the run.
+    private ``graphed=False`` runs the same step function eagerly) from xi +
+    0.01 with adaptive rebinning. Every graphed trace must equal the eager
+    one bit for bit (losses, history, pose, rebins, overflow) and launch the
+    route's kernels as often, the backward once per step. Prints ms/step
+    median and spread per runner, the capture's seconds (warmup on copies,
+    then the step graph with its conditional rebin) and, per turn, its
+    parts (_capture_parts: warmup, each capture's gc.collect, empty_cache
+    and capture proper, the conditional graph's instantiation), each runner's peak
+    device memory over what was allocated before the run, and the host
+    reads per chunk of 50 of each runner (synchronizing operations under
+    torch.cuda.set_sync_debug_mode("warn"), a 100-step run's less a 50-step
+    run's, with the Python lines that made them): graphed, only _Scan.run's
+    read after the chunk.
     routes: [(label, renderer, target, {name: wrapper})]."""
+    import inspect
     import statistics
+    from collections import Counter
 
     import torch
 
@@ -1175,17 +1271,30 @@ def main_eager_phase(lp, K, xi, steps, routes, reps=3):
     def timed_capture(self):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        graphs = real_capture(self)
+        graph = real_capture(self)
         torch.cuda.synchronize()
         capture_s.append(time.perf_counter() - t0)
-        return graphs
+        return graph
 
     d0 = (xi + 0.01).detach()
+
+    def run(r, target, n, graphed):
+        return calib._calibrate_scan(d0, lp, K, target, r, n, 3e-3, "adam", "constant", 0.0,
+                                     1.0, rebin_every=0, graphed=graphed)
+
+    def per_chunk(r, target, graphed):  # a second chunk's reads: set-up cancels out
+        two = Counter(_host_reads(lambda: run(r, target, 100, graphed)))
+        return two - Counter(_host_reads(lambda: run(r, target, 50, graphed)))
+
+    src, first = inspect.getsourcelines(calib._Scan.run)
+    run_lines = {f"calib.py:{first + i}" for i in range(len(src))}
+    reads = {label: {g: per_chunk(r, target, g) for g in (True, False)}
+             for label, r, target, _ in routes}
     calib._Scan._capture = timed_capture
     try:
         for label, r, target, kernels in routes:
             ms, peak, ref = {True: [], False: []}, {True: [], False: []}, None
-            caps = []
+            caps, cap_parts = [], []
             for _ in range(reps):
                 for graphed in (True, False):
                     _reset(kernels)
@@ -1193,16 +1302,17 @@ def main_eager_phase(lp, K, xi, steps, routes, reps=3):
                     torch.cuda.synchronize()
                     base = torch.cuda.memory_allocated()
                     torch.cuda.reset_peak_memory_stats()
+                    parts = []
                     t0 = time.perf_counter()
-                    out = calib._calibrate_scan(d0, lp, K, target, r, steps, 3e-3, "adam",
-                                                "constant", 0.0, 1.0, rebin_every=0,
-                                                graphed=graphed)
+                    with _capture_parts(parts) if graphed else contextlib.nullcontext():
+                        out = run(r, target, steps, graphed)
                     torch.cuda.synchronize()
                     ms[graphed].append((time.perf_counter() - t0) / steps * 1e3)
                     peak[graphed].append((torch.cuda.max_memory_allocated() - base) / 2**20)
                     launches = {k: fn.launches for k, fn in kernels.items()}
                     if graphed:
                         caps += capture_s
+                        cap_parts.append(", ".join(f"{k} {v:.3f}" for k, v in parts))
                     dof, losses, history, ov, rebins = out
                     if ov or list(launches.values())[1] != steps:
                         raise AssertionError(f"[main eager] {label}: overflow {ov} or "
@@ -1217,15 +1327,25 @@ def main_eager_phase(lp, K, xi, steps, routes, reps=3):
                         raise AssertionError(f"[main eager] {label}: graphed={graphed} "
                                              f"differs from the first run (rebins {rebins} "
                                              f"vs {r1}, launches {launches} vs {la})")
+            if set(reads[label][True]) - run_lines or not reads[label][True]:
+                raise AssertionError(f"[main eager] {label}: a graphed chunk reads the host "
+                                     f"at {dict(reads[label][True])}, not only in _Scan.run")
             g, e = ms[True], ms[False]
             print(f"[main eager] {label}: {reps} turns of graphed then eager, {steps} steps "
                   f"each; ms/step graphed {_spread(g)}, eager {_spread(e)}: eager / graphed "
                   f"{statistics.median(e) / statistics.median(g):.2f}x; traces bit-identical "
                   f"across all {2 * reps} runs ({ref[0][4]} rebins, launches "
-                  f"{json.dumps(ref[1])}); capture (warmup + 2 graphs) "
+                  f"{json.dumps(ref[1])}); capture (warmup + the step graph) "
                   f"{', '.join(f'{c:.3f}' for c in caps)} s; peak memory over the scene "
                   f"graphed {max(peak[True]):.1f} MiB, eager {max(peak[False]):.1f} MiB "
                   f"({GPU})")
+            print(f"[main eager] {label}: each graphed turn's capture by part, s: "
+                  + "; ".join(f"turn {i}: {c}" for i, c in enumerate(cap_parts)))
+            print(f"[main eager] {label}: host reads per chunk of 50 (synchronizing "
+                  f"operations under set_sync_debug_mode, 100 steps less 50): graphed "
+                  f"{sum(reads[label][True].values())} at {dict(reads[label][True])} (the "
+                  f"chunk's read of the overflow flag and the rebin count), eager "
+                  f"{sum(reads[label][False].values())} at {dict(reads[label][False])}")
     finally:
         calib._Scan._capture = real_capture
 
@@ -2452,61 +2572,91 @@ def silhouette_path(renderer, lp, K, xi, target, kernels, label, steps=20):
     return launches
 
 
-def _profile(renderer, lp, K, d0, target, steps, main_rebins, out, tag, fwd_pat, bwd_pat):
+def _device_us(prof) -> tuple[float, int]:
+    """(device microseconds, device ops) of a torch.profiler trace."""
+    from torch.autograd import DeviceType
+
+    evs = [ev for ev in prof.events() if ev.device_type != DeviceType.CPU
+           and not getattr(ev, "is_user_annotation", False)]
+    return sum(ev.device_time_total for ev in evs), len(evs)
+
+
+def _profile(renderer, lp, K, d0, target, steps, main_rebins, out, tag, fwd_pat, bwd_pat,
+             body_reps=20):
     """Replay a ``calibrate`` run (same start, steps and settings, so the
     same rebin rate) under torch.profiler: calibrate's loop over chunks of
-    50 on the scan it sets up (calib._chunk_scan), captured as CUDA graphs
-    before the profiler starts, so the trace holds the replays. Reports
-    that run's own device busy share (device time over its wall time) and
-    its device time per step by part (each rebin replay inside a "rebin"
-    range, read as that range's span on the device); writes out/profile_<tag>.txt (top ops) and
+    50 on the scan it sets up (calib._chunk_scan), captured as a CUDA graph
+    (the step, its rebin a conditional node) before the profiler starts, so
+    the trace holds the replays. Reports that run's own device busy share
+    (device time over its wall time) and its device time per step by part.
+    A rebin runs inside the step graph, unmarked, so its device time is read
+    apart: the conditional body (the scan's ``_rebin``) captured alone on a
+    copy of the scan and replayed ``body_reps`` times under a second
+    profile; the rebin part of a step is that time per replay times the
+    run's rebins over its steps. Before it, unprofiled, the same run on a
+    scan of its own: the host's seconds to enqueue each chunk's graph
+    launches against the card's to finish them. Writes
+    out/profile_<tag>.txt (top ops) and
     out/profile_breakdown_<tag>.json. No chrome trace: at 1000 steps it
     would hold millions of events."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from easyhec_torch.models import calib
+    from easyhec_torch.utils.cuda_graph import Counters, Graph
 
     out.mkdir(parents=True, exist_ok=True)
     opt = calib.make_optimizer("adam", max_lr=3e-3, total_steps=steps)
     d = torch.as_tensor(d0, dtype=torch.float32, device=DEVICE)
-    scan = calib._chunk_scan(d, opt.init(d), opt, lp, K, target,
-                             calib.tile_masks(target, renderer), renderer, min(50, steps),
-                             1.0, 0.0, 0, graphed=True)  # captured here
-    real_rebin = calib._Scan.rebin
 
-    def rebin(self):
-        with record_function("rebin"):
-            real_rebin(self)
+    def new_scan():  # calibrate's scan from d0, captured here
+        return calib._chunk_scan(d, opt.init(d), opt, lp, K, target,
+                                 calib.tile_masks(target, renderer), renderer,
+                                 min(50, steps), 1.0, 0.0, 0, graphed=True)
 
-    calib._Scan.rebin = rebin  # the rebin replays, marked for the trace
+    scan = new_scan()
+    enqueue_s = wall_s = 0.0  # unprofiled: the host's share of a chunk's time
+    for done in range(0, steps, 50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scan.queue(min(50, steps - done))
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enqueue_s, wall_s = enqueue_s + t1 - t0, wall_s + time.perf_counter() - t0
+    print(f"[profile {tag}] unprofiled chunks of 50: the host enqueues a step's graph "
+          f"launch in {enqueue_s / steps * 1e3:.4f} ms, the card finishes a step in "
+          f"{wall_s / steps * 1e3:.4f} ms ({GPU})")
+    scan = new_scan()  # the profiled run starts from d0 too: the same rebins
     rebins = 0
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for done in range(0, steps, 50):
-                rebins += scan.run(min(50, steps - done))[5]
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        calib._Scan.rebin = real_rebin
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for done in range(0, steps, 50):
+            rebins += scan.run(min(50, steps - done))[5]
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    body = copy.copy(scan)  # its _rebin rebinds body.state, not the scan's
+    body_graph = Graph(body._rebin, Counters.kernels())
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof_body:
+        for _ in range(body_reps):
+            body_graph.replay()
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
-    us = dict(total=0.0, fwd=0.0, bwd=0.0, rebin=0.0)
+    us = dict(total=0.0, fwd=0.0, bwd=0.0)
     n_ops = 0
     for ev in prof.events():
-        if ev.device_type == DeviceType.CPU:
+        if ev.device_type == DeviceType.CPU or getattr(ev, "is_user_annotation", False):
             continue
-        if getattr(ev, "is_user_annotation", False):
-            if ev.name == "rebin":  # the device span of one rebin replay
-                us["rebin"] += ev.device_time_total
-        else:
-            us["total"] += ev.device_time_total
-            n_ops += 1
-            if fwd_pat in ev.name:
-                us["fwd"] += ev.device_time_total
-            elif bwd_pat in ev.name:
-                us["bwd"] += ev.device_time_total
+        us["total"] += ev.device_time_total
+        n_ops += 1
+        if fwd_pat in ev.name:
+            us["fwd"] += ev.device_time_total
+        elif bwd_pat in ev.name:
+            us["bwd"] += ev.device_time_total
+    body_us, body_ops = _device_us(prof_body)
+    us["rebin"] = body_us / body_reps * rebins
     us["other"] = us["total"] - us["fwd"] - us["bwd"] - us["rebin"]
     per_step = {k: v / 1e3 / steps for k, v in us.items()}
     busy = us["total"] / 1e3 / wall_ms
@@ -2515,7 +2665,11 @@ def _profile(renderer, lp, K, d0, target, steps, main_rebins, out, tag, fwd_pat,
     summary = dict(route=tag, steps=steps, rebins=rebins, main_path_rebins=main_rebins,
                    wall_ms=wall_ms, device_ms=us["total"] / 1e3, busy_share=busy,
                    device_ops_per_step=n_ops / steps, device_ms_per_step=per_step,
-                   device_ms_per_rebin=us["rebin"] / 1e3 / max(rebins, 1))
+                   device_ms_per_rebin=body_us / 1e3 / body_reps,
+                   device_ops_per_rebin=body_ops / body_reps,
+                   rebin_reader=f"the conditional body captured alone, {body_reps} replays",
+                   enqueue_ms_per_step=enqueue_s / steps * 1e3,
+                   unprofiled_ms_per_step=wall_s / steps * 1e3)
     (out / f"profile_breakdown_{tag}.json").write_text(json.dumps(summary, indent=1))
     print(f"[profile {tag}] graphed replay under torch.profiler: {steps} steps, "
           f"{rebins} rebins (unprofiled run {main_rebins}), {wall_ms:.3f} ms wall, "
@@ -2525,7 +2679,9 @@ def _profile(renderer, lp, K, d0, target, steps, main_rebins, out, tag, fwd_pat,
     print(f"[profile {tag}] device ms per step: " + ", ".join(
         f"{k} {v:.4f}" for k, v in per_step.items())
         + f" (fwd = {fwd_pat}, bwd = {bwd_pat}); {summary['device_ms_per_rebin']:.4f} "
-        f"ms per rebin; post-processing {time.perf_counter() - t0:.1f} s")
+        f"ms and {body_ops / body_reps:.1f} device ops per rebin (the conditional body "
+        f"captured alone, {body_reps} replays); post-processing "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 # The online loop at configs/xarm7_example.yaml's widths (the xArm7 assets
@@ -3037,16 +3193,49 @@ def _held(tag, losses, dof, history, ref, early_trace=True):
         raise AssertionError(f"[{tag}] the sharded run leaves its tolerances")
 
 
+def nccl_capture_check():
+    """One NCCL all_reduce captured in a CUDA graph and replayed: at world 1
+    sharded_calibrate's _all_reduce issues no collective, so this is the
+    capture a wider NCCL mesh's graphed step relies on. The reduction is
+    premultiplied by 2, so each replay shows. -> the buffer after 3
+    replays of arange(4)."""
+    import torch
+    import torch.distributed as dist
+
+    buf = torch.arange(4.0, device=DEVICE)
+    op = dist._make_nccl_premul_sum(2.0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up before the capture
+        dist.all_reduce(buf, op=op)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        dist.all_reduce(buf, op=op)
+    buf.copy_(torch.arange(4.0, device=DEVICE))
+    for _ in range(3):
+        g.replay()
+    torch.cuda.synchronize()
+    got = buf.tolist()
+    print(f"[parallel nccl] an NCCL all_reduce (premul_sum 2) captured in a CUDA graph, "
+          f"replayed 3 times on arange(4): {got}")
+    if got != [0.0, 8.0, 16.0, 24.0]:
+        raise AssertionError("[parallel nccl] the captured NCCL all_reduce did not run")
+
+
 def parallel_nccl_phase(renderer, lp, K, xi, target, steps):
     """[parallel nccl]: an NCCL process group of one rank and the (1, 1)
-    DeviceMesh; sharded_calibrate against calibrate on the bench scene's
-    compact route, both in this phase. Returns the sharded run's launches."""
+    DeviceMesh; sharded_calibrate (graphed: one scan a call, its step a
+    CUDA graph) against calibrate on the bench scene's compact route, and
+    against itself eager (sharding._capturable patched to refuse) bit for
+    bit, all in this phase; then nccl_capture_check. Returns the graphed sharded run's launches."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from easyhec_torch.models.calib import calibrate
     from easyhec_torch.parallel import comm, init_distributed, make_mesh, sharded_calibrate
+    from easyhec_torch.parallel import sharding
 
     init_distributed(f"127.0.0.1:{_free_port()}", num_processes=1, process_id=0,
                      backend="nccl")
@@ -3068,19 +3257,34 @@ def parallel_nccl_phase(renderer, lp, K, xi, target, steps):
                         rebin_every=0)
         torch.cuda.synchronize()
         ms_ref = (time.perf_counter() - t0) / steps * 1e3
-        _reset(kern)
-        t0 = time.perf_counter()
-        dof, losses, history = sharded_calibrate(d0, renderer, mesh, lp, K, target,
-                                                 num_steps=steps, max_lr=3e-3,
-                                                 rebin_every=0)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / steps * 1e3
-        launches = {k: fn.launches for k, fn in kern.items()}
+        runs, ms = {}, {}
+        capturable = sharding._capturable
+        for graphed in (True, False):  # eager: _capturable patched to refuse
+            sharding._capturable = capturable if graphed else lambda n: False
+            _reset(kern)
+            t0 = time.perf_counter()
+            try:
+                runs[graphed] = sharded_calibrate(d0, renderer, mesh, lp, K, target,
+                                                  num_steps=steps, max_lr=3e-3, rebin_every=0)
+            finally:
+                sharding._capturable = capturable
+            torch.cuda.synchronize()
+            ms[graphed] = (time.perf_counter() - t0) / steps * 1e3
+            if graphed:
+                launches = {k: fn.launches for k, fn in kern.items()}
+        nccl_capture_check()
     finally:
         dist.destroy_process_group()
+    dof, losses, history = runs[True]
+    same = all(torch.equal(a, b) for a, b in zip(runs[True], runs[False]))
     losses, dof = losses.cpu().numpy(), dof.cpu().numpy()
-    print(f"[parallel nccl] {steps} steps: sharded_calibrate {ms:.3f} ms/step, calibrate "
+    print(f"[parallel nccl] {steps} steps: sharded_calibrate {ms[True]:.3f} ms/step, calibrate "
           f"{ms_ref:.3f} ms/step ({GPU}); launches {json.dumps(launches)}")
+    print(f"[parallel nccl] sharded_calibrate graphed {ms[True]:.3f} ms/step against eager "
+          f"{ms[False]:.3f} (eager / graphed {ms[False] / ms[True]:.2f}x); losses, history "
+          f"and pose bit-identical: {same}")
+    if not same:
+        raise AssertionError("[parallel nccl] the graphed sharded run differs from the eager")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError("[parallel nccl] non-finite or rising loss")
     _held("parallel nccl", losses, dof, history.cpu().numpy(), ref)

@@ -12,13 +12,15 @@ exceeds the margin budget (adaptive rebinning, ``opt_scan``).
 
 Where the JAX package compiles a chunk of steps into one program
 (``lax.scan``, the rebin a ``lax.cond`` inside it), this captures one step
-and one rebin as CUDA graphs (``_Scan``, once per ``calibrate`` call) over
-static tensors: the pose, the optimizer's leaves, the bin state, the probe
-pixels, the flags and a device step index that writes the chunk's loss and
-pose traces. The host replays the step graph, reads the drift flag that its
-tail computed on the device (one read per step) and replays the rebin graph
-when the flag is set. On the CPU, and on the sharded path, the same two
-functions run eagerly. Steps still go in chunks of ``chunk`` (50): overflow
+as a CUDA graph (``_Scan``, once per ``calibrate`` call) over static
+tensors: the pose, the optimizer's leaves, the bin state, the probe pixels,
+the flags and a device step index that writes the chunk's loss and pose
+traces. The rebin is a conditional node at the head of the step graph: the
+step's tail leaves the next step's rebin flag on the device (drift past the
+budget, or a window's end) and the replay tests it there. A chunk is queued
+as replays with no host read in between; the host reads the overflow flag
+and the rebin count once per chunk, as the JAX package does. On the CPU the
+same function runs eagerly. Steps go in chunks of ``chunk`` (50): overflow
 is checked and ``step_hook`` fires once per chunk, exactly as in the JAX
 package, so states and traces line up across the two.
 """
@@ -209,13 +211,16 @@ def _trace_len(chunk: int, rebin_every: int) -> int:
 class _Scan:
     """opt_scan's loop over static tensors: the pose, the optimizer's
     leaves, the bin state, the probe pixels, the overflow flag, the rebin
-    count, a device step index and the loss and pose traces of a chunk
-    (``length`` entries). ``_step`` and ``_rebin`` read and write them in
-    place, so one pair of functions runs eagerly (the CPU; the sharded path,
-    whose collectives cannot be captured) or, with ``graphed``, as two CUDA
-    graphs captured once and replayed at every step and every rebin: the
-    counterpart of the JAX package's one compiled program per chunk. The
-    buffers carry over from chunk to chunk."""
+    count, the rebin flag, a device step index and the loss and pose traces
+    of a chunk (``length`` entries). A turn is ``_rebin`` where the flag is
+    set, then ``_step``, which leaves the next turn's flag behind on the
+    device; both read and write only those tensors in place, so they run
+    eagerly (``_turn``, on the CPU and the eager routes) or, with
+    ``graphed``, as one CUDA graph captured once, the rebin its conditional
+    node (``utils.cuda_graph.CondGraph``): the counterpart of the
+    ``lax.cond`` inside the JAX package's scan. A chunk is then ``length``
+    replays and one host read. The buffers carry over from chunk to
+    chunk."""
 
     def __init__(self, dof, opt_state, opt, loss_of, bin_state_of, length: int,
                  rebin_every: int = 1, combine=None, probe_fn=None,
@@ -230,11 +235,12 @@ class _Scan:
         self.losses = torch.zeros(length, dtype=torch.float32, device=dev)
         self.history = torch.zeros((length,) + tuple(dof.shape), dtype=dof.dtype, device=dev)
         self.idx = torch.zeros(1, dtype=torch.int64, device=dev)  # step within the chunk
+        self.inner = torch.ones((), dtype=torch.int64, device=dev)  # fixed cadence's window
         self.ov = torch.zeros((), dtype=torch.bool, device=dev)
         self.nrb = torch.zeros((), dtype=torch.int32, device=dev)
         self.need = torch.zeros((), dtype=torch.bool, device=dev)  # rebin before the next step
         self.state = self.pix = None  # written by _rebin
-        self.graphs = self._capture() if graphed else None
+        self.graph = self._capture() if graphed else None
 
     def _rebin(self):
         self.state = self.bin_state_of(self.dof)
@@ -259,76 +265,70 @@ class _Scan:
         for buf, leaf in zip(self.leaves, self.opt.leaves(opt_state)):
             buf.copy_(leaf)
         self.idx += 1
-        if self.adaptive:  # the next step's drift test, on the device
+        # the next step's rebin flag, on the device
+        if self.adaptive:  # the probes' drift from the state's build pose
             drift = torch.max(torch.abs(self.probe_fn(self.dof) - self.pix))
             torch.gt(drift, self.budget, out=self.need)
+        elif self.rebin_every >= 1:  # a window ends
+            torch.eq(torch.remainder(self.idx[0], self.inner), 0, out=self.need)
 
-    def _capture(self) -> dict:
-        """Warm up once on copies of the buffers, then capture the rebin and
-        the step (in that order: the step reads the state the rebin writes),
-        sharing one memory pool. -> {"rebin": Graph, "step": Graph}."""
-        from ..utils.cuda_graph import Counters, Graph, warm_up
+    def _turn(self):
+        """One turn eagerly: the host reads the rebin flag."""
+        if self.rebin_every >= 1 and bool(self.need):
+            self._rebin()
+        self._step()
+
+    def _capture(self):
+        """Warm up the rebin and the step once on copies of the buffers, then
+        capture the turn: utils.cuda_graph.CondGraph(need, _rebin, _step),
+        or Graph(_step) for a scan without bin states."""
+        from ..utils.cuda_graph import CondGraph, Counters, Graph, warm_up
 
         counters = Counters.kernels()
-        stateful = self.rebin_every >= 1
         warm = copy.copy(self)
-        for name in ("dof", "losses", "history", "idx", "ov", "nrb", "need"):
+        for name in ("dof", "losses", "history", "idx", "inner", "ov", "nrb", "need"):
             setattr(warm, name, getattr(self, name).clone())
         warm.leaves = [b.clone() for b in self.leaves]
 
         def once():
-            if stateful:
+            if self.rebin_every >= 1:
                 warm._rebin()
             warm._step()
 
         with torch.cuda.device(self.dof.device):
             warm_up(once, counters, self.dof.device)
             del warm
-            graphs = {}
-            pool = None
-            if stateful:
-                graphs["rebin"] = Graph(self._rebin, counters)
-                pool = graphs["rebin"].graph.pool()
-            graphs["step"] = Graph(self._step, counters, pool=pool)
-        return graphs
+            if self.rebin_every < 1:
+                return Graph(self._step, counters)
+            return CondGraph(self.need, self._rebin, self._step, counters)
 
-    def step(self):
-        if self.graphs:
-            self.graphs["step"].replay()
-        else:
-            self._step()
-
-    def rebin(self):
-        if self.graphs:
-            self.graphs["rebin"].replay()
-        else:
-            self._rebin()
+    def queue(self, chunk: int) -> None:
+        """Queue ``chunk`` steps (a fixed cadence runs whole windows) from a
+        fresh bin state, as the JAX package's chunk starts from state0.
+        Graphed, these are replays with no host read in between."""
+        inner = min(max(self.rebin_every, 1), chunk)
+        self.idx.zero_()
+        self.ov.zero_()
+        self.nrb.zero_()
+        self.need.fill_(True)
+        self.inner.fill_(inner)
+        for _ in range(-(-chunk // inner) * inner):
+            if self.graph is None:
+                self._turn()
+            else:
+                self.graph.replay()
 
     def run(self, chunk: int):
         """``chunk`` steps on from the buffers' pose and optimizer state ->
         (dof, opt_state, losses [chunk], history [chunk, 6], overflow,
-        rebins), copies of the buffers: opt_scan's result."""
-        self.idx.zero_()
-        self.ov.zero_()
-        self.nrb.zero_()
-        if self.rebin_every < 1:
-            for _ in range(chunk):
-                self.step()
-        elif self.adaptive:
-            self.rebin()  # a fresh state at the chunk's start (JAX's state0)
-            for i in range(chunk):
-                if i and bool(self.need):  # one host read per step
-                    self.rebin()
-                self.step()
-        else:
-            inner = min(self.rebin_every, chunk)
-            for _ in range(-(-chunk // inner)):
-                self.rebin()
-                for _ in range(inner):
-                    self.step()
+        rebins), copies of the buffers: opt_scan's result. The overflow
+        flag and the rebin count are the chunk's one host read."""
+        self.queue(chunk)
+        ov, nrb = torch.stack([self.ov.int(), self.nrb.int()]).tolist()
+        if self.graph is not None and nrb:  # only a CondGraph rebins
+            self.graph.taken(nrb)
         return (self.dof.clone(), self.opt.from_leaves([b.clone() for b in self.leaves]),
-                self.losses[:chunk].clone(), self.history[:chunk].clone(),
-                bool(self.ov), int(self.nrb))
+                self.losses[:chunk].clone(), self.history[:chunk].clone(), bool(ov), nrb)
 
 
 def opt_scan(dof, opt_state, opt, loss_of, bin_state_of, chunk: int,
@@ -344,15 +344,14 @@ def opt_scan(dof, opt_state, opt, loss_of, bin_state_of, chunk: int,
     - rebin_every < 1: no bin states (overflow False, rebins 0).
     - ADAPTIVE (probe_fn and drift_budget > 0): the state is rebuilt before
       a render whenever probe drift from its build pose exceeds the budget
-      (tested on the device at the end of each step; the host reads that
-      one flag per step).
+      (tested on the device at the end of each step).
     - fixed cadence: a fresh state every ``rebin_every`` steps; like the JAX
       version, the last window runs to its end and the trace is cut to
       ``chunk`` entries.
 
-    On CUDA the step and the rebin run as CUDA graphs (_Scan), captured at
-    this call. combine: the sharded path's hook
-    (parallel.sharding), which runs eagerly. When set, loss_of returns
+    On CUDA the step runs as a CUDA graph with the rebin as its conditional
+    node (_Scan), captured at this call. combine: the sharded path's hook
+    (parallel.sharding); opt_scan runs it eagerly. When set, loss_of returns
     (local_objective, local_true_loss); the step differentiates the local
     objective and combine(true_local, grad) -> (loss, grad) reduces both
     over the mesh.
@@ -363,22 +362,15 @@ def opt_scan(dof, opt_state, opt, loss_of, bin_state_of, chunk: int,
     return scan.run(chunk)
 
 
-def _chunk_scan(dof, opt_state, opt, link_poses, K, masks_ref, ref_tiles, renderer,
-                chunk, sharpness, robust_delta, rebin_every, graphed):
-    """The counterpart of the JAX package's jitted ``_calibrate_chunk``: the
-    _Scan whose run(n) makes n <= ``chunk`` optimization steps, set up once
-    per calibrate call. ``graphed`` (on CUDA) captures it as CUDA graphs on
-    the routes with a reusable bin state (compact, dense and unfused);
-    the stateless routes (top-k binner, brute, use_pallas=False) run it
-    eagerly."""
-
-    def loss_of(d, bin_state):
-        return mask_loss(d, renderer, link_poses, K, masks_ref, sharpness,
-                         robust_delta, bin_state=bin_state, ref_tiles=ref_tiles)
-
-    def bin_state_of(d):
-        return renderer.bin_state(se3.exp(d), link_poses, K, sharpness=sharpness)
-
+def _scan_for(dof, opt_state, opt, loss_of, bin_state_of, chunk, renderer, link_poses, K,
+              sharpness, rebin_every, graphed, combine=None, states=True):
+    """The _Scan that ``calibrate`` (through _chunk_scan) and
+    ``parallel.sharded_calibrate`` set up once per call and run in every
+    chunk of up to ``chunk`` steps: the counterpart of the JAX package's
+    jitted chunk. ``graphed`` (on CUDA) captures it as a CUDA graph on the
+    routes with a reusable bin state (compact, dense and unfused); the
+    stateless routes (top-k binner, brute, use_pallas=False, and
+    states=False) run it eagerly."""
     # Renderers with reusable bin states always go through an explicit state,
     # even at rebin_every=1, so every step's overflow flag is seen.
     # rebin_every == 0 selects adaptive rebinning; a non-positive drift
@@ -386,7 +378,7 @@ def _chunk_scan(dof, opt_state, opt, link_poses, K, masks_ref, ref_tiles, render
     # binner) run stateless.
     probe_fn = None
     budget = 0.0
-    if not reuse_bins_ok(renderer):
+    if not (states and reuse_bins_ok(renderer)):
         eff = 0
     else:
         eff = max(1, rebin_every)
@@ -395,8 +387,23 @@ def _chunk_scan(dof, opt_state, opt, link_poses, K, masks_ref, ref_tiles, render
             if budget > 0:
                 probe_fn = make_drift_probe_fn(drift_probe_points(renderer, link_poses), K)
     return _Scan(dof, opt_state, opt, loss_of, bin_state_of, _trace_len(chunk, eff), eff,
-                 probe_fn=probe_fn, drift_budget=budget,
+                 combine, probe_fn, budget,
                  graphed=graphed and dof.device.type == "cuda" and eff > 0)
+
+
+def _chunk_scan(dof, opt_state, opt, link_poses, K, masks_ref, ref_tiles, renderer,
+                chunk, sharpness, robust_delta, rebin_every, graphed):
+    """calibrate's _Scan (_scan_for) over the mask loss."""
+
+    def loss_of(d, bin_state):
+        return mask_loss(d, renderer, link_poses, K, masks_ref, sharpness,
+                         robust_delta, bin_state=bin_state, ref_tiles=ref_tiles)
+
+    def bin_state_of(d):
+        return renderer.bin_state(se3.exp(d), link_poses, K, sharpness=sharpness)
+
+    return _scan_for(dof, opt_state, opt, loss_of, bin_state_of, chunk, renderer,
+                     link_poses, K, sharpness, rebin_every, graphed)
 
 
 def _calibrate_scan(
@@ -406,7 +413,7 @@ def _calibrate_scan(
     on_overflow="raise", graphed=True,
 ):
     """calibrate's loop over chunks. graphed=False runs the same step and
-    rebin eagerly on CUDA too (the card's comparison for the graphs)."""
+    rebin eagerly on CUDA too (the card's comparison for the graph)."""
     opt = make_optimizer(optimizer_name, max_lr=max_lr, total_steps=num_steps,
                          scheduler=scheduler, grad_clip=grad_clip)
     dev = init_dof.device

@@ -102,6 +102,14 @@ def _layout(mesh) -> _Layout:
     return _Layout(n_data, n_tile, di, ti, mesh.get_group("tile") if n_tile > 1 else None)
 
 
+def _capturable(n: int) -> bool:
+    """Whether a CUDA graph can capture the collectives of a mesh of n
+    ranks: a one-rank mesh issues none (_all_reduce), NCCL's can be
+    captured (tests/test_torch_cuda.py holds 4 NCCL ranks' graphed run
+    against the eager one bit for bit), gloo's cannot."""
+    return n == 1 or dist.get_backend() == "nccl"
+
+
 def _all_reduce(t: torch.Tensor, n: int, group=None, op=dist.ReduceOp.SUM):
     """In-place all-reduce over a group of n ranks (None: the whole mesh)."""
     if n > 1:
@@ -247,7 +255,7 @@ def sharded_calibrate(
     on_overflow: str = "raise",
 ):
     """Multi-rank calibrate(): the same optimizer machinery as the one-rank
-    path (models.calib.opt_scan: the fused loss kernels, amortized or
+    path (models.calib's scan: the fused loss kernels, amortized or
     adaptive rebinning, robust delta, grad clip, chunks), with the loss and
     gradient summed over the ("data", "tile") mesh.
 
@@ -257,7 +265,7 @@ def sharded_calibrate(
     every rank.
 
     Each rank differentiates its LOCAL objective (its frames × its band);
-    opt_scan's combine sums [loss, gradient] in one all-reduce over the mesh
+    the scan's combine sums [loss, gradient] in one all-reduce over the mesh
     and divides by the real frame count. That is exact because the full
     loss is a sum of local terms with detached robust weights (the Huber
     slope). Per step the collectives are fixed: with robust_delta > 0 one
@@ -272,19 +280,17 @@ def sharded_calibrate(
     O(local frames) to O(frame_chunk) renders at the cost of recomputing
     each block's forward. Exact for the gradient; bins are rebuilt per block
     (no bin-state reuse), as under the JAX package's jax.checkpoint.
+
+    On CUDA the chunk's step is one CUDA graph, captured once per call and
+    replayed in every chunk (the JAX package's one compiled program), where
+    every collective the step issues can be captured: on an NCCL group, or
+    on a one-rank mesh, which issues none (``_capturable``). A gloo group
+    and frame_chunk > 0 run eagerly. The flags' all-reduce stays outside the
+    graph, once per chunk.
     """
     from torch.utils.checkpoint import checkpoint
 
-    from ..models.calib import (
-        BinOverflowError,
-        adaptive_drift_budget,
-        drift_probe_points,
-        make_drift_probe_fn,
-        mask_loss_per_frame,
-        opt_scan,
-        reuse_bins_ok,
-        tile_masks,
-    )
+    from ..models.calib import BinOverflowError, _scan_for, mask_loss_per_frame, tile_masks
 
     lay = _layout(mesh)
     n_mesh = lay.n_data * lay.n_tile
@@ -313,12 +319,6 @@ def sharded_calibrate(
         optimizer, max_lr=max_lr, total_steps=num_steps,
         scheduler=scheduler, grad_clip=grad_clip,
     )
-    # Explicit bin states whenever the renderer supports them; rebin_every
-    # == 0 selects adaptive rebinning. eff 0 = no bin state (the frame-
-    # chunked path rebuilds bins inside each block).
-    use_states = reuse_bins_ok(renderer) and frame_chunk <= 0
-    adaptive = use_states and rebin_every == 0
-    eff_rebin = max(1, rebin_every) if use_states else 0
     ref_tiles = tile_masks(m_local, renderer) if frame_chunk <= 0 else None
     if robust_delta > 0:
         # full-image mask area per frame (robust normalization), forward only
@@ -366,26 +366,20 @@ def sharded_calibrate(
     def bin_state_of(d):
         return renderer.bin_state(se3.exp(d), lp, Kb, sharpness=sharpness)
 
-    probe_fn = None
-    budget = 0.0
-    if adaptive:
-        # each rank gates on the drift of its own frames' probe points; a
-        # non-positive budget rebins every step
-        budget = adaptive_drift_budget(renderer.tile, sharpness)
-        if budget > 0:
-            probe_fn = make_drift_probe_fn(drift_probe_points(renderer, lp), Kb)
-        else:
-            budget = 0.0
-
-    opt_state = opt.init(dof)
+    # Bin states whenever the renderer supports them (rebin_every == 0:
+    # adaptive, each rank gating on the drift of its own frames' probe
+    # points); the frame-chunked path rebuilds bins inside each block. Graphed
+    # where the step's collectives can be captured; one scan for every chunk.
     losses, history = [], []
     done = 0
+    scan = None
     while done < num_steps:
         n = min(chunk, num_steps - done)
-        dof, opt_state, l, h, ov, nrb = opt_scan(
-            dof, opt_state, opt, loss_of, bin_state_of, n, eff_rebin,
-            combine=combine, probe_fn=probe_fn, drift_budget=budget,
-        )
+        if scan is None:
+            scan = _scan_for(dof, opt.init(dof), opt, loss_of, bin_state_of, n, renderer, lp,
+                             Kb, sharpness, rebin_every, _capturable(n_mesh), combine=combine,
+                             states=frame_chunk <= 0)
+        dof, _, l, h, ov, nrb = scan.run(n)
         losses.append(l)
         history.append(h)
         done += n

@@ -2,23 +2,33 @@
 
 The JAX package compiles each calibration chunk and each explorer scoring
 pass into one device program (``jax.jit``). Here the counterpart is a CUDA
-graph (``torch.cuda.graph``): the work of one step, one rebin or one scoring
-batch is captured once and replayed, so the host launches one graph where it
-launched hundreds of eager operations.
+graph (``torch.cuda.graph``): the work of one step or one scoring batch is
+captured once and replayed, so the host launches one graph where it
+launched hundreds of eager operations. Where the JAX program branches on
+the device (``lax.cond``), ``CondGraph`` captures ``if flag: body()`` then
+``tail()`` as one graph with a conditional node: a replay runs the body only
+when a device flag is set, with no host read. PyTorch 2.11 has no API for
+the node (2.13 has ``CUDAGraph.begin_capture_to_if_node``), so
+ops/csrc/graph_cond.cu assembles it around two PyTorch captures.
 
 A replay runs no Python, so Python-side counters that the captured code
 raises (each kernel wrapper's ``.launches``, ``SpaceExplorer.last_bin_states``)
-would stand still. ``Graph`` records how far the capture moved each counter,
+would stand still. A graph records how far the capture moved each counter,
 takes that back (a capture launches nothing), and adds it on every replay, so
-the counters keep counting what ran on the card.
+the counters keep counting what ran on the card. A conditional body's
+movement is kept apart and added once per taken branch (``CondGraph.taken``),
+from a count the caller reads off the device.
 
 Graphs are CUDA only: the same functions run eagerly on the CPU.
 """
 from __future__ import annotations
 
+import ctypes
+import weakref
+
 import torch
 
-__all__ = ["Counters", "Graph", "warm_up"]
+__all__ = ["CondGraph", "Counters", "Graph", "warm_up"]
 
 
 class Counters:
@@ -85,3 +95,99 @@ class Graph:
     def replay(self) -> None:
         self.graph.replay()
         self.counters.add(self.moved)
+
+
+def _versions() -> str:
+    return f"torch {torch.__version__}, CUDA {torch.version.cuda}"
+
+
+def _lib():
+    """ops/csrc/graph_cond.cu: the conditional node's graph assembly."""
+    from ..ops import _build
+
+    lib = _build.load("graph_cond")
+    if not getattr(lib, "typed", False):
+        vp, rc = ctypes.c_void_p, ctypes.c_int
+        lib.cond_graph_build.argtypes = [vp, vp, vp, ctypes.POINTER(vp), ctypes.POINTER(vp)]
+        lib.cond_graph_launch.argtypes = [vp, vp]
+        lib.cond_graph_destroy.argtypes = [vp, vp]
+        for f in (lib.cond_graph_build, lib.cond_graph_launch, lib.cond_graph_destroy):
+            f.restype = rc
+        lib.cond_error_string.argtypes = [rc]
+        lib.cond_error_string.restype = ctypes.c_char_p
+        lib.typed = True
+    return lib
+
+
+def _check(rc: int, what: str) -> None:
+    if rc:
+        err = _lib().cond_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({err}); {_versions()}; a conditional "
+                           "graph node needs CUDA 12.4 or later")
+
+
+class _CondExec:
+    """One executable CUDA graph: a one-thread kernel that sets an IF node's
+    condition from the device bool ``flag``, the IF node around ``body``'s
+    graph, then ``tail``'s graph (ops/csrc/graph_cond.cu). body and tail
+    are PyTorch captures kept as raw graphs; they are cloned in, and the
+    caller keeps them (and so their memory pool) alive. ``launches``
+    counts the launches of every such graph, as the kernel wrappers count
+    theirs."""
+
+    launches = 0
+
+    def __init__(self, flag: torch.Tensor, body, tail):
+        lib = _lib()
+        x, g = ctypes.c_void_p(), ctypes.c_void_p()
+        _check(lib.cond_graph_build(flag.data_ptr(), body.raw_cuda_graph(),
+                                    tail.raw_cuda_graph(), ctypes.byref(x), ctypes.byref(g)),
+               "building the graph with a conditional node")
+        self.exec = x
+        weakref.finalize(self, lib.cond_graph_destroy, x, g)
+
+    def launch(self) -> None:
+        _check(_lib().cond_graph_launch(self.exec, torch.cuda.current_stream().cuda_stream),
+               "cudaGraphLaunch")
+        _CondExec.launches += 1
+
+
+def _raw_graph():
+    """A PyTorch CUDA graph that keeps its cudaGraph_t (``raw_cuda_graph``)."""
+    try:
+        return torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError as e:
+        raise RuntimeError(f"{_versions()}: torch.cuda.CUDAGraph has no keep_graph, which the "
+                           "conditional graph node needs") from e
+
+
+class CondGraph:
+    """``if flag: body()`` then ``tail()`` as one executable CUDA graph
+    (``_CondExec``), the counterpart of a ``lax.cond`` at the head of a
+    compiled step. ``flag`` is a 0-d bool tensor on the card, tested there
+    at each replay. body and tail are captured by PyTorch, in that order
+    and in one memory pool, so the pool's sharing follows the replay order:
+    a skipped body leaves its outputs as its last run wrote them, and the
+    tail reads them. A replay adds the tail's counter movement (``moved``);
+    ``taken(n)`` adds the body's (``body_moved``) n times. Raises, naming
+    the versions, where this torch or the driver cannot make the node."""
+
+    def __init__(self, flag: torch.Tensor, body, tail, counters: Counters):
+        self.counters = counters
+        body_graph, tail_graph = _raw_graph(), _raw_graph()
+        with torch.cuda.graph(body_graph):
+            self.body_moved = counters.moved_by(body)
+        with torch.cuda.graph(tail_graph, pool=body_graph.pool()):
+            self.moved = counters.moved_by(tail)
+        self.exec = _CondExec(flag, body_graph, tail_graph)
+        self.parts = (body_graph, tail_graph)  # the exec's children and their pool
+
+    def replay(self) -> None:
+        self.exec.launch()
+        self.counters.add(self.moved)
+
+    def taken(self, n: int) -> None:
+        """Count n runs of the body (the caller's count of the taken
+        branches, read off the device after the replays)."""
+        if n:
+            self.counters.add([m * n for m in self.body_moved])

@@ -13,6 +13,8 @@ the loss agrees to rtol 1e-5 and the pose partials to 1e-4 of their
 largest magnitude; the integer bin state agrees exactly. acc at or above 2
 is unspecified (saturation early-out): min(acc, 2) is compared.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +33,8 @@ from easyhec_torch.render.fused import (
 from easyhec_torch.robot import make_box, make_cylinder
 
 pytestmark = pytest.mark.cuda
+
+ROOT = Path(__file__).resolve().parents[1]
 
 H, W = 64, 96
 CFG = TileConfig(16, 32, 128, binner="count", fused=True, compact_chunks=16,
@@ -819,33 +823,83 @@ def test_sharded_calibrate_one_nccl_rank_matches_calibrate(dev, tmp_path):
 
 
 def _count_replays(monkeypatch):
-    """Count utils.cuda_graph.Graph replays into the returned list."""
+    """Count utils.cuda_graph.Graph and CondGraph replays into the returned
+    list."""
     from easyhec_torch.utils import cuda_graph
 
     replays = []
-    real = cuda_graph.Graph.replay
+    for cls in (cuda_graph.Graph, cuda_graph.CondGraph):
+        def replay(self, real=cls.replay):
+            replays.append(self)
+            real(self)
 
-    def replay(self):
-        replays.append(self)
-        real(self)
-
-    monkeypatch.setattr(cuda_graph.Graph, "replay", replay)
+        monkeypatch.setattr(cls, "replay", replay)
     return replays
 
 
-@pytest.mark.parametrize("route", ["compact", "dense", "unfused"])
-def test_graphed_calibrate_matches_eager(dev, route, monkeypatch):
+def test_conditional_node_runs_its_body_only_when_set(dev):
+    """utils.cuda_graph.CondGraph (ops/csrc/graph_cond.cu's IF node): over
+    replays with the flag set and unset, in an order the device flips
+    itself, the body's effect and the tail's equal the eager runs of the
+    same functions bit for bit; a body's allocation keeps its value across
+    replays that skip it."""
+    from easyhec_torch.utils import cuda_graph
+
+    def state():
+        return dict(flag=torch.ones((), dtype=torch.bool, device=dev),
+                    x=torch.zeros(5, device=dev), y=torch.zeros(5, device=dev), out=[None])
+
+    def parts(s):
+        def body():
+            s["out"][0] = s["x"] * 2 + 1  # allocated inside the body
+            s["x"].add_(1.5)
+
+        def tail():
+            s["y"].add_(s["out"][0] + s["x"])
+            torch.logical_not(s["flag"], out=s["flag"])  # the device flips the flag
+
+        return body, tail
+
+    def eager_turn(s):
+        body, tail = parts(s)
+        if bool(s["flag"]):
+            body()
+        tail()
+
+    eager, graphed = state(), state()
+    eager_turn(eager)  # the capture needs the body's output once, as _Scan's warmup gives it
+    eager_turn(graphed)
+    g = cuda_graph.CondGraph(graphed["flag"], *parts(graphed), cuda_graph.Counters([]))
+    assert g.body_moved == [] and g.moved == []
+    eager["flag"].fill_(True)  # the graph's body output exists once its body ran
+    graphed["flag"].fill_(True)
+    for _ in range(7):
+        eager_turn(eager)
+        g.replay()
+    torch.cuda.synchronize()
+    for k in ("x", "y", "flag"):
+        assert torch.equal(eager[k], graphed[k]), k
+    assert torch.equal(eager["out"][0], graphed["out"][0])
+
+
+@pytest.mark.parametrize("rebin_every", [0, 3], ids=["adaptive", "every3"])
+@pytest.mark.parametrize("route", ["compact", "compact_k3", "dense", "unfused"])
+def test_graphed_calibrate_matches_eager(dev, route, rebin_every, monkeypatch):
     """calibrate's loop (_calibrate_scan) graphed and eager on the card,
-    60 steps (chunks of 50 and 10) with adaptive rebinning: losses, history,
-    pose, rebins and overflow equal bit for bit; the route's loss kernels
-    launch once per step in both; the graphed run replays one step graph
-    per step and one rebin graph per rebin, the eager run none."""
+    60 steps (chunks of 50 and 10), with adaptive rebinning or windows of 3
+    (the last window of a chunk runs to its end: 51 and 12 steps): losses,
+    history, pose, rebins and overflow equal bit for bit; the route's loss
+    kernels launch once per step run in both, and on compact_k3 (bwd_chunks
+    > 0) K3 once more per rebin, inside the conditional rebin; the graphed
+    run replays its one step graph once per step, the eager run none."""
     from easyhec_torch.models import calib
     from easyhec_torch.ops import tile_raster as tr_
 
-    if route == "compact":
+    if route.startswith("compact"):
         r, _, t = _scene(dev, True)
         kernels = (prc.loss_fwd_compact_cuda, prc.loss_bwd_compact_cuda)
+        if route == "compact_k3":
+            r = RobotRenderer(r.meshes, H, W, tile=r.tile._replace(bwd_chunks=16), device=dev)
     else:
         r, _, t = _dense_scene(dev, True)
         kernels = (pr.loss_fwd_cuda, pr.loss_bwd_cuda)
@@ -860,15 +914,179 @@ def test_graphed_calibrate_matches_eager(dev, route, monkeypatch):
         replays.clear()
         out[graphed] = calib._calibrate_scan(
             t["xi"] + 0.01, t["lp"], t["K"], t["target"], r, steps, 3e-3, "adam",
-            "constant", 0.0, 1.0, rebin_every=0, on_overflow="warn", graphed=graphed)
+            "constant", 0.0, 1.0, rebin_every=rebin_every, on_overflow="warn",
+            graphed=graphed)
         torch.cuda.synchronize()
         launches[graphed] = [k.launches for k in kernels]
         n_replays[graphed] = len(replays)
     (dg, lg, hg, ovg, rbg), (de, le, he, ove, rbe) = out[True], out[False]
     assert torch.equal(lg, le) and torch.equal(hg, he) and torch.equal(dg, de)
-    assert (ovg, rbg) == (ove, rbe) and rbg >= 2 and lg.shape == (steps,)
-    assert launches[True] == launches[False] == [steps, steps]
-    assert n_replays == {True: steps + rbg, False: 0}
+    assert (ovg, rbg) == (ove, rbe) and lg.shape == (steps,)
+    run = steps if rebin_every == 0 else 51 + 12
+    assert rbg >= 2 if rebin_every == 0 else rbg == 17 + 4
+    k3 = rbg if route == "compact_k3" else 0
+    assert launches[True] == launches[False] == [run + k3, run]
+    assert n_replays == {True: run, False: 0}
+
+
+def test_graphed_chunk_issues_no_sync(dev):
+    """A graphed chunk is queued with no host read: its replays run clean
+    under torch.cuda.set_sync_debug_mode("error"), and only the read after
+    the chunk (the overflow flag and the rebin count) synchronizes; two
+    chunks on one scan give the trace of the eager runner bit for bit."""
+    from easyhec_torch.models import calib
+
+    r, _, t = _scene(dev, True)
+    out = {}
+    for graphed in (True, False):
+        opt = calib.make_optimizer("adam", max_lr=3e-3, total_steps=100)
+        d = t["xi"] + 0.01
+        scan = calib._chunk_scan(d, opt.init(d), opt, t["lp"], t["K"], t["target"],
+                                 calib.tile_masks(t["target"], r), r, 50, 1.0, 0.0, 0,
+                                 graphed=graphed)
+        assert (scan.graph is not None) == graphed
+        torch.cuda.synchronize()
+        out[graphed] = []
+        for _ in range(2):
+            if graphed:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    scan.queue(50)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            else:
+                scan.queue(50)
+            out[graphed].append((scan.losses.clone(), scan.history.clone(), int(scan.nrb)))
+    assert all(torch.equal(a, b) and torch.equal(h, i) and n == m >= 1
+               for (a, h, n), (b, i, m) in zip(out[True], out[False]))
+
+
+def test_graphed_sharded_calibrate_matches_eager(dev, tmp_path, monkeypatch):
+    """sharded_calibrate on one NCCL rank and the (1, 1) mesh, graphed (one
+    scan for the call, its step one CUDA graph) and eager (_capturable
+    patched to refuse): losses, history and pose equal bit for bit over 60
+    steps in chunks of 50 and 10, one replay and one compact kernel pair per
+    step. Then chip_smoke.nccl_capture_check: one NCCL all_reduce
+    (premultiplied by 2, so a replay shows) captured in a graph and replayed
+    three times, since at world 1 _all_reduce issues no collective."""
+    import torch.distributed as dist
+
+    from easyhec_torch.parallel import init_distributed, make_mesh, sharded_calibrate
+    from easyhec_torch.parallel import sharding
+
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+
+    r, _, t = _scene(dev, True)
+    init_distributed(f"file://{tmp_path / 'rdv'}", num_processes=1, process_id=0,
+                     backend="nccl")
+    replays = _count_replays(monkeypatch)
+    capturable = sharding._capturable
+    out, counts = {}, {}
+    try:
+        init = (t["xi"] + 0.01).cpu().numpy()
+        for graphed in (True, False):
+            monkeypatch.setattr(sharding, "_capturable",
+                                capturable if graphed else lambda n: False)
+            prc.loss_fwd_compact_cuda.launches = prc.loss_bwd_compact_cuda.launches = 0
+            replays.clear()
+            out[graphed] = sharded_calibrate(init, r, make_mesh(1, 1), t["lp"], t["K"],
+                                             t["target"], num_steps=60, rebin_every=0)
+            torch.cuda.synchronize()
+            counts[graphed] = (prc.loss_fwd_compact_cuda.launches,
+                               prc.loss_bwd_compact_cuda.launches, len(replays))
+        chip_smoke.nccl_capture_check()
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(out[True], out[False]):
+        assert torch.equal(a, b)
+    assert counts == {True: (60, 60, 60), False: (60, 60, 0)}
+
+
+NCCL_WORKER = r'''
+import pickle, sys
+import numpy as np, torch
+sys.path[:0] = [{root!r}, {tests!r}]
+rank, rdv, d = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.cuda.set_device(rank)
+torch.backends.cuda.matmul.allow_tf32 = False
+import test_torch_cuda as T
+from easyhec_torch.ops import pose_raster_compact as prc
+from easyhec_torch.parallel import init_distributed, make_mesh, sharded_calibrate, sharding
+from easyhec_torch.render import RobotRenderer
+from easyhec_torch.utils import cuda_graph
+init_distributed(rdv, num_processes=4, process_id=rank, backend="nccl")
+dev = torch.device("cuda", rank)
+r, _, t = T._scene(dev, True, B=4)
+band = RobotRenderer(r.meshes, T.H // 2, T.W, tile=r.tile, device=dev)
+mesh = make_mesh(2, 2)
+capturable, replays = sharding._capturable, []
+real_replay = cuda_graph.CondGraph.replay
+def replay(self):
+    replays.append(1)
+    real_replay(self)
+cuda_graph.CondGraph.replay = replay
+init = (t["xi"] + 0.01).cpu().numpy()
+out = dict(rank=rank, capturable=capturable(4))
+for name, kw in {{"adaptive": dict(rebin_every=0),
+                 "robust": dict(rebin_every=5, robust_delta=0.2, grad_clip=1.0)}}.items():
+    for graphed in (True, False):
+        sharding._capturable = capturable if graphed else (lambda n: False)
+        prc.loss_fwd_compact_cuda.launches = prc.loss_bwd_compact_cuda.launches = 0
+        replays.clear()
+        res = sharded_calibrate(init, band, mesh, t["lp"], t["K"], t["target"], num_steps=60,
+                                max_lr=3e-3, **kw)
+        torch.cuda.synchronize()
+        out[name, graphed] = [x.cpu().numpy() for x in res]
+        out["counts", name, graphed] = (prc.loss_bwd_compact_cuda.launches, len(replays))
+torch.distributed.destroy_process_group()
+open(d + f"/out{{rank}}.pkl", "wb").write(pickle.dumps(out))
+print("WORKER_OK", rank)
+'''
+
+
+def test_graphed_sharded_calibrate_matches_eager_on_four_nccl_ranks(dev, tmp_path):
+    """sharded_calibrate on 4 NCCL ranks, one per card, as a 2x2 (data x
+    tile) mesh of the 4-frame scene's two 32-row bands: graphed (the step's
+    collectives captured: the gradient's all-reduce inside autograd and,
+    with robust_delta > 0, the tile group's all-reduce of the per-frame
+    losses) against eager (_capturable patched to refuse), 60 steps,
+    adaptive and every 5 with robust_delta and grad_clip. On every rank the
+    graphed losses, history and pose equal the eager ones bit for bit, and
+    the ranks agree bit for bit; one step-graph replay and one backward
+    kernel per step on each rank."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    from easyhec_torch.ops import _build
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices (one NCCL rank per card)")
+    _build.build_all()  # the ranks load the libraries built here
+    script = tmp_path / "worker.py"
+    script.write_text(NCCL_WORKER.format(root=str(ROOT), tests=str(ROOT / "tests")))
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(rank), f"file://{tmp_path / 'rdv'}", str(tmp_path)],
+        env=dict(os.environ, OMP_NUM_THREADS="1"), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, cwd=str(ROOT)) for rank in range(4)]
+    logs = []
+    try:
+        logs = [p.communicate(timeout=600)[0].decode() for p in procs]
+    finally:
+        for p in procs:  # a hung rank never outlives the test
+            p.kill()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0 and f"WORKER_OK {rank}" in log, \
+            f"rank {rank} failed:\n{log[-4000:]}"
+    outs = [pickle.loads((tmp_path / f"out{rank}.pkl").read_bytes()) for rank in range(4)]
+    for o in outs:
+        assert o["capturable"]
+        for name in ("adaptive", "robust"):
+            for a, b, c in zip(o[name, True], o[name, False], outs[0][name, True]):
+                assert np.array_equal(a, b) and np.array_equal(a, c), (o["rank"], name)
+            assert o["counts", name, True] == (60, 60) and o["counts", name, False] == (60, 0)
 
 
 @pytest.mark.parametrize("route", ["compact", "counted"])

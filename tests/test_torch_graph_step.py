@@ -1,14 +1,17 @@
-"""The calibration step over static buffers (easyhec_torch.models.calib._Scan),
-run eagerly on the CPU against the JAX package's compiled chunk
-(easyhec_tpu.models.calib._calibrate_chunk and opt_scan, Pallas in interpret
-mode), and the launch counters that CUDA-graph replays advance
-(easyhec_torch.utils.cuda_graph).
+"""The calibration step over static buffers (easyhec_torch.models.calib._Scan:
+a turn is the rebin where the device flag is set, then the step), run eagerly
+on the CPU
+against the JAX package's compiled chunk (easyhec_tpu.models.calib.
+_calibrate_chunk and opt_scan, Pallas in interpret mode), and, on stub
+graphs, how easyhec_torch.utils.cuda_graph.CondGraph captures the
+conditional rebin and how replays advance the launch counters.
 
 Scene: the mini arm at 48×64, the compact fused route, 2 frames. Tolerances
 are tests/test_torch_calib.py's: over an Adam trajectory the loss trace is
 held to rtol 1e-3 and history and pose to atol 1e-4, with equal rebin counts
-and overflow flags. On the card the same step runs as captured graphs, held
-bit for bit against this eager runner (tests/test_torch_cuda.py).
+and overflow flags. On the card the same step runs as one captured graph
+with the rebin as its conditional node, held bit for bit against this eager
+runner (tests/test_torch_cuda.py).
 """
 import contextlib
 import tempfile
@@ -73,7 +76,7 @@ def _port_scan(rig, chunk, rebin_every):
     scan = tc._chunk_scan(d0, opt.init(d0), opt, torch.from_numpy(lp), torch.from_numpy(K),
                           torch.from_numpy(target), tc.tile_masks(target, tr), tr, chunk,
                           1.0, 0.0, rebin_every, graphed=True)
-    assert scan.graphs is None  # no graph on the CPU
+    assert scan.graph is None  # no graph on the CPU
     return scan
 
 
@@ -174,6 +177,56 @@ def test_step_index_fills_traces_across_a_short_last_chunk(rig):
     assert torch.equal(losses, torch.cat([a[2], b[2]])) and rebins == jrb and not ov
 
 
+@pytest.mark.parametrize("mode", ["every3", "adaptive", "stateless"])
+def test_eager_turn_rebins_where_the_flag_is_set(mode):
+    """_Scan's eager turns on a toy quadratic: the step's tail leaves the
+    next turn's rebin flag, and the turn rebins only where it is set. A
+    fixed cadence of 3 over a chunk of 7 runs three whole windows (9 steps,
+    the trace cut to 7) and rebins at steps 0, 3 and 6; adaptive rebins at
+    step 0 and wherever the probes drifted past the budget from the last
+    build pose; a scan without bin states never builds one."""
+    target = torch.tensor([1.0, -2.0, 0.5, 0.0, 0.3, -0.1])
+    builds = []
+
+    class State:
+        overflow = torch.zeros((), dtype=torch.bool)
+
+    def bin_state_of(d):
+        builds.append(d.clone())
+        return State()
+
+    def loss_of(d, state):
+        assert (state is None) == (mode == "stateless")
+        return torch.sum((d - target) ** 2)
+
+    def probe(d):
+        return d[:2] * 10.0
+
+    every, budget = {"every3": (3, 0.0), "adaptive": (1, 1.5), "stateless": (0, 0.0)}[mode]
+    opt = t_make_optimizer("adam", max_lr=0.1, total_steps=100)
+    d0 = torch.zeros(6)
+    scan = tc._Scan(d0, opt.init(d0), opt, loss_of, bin_state_of, tc._trace_len(7, every),
+                    every, probe_fn=probe if mode == "adaptive" else None, drift_budget=budget)
+    assert scan.graph is None
+    dof, _, losses, history, ov, nrb = scan.run(7)
+    assert losses.shape == (7,) and not ov and nrb == len(builds)
+    assert losses[-1] < losses[0]
+    if mode == "every3":
+        want = [0, 3, 6]
+    elif mode == "adaptive":
+        want, last = [0], history[0]
+        for i in range(1, 7):
+            if torch.max(torch.abs(probe(history[i]) - probe(last))) > budget:
+                want.append(i)
+                last = history[i]
+        assert 1 < len(want) < 7
+    else:
+        want = []
+    assert len(builds) == len(want)
+    for b, i in zip(builds, want):
+        assert torch.equal(b, history[i])
+
+
 class _StubGraph:
     """Stands in for torch.cuda.CUDAGraph: a replay runs no Python."""
 
@@ -226,3 +279,113 @@ def test_graph_replays_advance_the_launch_counters(monkeypatch):
     assert prc.loss_bwd_compact_cuda.launches == b0 + 5
     assert ex.last_bin_states == 10
     prc.loss_fwd_compact_cuda.launches, prc.loss_bwd_compact_cuda.launches = f0, b0
+
+
+class _StubRawGraph(_StubGraph):
+    """_StubGraph that takes keep_graph (the conditional node's parts)."""
+
+    def __init__(self, keep_graph=False):
+        super().__init__()
+        self.keep_graph = keep_graph
+
+
+class _StubCondExec:
+    """Stands in for cuda_graph._CondExec: records its parts and launches."""
+
+    def __init__(self, flag, body, tail):
+        self.parts, self.launches = (flag, body, tail), 0
+
+    def launch(self):
+        self.launches += 1
+
+
+def _stub_conditional(monkeypatch):
+    """Stub graphs, captures and the conditional exec; -> the list of
+    (graph, pool) captures in the order they ran."""
+    captures = []
+
+    @contextlib.contextmanager
+    def stub_capture(graph, pool=None):
+        captures.append((graph, pool))
+        yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StubRawGraph)
+    monkeypatch.setattr(torch.cuda, "graph", stub_capture)
+    monkeypatch.setattr(cuda_graph, "_CondExec", _StubCondExec)
+    return captures
+
+
+def test_conditional_body_counts_once_per_taken_branch(monkeypatch):
+    """A step graph with the rebin as its conditional node
+    (CondGraph(need, rebin, step)): the body is captured first, then the
+    tail in the body's pool, both as raw graphs; a replay launches the
+    conditional exec (set kernel, IF body, tail). The capture keeps the
+    body's counter movement apart from the step's: a replay adds the step's,
+    taken(n) adds the body's n times (the rebin count the host reads once
+    per chunk); K3 runs in the compact rebin, so the compact forward's
+    counter moves in both parts."""
+    captures = _stub_conditional(monkeypatch)
+    counters = cuda_graph.Counters.kernels()
+    f0, b0 = prc.loss_fwd_compact_cuda.launches, prc.loss_bwd_compact_cuda.launches
+    need = torch.ones((), dtype=torch.bool)
+    bodies = []
+
+    def rebin():  # K3 twice, as a rebin of two tile passes would
+        bodies.append(1)
+        prc.loss_fwd_compact_cuda.launches += 2
+
+    def step():
+        prc.loss_fwd_compact_cuda.launches += 1
+        prc.loss_bwd_compact_cuda.launches += 1
+
+    try:
+        g = cuda_graph.CondGraph(need, rebin, step, counters)
+        assert len(bodies) == 1  # captured once
+        (body, p0), (tail, p1) = captures
+        assert body.keep_graph and tail.keep_graph and p0 is None and p1 == "pool"
+        assert g.exec.parts == (need, body, tail)
+        assert (prc.loss_fwd_compact_cuda.launches, prc.loss_bwd_compact_cuda.launches) \
+            == (f0, b0)
+        i = counters.slots.index((prc.loss_fwd_compact_cuda, "launches"))
+        assert g.moved[i] == 1 and g.body_moved[i] == 2 and sum(g.body_moved) == 2
+        for _ in range(7):
+            g.replay()
+        assert g.exec.launches == 7 and body.replays == tail.replays == 0
+        g.taken(3)
+        assert prc.loss_fwd_compact_cuda.launches == f0 + 7 + 3 * 2
+        assert prc.loss_bwd_compact_cuda.launches == b0 + 7
+        g.taken(0)
+        assert prc.loss_fwd_compact_cuda.launches == f0 + 13
+    finally:
+        prc.loss_fwd_compact_cuda.launches, prc.loss_bwd_compact_cuda.launches = f0, b0
+
+
+def test_missing_conditional_nodes_raise_naming_the_versions(monkeypatch):
+    """No fallback to a host read: where torch.cuda.CUDAGraph cannot keep
+    its raw graph, or the driver refuses the conditional node, a CondGraph
+    raises, naming torch's and CUDA's versions."""
+    real_cond_exec = cuda_graph._CondExec
+    _stub_conditional(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StubGraph)  # no keep_graph
+    counters = cuda_graph.Counters([])
+    need = torch.ones((), dtype=torch.bool)
+    ran = []
+    versions = f"torch {torch.__version__}, CUDA {torch.version.cuda}"
+    with pytest.raises(RuntimeError, match="no keep_graph") as e:
+        cuda_graph.CondGraph(need, lambda: ran.append(1), lambda: None, counters)
+    assert versions in str(e.value) and not ran
+
+    class Lib:  # graph_cond.cu's C interface, with a driver that refuses the node
+        def cond_graph_build(self, *args):
+            return 801
+
+        def cond_error_string(self, rc):
+            return b"operation not supported"
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StubRawGraph)
+    monkeypatch.setattr(_StubRawGraph, "raw_cuda_graph", lambda self: 0, raising=False)
+    monkeypatch.setattr(cuda_graph, "_CondExec", real_cond_exec)
+    monkeypatch.setattr(cuda_graph, "_lib", Lib)
+    with pytest.raises(RuntimeError, match=r"error 801 \(operation not supported\)") as e:
+        cuda_graph.CondGraph(need, lambda: ran.append(1), lambda: None, counters)
+    assert versions in str(e.value) and ran == [1]  # captured, then refused

@@ -116,11 +116,18 @@ sys.path.insert(0, {repo!r})
 rank, rdv, d = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 from easyhec_torch.parallel import init_distributed, make_mesh
 from easyhec_torch.parallel import comm, sharding as sh
+from easyhec_torch.models import calib
 from easyhec_torch.models.calib import BinOverflowError
 from easyhec_torch.render import RobotRenderer, TileConfig
 from easyhec_torch.geometry import se3
 from easyhec_torch.robot.mesh import TriMesh
 init_distributed(rdv, num_processes=4, process_id=rank, backend="gloo")
+scans = []  # the graphed flag of each scan sharded_calibrate builds
+class CountedScan(calib._Scan):
+    def __init__(self, *a, graphed=False, **kw):
+        scans.append(graphed)
+        super().__init__(*a, graphed=graphed, **kw)
+calib._Scan = CountedScan
 inp = pickle.loads(open(d + "/in.pkl", "rb").read())
 W, BAND_H = inp["W"], inp["BAND_H"]
 meshes = [TriMesh(v, f) for v, f in inp["meshes"]]
@@ -148,12 +155,17 @@ out["loss3"], out["grad3"] = loss.item(), dof.grad.numpy()
 init = inp["gt"] + inp["OFFSET"]
 for name, cfg, target, kw in (("dense", inp["DENSE"], inp["target_d"], inp["DENSE_KW"]),
                               ("compact", inp["COMPACT"], inp["target_d"], inp["COMPACT_KW"])):
+    scans.clear()
     res = sh.sharded_calibrate(init, band(cfg), mesh, lp, K, target, chunk=25, **kw)
     out[name] = [t.numpy() for t in res]
+    out["scans_" + name] = list(scans)
 for fc in (0, 1):
+    scans.clear()
     res = sh.sharded_calibrate(init, ru, mesh, lp, K, inp["target_u"], num_steps=20,
                                chunk=10, frame_chunk=fc)
     out[f"fc{{fc}}"] = [t.numpy() for t in res]
+    out[f"scans_fc{{fc}}"] = list(scans)
+out["capturable"] = (sh._capturable(4), sh._capturable(1))
 rov = band(dict(inp["RIG"], capacity=inp["OVERFLOW_CAP"]))
 di, ti = out["coords"]
 x0 = torch.tensor(inp["gt"] + 2 * inp["OFFSET"])
@@ -399,6 +411,50 @@ def test_one_rank_mesh_runs_calibrate(scene):
     with pytest.raises(ValueError, match="must equal band height"):
         tpar.sharded_calibrate(init, _port(scene, DENSE, BAND_H), tpar.make_mesh(1, 1),
                                scene["lp"], K, scene["target_d"], num_steps=1)
+
+
+def test_one_rank_mesh_builds_one_scan_per_call(scene, monkeypatch):
+    """sharded_calibrate sets its scan up once per call and runs it in every
+    chunk, as calibrate does: 30 steps in 3 chunks of 10 build one scan, and
+    their trace equals the same call's in one chunk of 30 bit for bit (fixed
+    windows of 10, so the two rebin at the same steps). Graphed where the
+    step's collectives can be captured: a one-rank mesh (none) or NCCL, not
+    gloo (an explicit backend test)."""
+    built = []
+
+    class CountedScan(tc._Scan):
+        def __init__(self, *a, **kw):
+            built.append(kw["graphed"])
+            super().__init__(*a, **kw)
+
+    monkeypatch.setattr(tc, "_Scan", CountedScan)
+    full = _port(scene, DENSE, H)
+    init = scene["gt"] + OFFSET
+    kw = dict(DENSE_KW, num_steps=30)
+    out = {}
+    for chunk in (10, 30):
+        built.clear()
+        out[chunk] = tpar.sharded_calibrate(init, full, tpar.make_mesh(1, 1), scene["lp"], K,
+                                            scene["target_d"], chunk=chunk, **kw)
+        assert built == [False]  # one scan; no graph on the CPU
+    for a, b in zip(out[10], out[30]):
+        assert torch.equal(a, b)
+    assert out[10][1].shape == (30,) and out[10][1][-1] < out[10][1][0]
+    monkeypatch.setattr(tsh.dist, "get_backend", lambda group=None: "gloo")
+    assert tsh._capturable(1) and not tsh._capturable(4)
+    monkeypatch.setattr(tsh.dist, "get_backend", lambda group=None: "nccl")
+    assert tsh._capturable(4)
+
+
+def test_sharded_calibrate_one_scan_per_call_on_gloo(ranks):
+    """On the 2x2 gloo mesh every sharded_calibrate call builds one scan,
+    whatever its chunks (dense: 60 steps in chunks of 25; the frame-chunked
+    and unchunked runs: 20 in chunks of 10), eager: gloo's collectives
+    cannot be captured, and _capturable says so by the backend."""
+    for o in ranks.out():
+        for key in ("dense", "compact", "fc0", "fc1"):
+            assert o["scans_" + key] == [False], key
+        assert o["capturable"] == (False, True)
 
 
 def test_dense_sharded_calibrate_matches_jax(scene, ranks, jmesh):
