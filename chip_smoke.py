@@ -57,10 +57,16 @@ Phases, in order (any failure exits non-zero):
    dense route; one K5f and one dense K5b per step on the unfused route's
    top-k binner (binner="topk").
 6. Global search: ``global_search_init`` at its defaults on frame 0 (K5f
-   251 launches, the counted K5b 200), then K5f and both K5b timed against
-   their plain versions at its sweep and refinement batches; then
-   ``run_offline_calibration`` on the compact route with
-   init_method="global_search" (the overflow pre-check adds one K5f).
+   251 launches, the counted K5b 200), graphed (the sweep one CUDA graph
+   replayed per batch of 64, the moment refine one graph, the Adam step
+   one graph replayed per step) and, as ``[search eager]``, eagerly
+   (``pose_init._capturable`` patched to refuse), three turns each: bit
+   for bit, seconds median and spread, capture seconds by stage, peak
+   memory, then seconds and device span by stage and the graphed run's
+   host reads; then K5f and both K5b timed against their plain versions
+   at its sweep and refinement batches; then ``run_offline_calibration``
+   on the compact route with init_method="global_search" (the overflow
+   pre-check adds one K5f), graphed then eager, bit for bit.
 7. The online loop: ``run_iterative`` as a simulated closed loop at
    configs/xarm7_example.yaml's widths (1280x720, f = 906.8, its render,
    solver and explorer settings, 5 rounds) on the mini arm: per round the
@@ -112,7 +118,9 @@ Phases, in order (any failure exits non-zero):
    diagnose tool on the trainer's batch with frames 2 and 5's qposes
    swapped (baseline, robust, --repair re-pairs exactly those two).
    ``[lr_finder]``: find_lr over the compact loss on one bin state, 100
-   Adam steps, one K2f/K2b pair a step. ``[profiling]``: EvalTimer with a
+   Adam steps, one K2f/K2b pair a step, graphed (one step graph replayed
+   per step) and eager (``lr_finder._capturable`` patched), three turns
+   each: losses bit for bit, ms/step median and spread. ``[profiling]``: EvalTimer with a
    CUDA sync and a torch.profiler trace of 5 calibrate steps. ``[watch]``:
    utils.live.serve answering /api/ls on the trainer's run dir, which
    holds its mid-run panels (an error_map and a rendered PNG every
@@ -1268,10 +1276,10 @@ def main_eager_phase(lp, K, xi, steps, routes, reps=5):
     real_capture = calib._Scan._capture
     capture_s = []
 
-    def timed_capture(self):
+    def timed_capture(self, *a):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        graph = real_capture(self)
+        graph = real_capture(self, *a)
         torch.cuda.synchronize()
         capture_s.append(time.perf_counter() - t0)
         return graph
@@ -1425,29 +1433,153 @@ def trainer_phase(lp, K, xi, qs, target, steps, out_dir):
     return launches, wall / steps * 1e3, cfg, batch
 
 
-def search_phase(renderer, lp, K, xi, target):
+@contextlib.contextmanager
+def _patched(holder, name, value):
+    """holder.name = value inside the block."""
+    real = getattr(holder, name)
+    setattr(holder, name, value)
+    try:
+        yield real
+    finally:
+        setattr(holder, name, real)
+
+
+def _eager_search(graphed: bool):
+    """pose_init._capturable as it is (graphed) or refusing (eager)."""
+    from easyhec_torch.models import pose_init
+
+    if graphed:
+        return contextlib.nullcontext()
+    return _patched(pose_init, "_capturable", lambda renderer: False)
+
+
+SEARCH_STAGES = ("_sweep", "_moment_refine", "_grad_refine")
+
+
+@contextlib.contextmanager
+def _search_stages(secs: dict, spans: dict):
+    """Inside the block, each stage of global_search_init (SEARCH_STAGES,
+    functions of models/pose_init.py) runs between two synchronizations, its seconds added to
+    secs[stage], and each CUDA graph replay inside it between two CUDA
+    events, appended to spans[stage]: the card's time for the stage's
+    replays, queued back to back."""
+    import torch
+
+    from easyhec_torch.models import pose_init
+    from easyhec_torch.utils import cuda_graph
+
+    current = []
+
+    def staged(name, real):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            current.append(name)
+            try:
+                return real(*a, **kw)
+            finally:
+                current.pop()
+                torch.cuda.synchronize()
+                secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    real_replay = cuda_graph.Graph.replay
+
+    def replay(self):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        real_replay(self)
+        e1.record()
+        spans.setdefault(current[-1] if current else "other", []).append((e0, e1))
+
+    with contextlib.ExitStack() as undo:
+        for name in SEARCH_STAGES:
+            undo.enter_context(_patched(pose_init, name,
+                                        staged(name, getattr(pose_init, name))))
+        undo.enter_context(_patched(cuda_graph.Graph, "replay", replay))
+        yield
+
+
+def _by_stage(parts) -> list[float]:
+    """_capture_parts' (part, seconds) list of one search -> the seconds of
+    each stage's capture (warm-up, empty_cache, capture), the parts up to
+    and including each "capture"."""
+    out, acc = [], 0.0
+    for part, t in parts:
+        acc += t
+        if part == "capture":
+            out.append(acc)
+            acc = 0.0
+    return out
+
+
+def search_phase(renderer, lp, K, xi, target, reps=3):
     """global_search_init at its defaults on frame 0 (3072 candidates scored
     at 1/8 resolution in batches of 64, moments, 200 Adam steps on the top
     16): one K5f per batch, per moment iteration and per step, plus the
-    final IoU; one K5b per step. Returns the launches."""
+    final IoU; one K5b per step. ``reps`` turns of graphed (the sweep's
+    batch, the moment refine and the Adam step each one CUDA graph) then
+    eager (pose_init._capturable patched to refuse): every run's scores,
+    tiles at cap, pose, score and launches equal the first's bit for bit.
+    Prints the seconds (median and spread), each graphed turn's capture
+    seconds by stage (_capture_parts), each runner's peak memory over what
+    was allocated before, then one more run of each synchronized at the
+    stage boundaries (seconds by stage; graphed, the device span of each
+    stage's replays by CUDA events) and the host reads of a graphed run
+    (set_sync_debug_mode, by line). Returns the result."""
+    import inspect
+    import statistics
+    from collections import Counter
+
     import numpy as np
     import torch
 
     from easyhec_torch.geometry import se3
+    from easyhec_torch.models import pose_init
     from easyhec_torch.models.calib import pose_metrics
     from easyhec_torch.models.pose_init import global_search_init
     from easyhec_torch.ops import tile_raster as tr
 
     kernels = {"tile_fwd": tr.tile_fwd_cuda, "tile_bwd_counted": tr.tile_bwd_counted_cuda,
                "tile_bwd": tr.tile_bwd_cuda}
-    torch.cuda.synchronize()
-    _reset(kernels)
-    t0 = time.perf_counter()
-    res = global_search_init(renderer, lp[0].cpu().numpy(), K.cpu().numpy(),
-                             target[0].cpu().numpy())
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    want = {"tile_fwd": 48 + 2 + 200 + 1, "tile_bwd_counted": 200, "tile_bwd": 0}
+    args = (renderer, lp[0].cpu().numpy(), K.cpu().numpy(), target[0].cpu().numpy())
+
+    def run(graphed):
+        with _eager_search(graphed):
+            return global_search_init(*args)
+
+    def same(a, b):
+        return (np.array_equal(a.scores, b.scores) and np.array_equal(a.Tc_c2b, b.Tc_c2b)
+                and a.score == b.score and a.tiles_at_cap == b.tiles_at_cap)
+
+    secs, peak, caps, ref = {True: [], False: []}, {True: [], False: []}, [], None
+    for _ in range(reps):
+        for graphed in (True, False):
+            torch.cuda.synchronize()
+            _reset(kernels)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            parts = []
+            t0 = time.perf_counter()
+            with _capture_parts(parts) if graphed else contextlib.nullcontext():
+                res = run(graphed)
+            torch.cuda.synchronize()
+            secs[graphed].append(time.perf_counter() - t0)
+            peak[graphed].append((torch.cuda.max_memory_allocated() - base) / 2**20)
+            launches = {k: fn.launches for k, fn in kernels.items()}
+            if graphed:
+                caps.append(_by_stage(parts))
+            if launches != want:
+                raise AssertionError(f"K5 launches {launches} in the global search "
+                                     f"(graphed={graphed})")
+            if ref is None:
+                ref = res
+            elif not same(res, ref):
+                raise AssertionError(f"[search eager] graphed={graphed} differs from the first "
+                                     f"run: score {res.score} vs {ref.score}, tiles at cap "
+                                     f"{res.tiles_at_cap} vs {ref.tiles_at_cap}")
+    res = ref
     gt = se3.exp(xi).cpu().numpy()
     err = pose_metrics(se3.log(torch.from_numpy(res.Tc_c2b)).numpy(), gt)
 
@@ -1456,15 +1588,50 @@ def search_phase(renderer, lp, K, xi, target):
         return c / np.linalg.norm(c)
 
     cos = float(center(res.Tc_c2b) @ center(gt))
-    print(f"[search] global_search_init at its defaults on frame 0: {dt:.3f} s, "
-          f"{res.scores.size} candidates, best IoU {res.score:.4f} (best sweep score "
-          f"{res.scores.max():.4f}); launches {json.dumps(launches)}; share of scoring "
-          f"tiles at cap {res.tiles_at_cap:.4f}; view direction cos to GT {cos:.4f} (the "
-          f"JAX package's own search test asks > 0.5); pose error {json.dumps(err)}")
+    g, e = secs[True], secs[False]
+    print(f"[search] global_search_init at its defaults on frame 0, graphed: "
+          f"{statistics.median(g):.3f} s (median of {reps}), {res.scores.size} candidates, best "
+          f"IoU {res.score:.4f} (best sweep score {res.scores.max():.4f}); launches "
+          f"{json.dumps(want)}; share of scoring tiles at cap {res.tiles_at_cap:.4f}; view "
+          f"direction cos to GT {cos:.4f} (the JAX package's own search test asks > 0.5); "
+          f"pose error {json.dumps(err)}")
     if not (np.isfinite(res.Tc_c2b).all() and 0 < res.score <= 1):
         raise AssertionError("global search gave no finite pose")
-    if launches != {"tile_fwd": 48 + 2 + 200 + 1, "tile_bwd_counted": 200, "tile_bwd": 0}:
-        raise AssertionError(f"K5 launches {launches} in the global search")
+    print(f"[search eager] {reps} turns of graphed then eager: s graphed {_spread(g)}, eager "
+          f"{_spread(e)}: eager / graphed {statistics.median(e) / statistics.median(g):.2f}x; "
+          f"scores, tiles at cap, pose and launches bit-identical across all {2 * reps} runs; "
+          f"capture (warm-up + graph) by stage, s (sweep, moments, refine): "
+          + "; ".join(", ".join(f"{c:.3f}" for c in turn) for turn in caps)
+          + f"; peak memory over the scene graphed {max(peak[True]):.1f} MiB, eager "
+          f"{max(peak[False]):.1f} MiB ({GPU})")
+    for graphed in (True, False):
+        stage_s, spans = {}, {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _search_stages(stage_s, spans):
+            same_res = run(graphed)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not same(same_res, ref):
+            raise AssertionError(f"[search eager] the staged run (graphed={graphed}) differs")
+        dev_ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+        print(f"[search eager] one {'graphed' if graphed else 'eager'} run synchronized at "
+              f"each stage: {dt:.3f} s; s by stage "
+              + ", ".join(f"{k.strip('_')} {v:.3f}" for k, v in stage_s.items())
+              + f", the rest {dt - sum(stage_s.values()):.3f}"
+              + ("; device span of the stage's graph replays, ms: "
+                 + ", ".join(f"{k.strip('_')} {v:.3f} ({len(spans[k])} replays)"
+                             for k, v in dev_ms.items()) if graphed else ""))
+    reads = Counter(_host_reads(lambda: run(True)))
+    stages = set()
+    for name in SEARCH_STAGES:
+        src, first = inspect.getsourcelines(getattr(pose_init, name))
+        stages |= {f"pose_init.py:{first + i}" for i in range(len(src))}
+    print(f"[search eager] host reads of a graphed run (synchronizing operations under "
+          f"set_sync_debug_mode): {sum(reads.values())} at {dict(reads)}")
+    if any(not r.startswith("pose_init.py:") or r in stages for r in reads):
+        raise AssertionError("[search eager] the graphed search reads the host inside a stage "
+                             "or below global_search_init")
     return res
 
 
@@ -1516,7 +1683,9 @@ def search_kernel_phase(renderer, lp, K, target, res):
 def trainer_search_phase(lp, K, xi, qs, target, steps):
     """run_offline_calibration on the compact route with
     init_method="global_search": the overflow pre-check (one K5f), the
-    search (251 K5f, 200 K5b), then calibrate (K2f/K2b)."""
+    search (251 K5f, 200 K5b), then calibrate (K2f/K2b); with the search
+    graphed, then eager (pose_init._capturable patched to refuse): the
+    losses and pose bit for bit, the seconds of each."""
     import tempfile
 
     import numpy as np
@@ -1547,33 +1716,41 @@ def trainer_search_phase(lp, K, xi, qs, target, steps):
     kernels = {"tile_fwd": tr.tile_fwd_cuda, "tile_bwd_counted": tr.tile_bwd_counted_cuda,
                "loss_fwd_compact": prc.loss_fwd_compact_cuda,
                "loss_bwd_compact": prc.loss_bwd_compact_cuda}
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg.output_dir = tmp
-        torch.cuda.synchronize()
-        _reset(kernels)
-        t0 = time.perf_counter()
-        res = offline.run_offline_calibration(cfg, batch=batch, device=DEVICE)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in kernels.items()}
-        out = Path(tmp)
-        want = ["Tc_c2b.txt", "metrics.json", "eval.json", "config.yaml",
-                "checkpoints/final.npz", "metrics.jsonl"]
-        missing = [f for f in want if not (out / f).is_file()]
-        wall = json.loads((out / "checkpoints" / "final.json").read_text())["wall_time_s"]
-    print(f"[trainer search] run_offline_calibration, compact route, init_method="
-          f"global_search: {dt:.3f} s in all, calibrate {wall:.3f} s for {steps} steps; "
-          f"loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}; {res.rebins} rebins; launches "
-          f"{json.dumps(launches)}; pose error {json.dumps(res.metrics)}")
-    if missing:
-        raise AssertionError(f"trainer artifacts missing: {missing}")
-    if not (np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]):
-        raise AssertionError("trainer loss did not fall")
-    # K5f: the pre-check's one launch and the search's 251; K5b: the search's
-    if launches["tile_fwd"] != 1 + 251 or launches["tile_bwd_counted"] != 200:
-        raise AssertionError(f"K5 launches {launches} in the global-search trainer run")
-    if launches["loss_bwd_compact"] < steps:
-        raise AssertionError(f"K2 launches {launches} for {steps} steps")
+    out = {}
+    for graphed in (True, False):
+        with tempfile.TemporaryDirectory() as tmp, _eager_search(graphed):
+            cfg.output_dir = tmp
+            torch.cuda.synchronize()
+            _reset(kernels)
+            t0 = time.perf_counter()
+            res = offline.run_offline_calibration(cfg, batch=batch, device=DEVICE)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in kernels.items()}
+            run_dir = Path(tmp)
+            want = ["Tc_c2b.txt", "metrics.json", "eval.json", "config.yaml",
+                    "checkpoints/final.npz", "metrics.jsonl"]
+            missing = [f for f in want if not (run_dir / f).is_file()]
+            wall = json.loads((run_dir / "checkpoints" / "final.json").read_text())["wall_time_s"]
+        out[graphed] = res
+        print(f"[trainer search] run_offline_calibration, compact route, init_method="
+              f"global_search, the search {'graphed' if graphed else 'eager'}: {dt:.3f} s in "
+              f"all, calibrate {wall:.3f} s for {steps} steps; loss {res.losses[0]:.3f} -> "
+              f"{res.losses[-1]:.3f}; {res.rebins} rebins; launches {json.dumps(launches)}; "
+              f"pose error {json.dumps(res.metrics)}")
+        if missing:
+            raise AssertionError(f"trainer artifacts missing: {missing}")
+        if not (np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]):
+            raise AssertionError("trainer loss did not fall")
+        # K5f: the pre-check's one launch and the search's 251; K5b: the search's
+        if launches["tile_fwd"] != 1 + 251 or launches["tile_bwd_counted"] != 200:
+            raise AssertionError(f"K5 launches {launches} in the global-search trainer run")
+        if launches["loss_bwd_compact"] < steps:
+            raise AssertionError(f"K2 launches {launches} for {steps} steps")
+    if not (np.array_equal(out[True].losses, out[False].losses)
+            and np.array_equal(out[True].dof, out[False].dof)):
+        raise AssertionError("[trainer search] the graphed and eager searches lead to "
+                             "different calibrations")
     return launches
 
 
@@ -2354,35 +2531,55 @@ def diagnose_phase(cfg, batch, steps=500):
         raise AssertionError(f"diagnose launches {launches}, expected {want}")
 
 
-def lr_finder_phase(renderer, lp, K, xi, target, steps=100):
+def lr_finder_phase(renderer, lp, K, xi, target, steps=100, reps=3):
     """find_lr (Adam, 100 steps from 1e-6 to 1) over the compact calibration
     loss at the bench scene on one bin state built at the start pose: one
-    K2f and one K2b launch per step and a finite suggestion."""
+    K2f and one K2b launch per step and a finite suggestion. ``reps`` turns
+    of graphed (one step graph replayed per step) then eager
+    (lr_finder._capturable patched to refuse): the losses bit for bit,
+    ms/step median and spread of each."""
+    import statistics
+
     import numpy as np
     import torch
 
     from easyhec_torch.geometry import se3
     from easyhec_torch.models.calib import mask_loss, tile_masks
-    from easyhec_torch.solver.lr_finder import find_lr
+    from easyhec_torch.solver import lr_finder
 
     d0 = (xi + 0.01).detach()
     st = renderer.bin_state(se3.exp(d0), lp, K)
     ref = tile_masks(target, renderer)
     kernels = _all_kernels()
-    torch.cuda.synchronize()
-    _reset(kernels)
-    t0 = time.perf_counter()
-    res = find_lr(lambda d: mask_loss(d, renderer, lp, K, target, bin_state=st, ref_tiles=ref),
-                  d0, num_steps=steps)
-    dt = time.perf_counter() - t0
-    launches = _launched(kernels)
-    print(f"[lr_finder] {steps} Adam steps in {dt:.3f} s ({dt / steps * 1e3:.3f} ms/step): "
-          f"suggestion {res.suggestion:.4e}, diverged at {res.diverged_at}, loss "
-          f"{res.losses[0]:.3f} -> min {np.nanmin(res.losses):.3f}; launches "
-          f"{json.dumps(launches)} ({GPU})")
-    if not np.isfinite(res.suggestion) or launches != {"loss_fwd_compact": steps,
-                                                      "loss_bwd_compact": steps}:
-        raise AssertionError(f"lr_finder: suggestion {res.suggestion}, launches {launches}")
+    ms, first = {True: [], False: []}, None
+    for _ in range(reps):
+        for graphed in (True, False):
+            with (contextlib.nullcontext() if graphed else
+                  _patched(lr_finder, "_capturable", lambda leaves: False)):
+                torch.cuda.synchronize()
+                _reset(kernels)
+                t0 = time.perf_counter()
+                res = lr_finder.find_lr(
+                    lambda d: mask_loss(d, renderer, lp, K, target, bin_state=st,
+                                        ref_tiles=ref), d0, num_steps=steps)
+                ms[graphed].append((time.perf_counter() - t0) / steps * 1e3)
+            launches = _launched(kernels)
+            if not np.isfinite(res.suggestion) or launches != {"loss_fwd_compact": steps,
+                                                              "loss_bwd_compact": steps}:
+                raise AssertionError(f"lr_finder: suggestion {res.suggestion}, launches "
+                                     f"{launches}")
+            if first is None:
+                first = res
+            elif not np.array_equal(res.losses, first.losses):
+                raise AssertionError(f"[lr_finder] graphed={graphed} losses differ from the "
+                                     "first run's")
+    g, e = ms[True], ms[False]
+    print(f"[lr_finder] {steps} Adam steps, {reps} turns of graphed then eager: ms/step "
+          f"graphed {_spread(g)}, eager {_spread(e)} (eager / graphed "
+          f"{statistics.median(e) / statistics.median(g):.2f}x), losses bit-identical across "
+          f"all {2 * reps} runs: suggestion {first.suggestion:.4e}, diverged at "
+          f"{first.diverged_at}, loss {first.losses[0]:.3f} -> min "
+          f"{np.nanmin(first.losses):.3f}; launches {json.dumps(launches)} ({GPU})")
 
 
 def profiling_phase(renderer, lp, K, xi, target, steps=5):

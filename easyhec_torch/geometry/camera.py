@@ -37,17 +37,18 @@ def project_points(K: torch.Tensor, pts_cam: torch.Tensor, eps: float = 1e-9):
 
 
 def look_at(eye: torch.Tensor, target: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    """Camera-to-world pose ``T_w_cam`` with +Z looking from eye to target
-    (columns = camera axes in the world frame, translation = eye). Invert
-    it for a world-to-camera extrinsic."""
+    """Camera-to-world pose ``T_w_cam`` [..., 4, 4] with +Z looking from eye
+    to target (columns = camera axes in the world frame, translation = eye),
+    over any batch of eyes [..., 3]. Invert it for a world-to-camera
+    extrinsic."""
     fwd = target - eye
-    fwd = fwd / torch.linalg.norm(fwd)
-    right = torch.linalg.cross(fwd, up, dim=-1)
-    right = right / torch.linalg.norm(right)
+    fwd = fwd / torch.linalg.norm(fwd, dim=-1, keepdim=True)
+    right = torch.linalg.cross(fwd, up.expand_as(fwd), dim=-1)
+    right = right / torch.linalg.norm(right, dim=-1, keepdim=True)
     down = torch.linalg.cross(fwd, right, dim=-1)  # OpenCV y axis points down
-    T = torch.eye(4, dtype=eye.dtype, device=eye.device)
-    T[:3, :3] = torch.stack([right, down, fwd], dim=-1)
-    T[:3, 3] = eye
+    T = torch.eye(4, dtype=eye.dtype, device=eye.device).repeat(fwd.shape[:-1] + (1, 1))
+    T[..., :3, :3] = torch.stack([right, down, fwd], dim=-1)
+    T[..., :3, 3] = eye
     return T
 
 

@@ -220,11 +220,12 @@ class _Scan:
     node (``utils.cuda_graph.CondGraph``): the counterpart of the
     ``lax.cond`` inside the JAX package's scan. A chunk is then ``length``
     replays and one host read. The buffers carry over from chunk to
-    chunk."""
+    chunk. ``pool``: the memory pool a scan without bin states (a plain
+    ``Graph``) captures into, shared with graphs the caller ran before."""
 
     def __init__(self, dof, opt_state, opt, loss_of, bin_state_of, length: int,
                  rebin_every: int = 1, combine=None, probe_fn=None,
-                 drift_budget: float = 0.0, graphed: bool = False):
+                 drift_budget: float = 0.0, graphed: bool = False, pool=None):
         dev = dof.device
         self.opt, self.loss_of, self.bin_state_of = opt, loss_of, bin_state_of
         self.combine, self.probe_fn, self.budget = combine, probe_fn, float(drift_budget)
@@ -240,7 +241,7 @@ class _Scan:
         self.nrb = torch.zeros((), dtype=torch.int32, device=dev)
         self.need = torch.zeros((), dtype=torch.bool, device=dev)  # rebin before the next step
         self.state = self.pix = None  # written by _rebin
-        self.graph = self._capture() if graphed else None
+        self.graph = self._capture(pool) if graphed else None
 
     def _rebin(self):
         self.state = self.bin_state_of(self.dof)
@@ -278,10 +279,10 @@ class _Scan:
             self._rebin()
         self._step()
 
-    def _capture(self):
+    def _capture(self, pool=None):
         """Warm up the rebin and the step once on copies of the buffers, then
         capture the turn: utils.cuda_graph.CondGraph(need, _rebin, _step),
-        or Graph(_step) for a scan without bin states."""
+        or Graph(_step) in ``pool`` for a scan without bin states."""
         from ..utils.cuda_graph import CondGraph, Counters, Graph, warm_up
 
         counters = Counters.kernels()
@@ -299,7 +300,7 @@ class _Scan:
             warm_up(once, counters, self.dof.device)
             del warm
             if self.rebin_every < 1:
-                return Graph(self._step, counters)
+                return Graph(self._step, counters, pool)
             return CondGraph(self.need, self._rebin, self._step, counters)
 
     def queue(self, chunk: int) -> None:

@@ -361,19 +361,10 @@ class SpaceExplorer:
             b["overflow"] |= ov
             b["bidx"] += 1
 
-        if graphed and dev.type == "cuda":
-            from ..utils.cuda_graph import Counters, Graph, warm_up
+        from ..utils.cuda_graph import Counters, repeat
 
-            counters = Counters.kernels((self, "last_bin_states"))
-            copies = {k: v.clone() for k, v in bufs.items()}
-            with torch.cuda.device(dev):
-                warm_up(lambda: batch(copies), counters, dev)
-                graph = Graph(lambda: batch(bufs), counters)
-                for _ in range(nb):
-                    graph.replay()
-        else:
-            for _ in range(nb):
-                batch(bufs)
+        repeat(batch, bufs, nb, Counters.kernels((self, "last_bin_states"))
+               if graphed and dev.type == "cuda" else None)
         var = bufs["var"].reshape(-1)[:C]
         var = torch.where(feasible, var, torch.full_like(var, -torch.inf))
         return var, feasible, bufs["overflow"]

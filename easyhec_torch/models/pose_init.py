@@ -26,6 +26,7 @@ from .. import resolve_device
 from ..geometry import camera, se3
 from ..render.tiled import TileConfig
 from ..solver.optim import make_optimizer
+from ..utils.cuda_graph import Counters, repeat
 
 __all__ = ["lookat_init", "global_search_init", "GlobalSearchResult", "ransac_pnp",
            "draw_ransac_samples"]
@@ -76,29 +77,35 @@ def _mask_moments(mask: torch.Tensor):
     return area, cu, cv
 
 
-def _candidate_poses(target: np.ndarray, radii, n_dirs: int, n_roll: int) -> torch.Tensor:
-    """[len(radii) * n_dirs * n_roll, 4, 4] camera-from-base candidates:
-    look-at poses from a Fibonacci hemisphere of eyes around ``target``,
-    each rolled about its optical axis, eye-major as the JAX package orders
-    them (computed on the CPU in f32)."""
+def _candidate_poses(target: np.ndarray, radii, n_dirs: int, n_roll: int,
+                     device=None) -> torch.Tensor:
+    """[len(radii) * n_dirs * n_roll, 4, 4] camera-from-base candidates on
+    ``device``: look-at poses from a Fibonacci hemisphere of eyes around
+    ``target``, each rolled about its optical axis (an in-plane rotation
+    left-multiplied onto R and t), eye-major as the JAX package orders
+    them; one batched computation in f32."""
     dirs = _fibonacci_hemisphere(n_dirs)
     eyes = np.concatenate([target + float(r) * dirs for r in radii])
     rolls = np.linspace(0.0, 2 * np.pi, n_roll, endpoint=False, dtype=np.float32)
-    tgt = torch.from_numpy(target)
-    up = torch.tensor([0.0, 0.0, 1.0])
-    out = []
-    for eye in eyes:
-        T = se3.inverse(camera.look_at(torch.from_numpy(eye), tgt, up))
-        for roll in torch.from_numpy(rolls):
-            c, s = torch.cos(roll), torch.sin(roll)
-            z, o = torch.zeros(()), torch.ones(())
-            Rz = torch.stack([torch.stack([c, -s, z]), torch.stack([s, c, z]),
-                              torch.stack([z, z, o])])
-            Tr = T.clone()
-            Tr[:3, :3] = Rz @ T[:3, :3]
-            Tr[:3, 3] = Rz @ T[:3, 3]
-            out.append(Tr)
-    return torch.stack(out)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    T = se3.inverse(camera.look_at(t(eyes), t(target), t([0.0, 0.0, 1.0])))  # [E, 4, 4]
+    c, s = torch.cos(t(rolls)), torch.sin(t(rolls))
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    Rz = torch.stack([torch.stack([c, -s, z], -1), torch.stack([s, c, z], -1),
+                      torch.stack([z, z, o], -1)], -2)[None]  # [1, n_roll, 3, 3]
+    R, tr = T[:, None, :3, :3], T[:, None, :3, 3:]
+    return se3.from_rt(Rz @ R, (Rz @ tr)[..., 0]).reshape(-1, 4, 4)
+
+
+def _capturable(renderer) -> bool:
+    """Whether the search's three stages run as CUDA graphs: on CUDA with
+    the scoring renderer on the kernel route. mode="brute" and
+    use_pallas=False render in plain PyTorch and run eagerly, as every
+    route does on the CPU."""
+    return renderer.device.type == "cuda" and renderer.kernel_route
 
 
 def global_search_init(
@@ -131,6 +138,13 @@ def global_search_init(
        1e-8) on all topk se(3) poses at once, on the gradient of the sum of
        their multi-frame low-resolution mask losses; the best final IoU
        wins.
+
+    The JAX package compiles each stage. Here, on CUDA with the scoring
+    renderer on the kernel route, each is a CUDA graph captured at this
+    call, in one memory pool: the sweep's batch (replayed once per batch),
+    the moment refine (replayed once) and the Adam step (calib._Scan,
+    replayed refine_steps times). The host reads nothing until the final
+    IoUs; elsewhere the same functions run eagerly.
     """
     from .calib import downscale_K
 
@@ -153,64 +167,28 @@ def global_search_init(
     if target is None:
         target = link_poses[:Bs, :, :3, 3].mean((0, 1))
     target = np.asarray(target, np.float32)
-    poses = _candidate_poses(target, radii, n_dirs, n_roll).to(dev)
+    poses = _candidate_poses(target, radii, n_dirs, n_roll, dev)
     score_renderer = _scoring_renderer(renderer, Hs, Ws)
-    cap = score_renderer.tile.capacity
+    graphed = _capturable(score_renderer)
+    counters = Counters.kernels() if graphed else None
 
     def iou(sil):  # [..., Bs, Hs, Ws] -> [...]
         inter = torch.minimum(sil, masks_lo).sum((-2, -1))
         union = torch.maximum(sil, masks_lo).sum((-2, -1))
         return (inter / torch.clamp(union, min=1e-6)).mean(-1)
 
-    # 1. sweep (through a bin state on the kernel route, to count the tiles
-    # at capacity; mode="brute" and use_pallas=False render without one)
-    stateful = score_renderer.kernel_route
-    scores, full, tiles = [], 0, 0
-    with torch.no_grad():
-        for s in range(0, poses.shape[0], _SCORE_BATCH):
-            T = poses[s:s + _SCORE_BATCH, None]  # [n, 1, 4, 4] against [Bs] frames
-            lpb = lp.expand((T.shape[0],) + lp.shape)
-            st = score_renderer.bin_state(T, lpb, Ks) if stateful else None
-            if st is not None:
-                full += int((st.counts >= cap).sum())
-                tiles += st.counts.numel()
-            scores.append(iou(score_renderer.silhouette(T, lpb, Ks, bin_state=st)))
-    scores = torch.cat(scores)
+    scores, at_cap, sweep = _sweep(score_renderer, poses, lp, Ks, iou, counters)
+    pool = sweep.graph.pool() if graphed else None  # the later stages share it
     order = torch.argsort(-scores, stable=True)[:topk]
-
-    # 2. moment refine, all candidates at once (frame 0)
-    Tc = poses[order]
-    tgt = torch.from_numpy(target).to(dev)
-    fx, fy, cx, cy = Ks[0, 0], Ks[1, 1], Ks[0, 2], Ks[1, 2]
+    Tc = _moment_refine(score_renderer, poses[order], lp, Ks, masks_lo,
+                        torch.from_numpy(target).to(dev), moment_iters, counters, pool)
+    lpk = lp.expand((Tc.shape[0],) + lp.shape)
+    dofs = _grad_refine(score_renderer, se3.log(Tc), lpk, Ks, masks_lo, refine_steps,
+                        refine_lr, graphed, pool)
     with torch.no_grad():
-        a_o, cu_o, cv_o = _mask_moments(masks_lo[0])
-        for _ in range(moment_iters):
-            a_r, _, _ = _mask_moments(score_renderer.silhouette(Tc, lp[0], Ks))
-            sc = torch.sqrt(torch.clamp(a_r, min=1e-6) / torch.clamp(a_o, min=1e-6))
-            c_c = Tc[:, :3, :3] @ tgt + Tc[:, :3, 3]  # [k, 3]
-            z_new = c_c[:, 2] * sc
-            x_new = (cu_o - cx) * z_new / fx
-            y_new = (cv_o - cy) * z_new / fy
-            t_new = Tc[:, :3, 3] + (torch.stack([x_new, y_new, z_new], dim=-1) - c_c)
-            Tc = Tc.clone()
-            Tc[:, :3, 3] = t_new
-
-    # 3. gradient refine: Adam on every candidate at once
-    dofs = se3.log(Tc).detach()
-    opt = make_optimizer("adam", max_lr=refine_lr, total_steps=refine_steps)
-    state = opt.init(dofs)
-    for _ in range(refine_steps):
-        d = dofs.detach().requires_grad_(True)
-        sil = score_renderer.silhouette(se3.exp(d)[:, None], lp.expand((d.shape[0],) + lp.shape),
-                                        Ks)
-        loss = ((sil - masks_lo) ** 2).sum((-2, -1)).mean(-1).sum()
-        (g,) = torch.autograd.grad(loss, d)
-        upd, state = opt.update(g, state, dofs)
-        dofs = (dofs + upd).detach()
-    with torch.no_grad():
-        ious = iou(score_renderer.silhouette(se3.exp(dofs)[:, None],
-                                             lp.expand((dofs.shape[0],) + lp.shape), Ks))
+        ious = iou(score_renderer.silhouette(se3.exp(dofs)[:, None], lpk, Ks))
     best = int(torch.argmax(ious))
+    full, tiles = at_cap.tolist()
     return GlobalSearchResult(
         Tc_c2b=se3.exp(dofs[best]).cpu().numpy(),
         score=float(ious[best]),
@@ -218,6 +196,96 @@ def global_search_init(
         poses=poses.cpu().numpy(),
         tiles_at_cap=full / max(tiles, 1),
     )
+
+
+def _sweep(score_renderer, poses, lp, Ks, iou, counters):
+    """Stage 1: every candidate's score, in batches of up to 64 (a ragged
+    last batch padded with candidate 0, whose scores are dropped). One
+    batch reads its poses through a device batch index and writes its
+    scores, and on the kernel route (through a bin state) adds its real
+    candidates' tiles at capacity and tiles to two device counts. With
+    ``counters``, one CUDA graph replayed per batch
+    (utils.cuda_graph.repeat). -> (scores [n], [tiles at capacity, tiles]
+    (0 off the kernel route), the graph or None)."""
+    dev = poses.device
+    n = poses.shape[0]
+    cb = min(_SCORE_BATCH, n)
+    nb = -(-n // cb)
+    pad = nb * cb - n
+    padded = torch.cat([poses, poses[:1].expand((pad, 4, 4))]) if pad else poses
+    slot = torch.arange(cb, device=dev)
+    lpb = lp.expand((cb,) + lp.shape)
+    cap = score_renderer.tile.capacity
+    stateful = score_renderer.kernel_route  # brute and use_pallas=False bin nothing
+    bufs = dict(
+        poses=padded.reshape(nb, cb, 1, 4, 4),  # [n, 1, 4, 4] against [Bs] frames
+        bidx=torch.zeros(1, dtype=torch.int64, device=dev),
+        scores=torch.zeros((nb, cb), dtype=torch.float32, device=dev),
+        full=torch.zeros((), dtype=torch.int64, device=dev),
+        tiles=torch.zeros((), dtype=torch.int64, device=dev),
+    )
+
+    @torch.no_grad()
+    def batch(b):
+        T = b["poses"].index_select(0, b["bidx"])[0]
+        st = score_renderer.bin_state(T, lpb, Ks) if stateful else None
+        if st is not None:
+            live = (b["bidx"] * cb + slot < n)[:, None]  # the real candidates
+            b["full"] += ((st.counts >= cap).reshape(cb, -1) & live).sum()
+            b["tiles"] += live.sum() * (st.counts.numel() // cb)
+        sil = score_renderer.silhouette(T, lpb, Ks, bin_state=st)
+        b["scores"].index_copy_(0, b["bidx"], iou(sil)[None])
+        b["bidx"] += 1
+
+    graph = repeat(batch, bufs, nb, counters)
+    return bufs["scores"].reshape(-1)[:n], torch.stack([bufs["full"], bufs["tiles"]]), graph
+
+
+def _moment_refine(score_renderer, Tc, lp, Ks, masks_lo, target, iters, counters, pool):
+    """Stage 2: ``iters`` closed-form translation updates of the candidates
+    Tc [k, 4, 4] from mask moments on frame 0 (area ratio -> depth scale,
+    centroid -> image-plane shift). With ``counters``, one CUDA graph of
+    all iterations, captured in ``pool`` and replayed once. -> Tc [k, 4, 4]."""
+    fx, fy, cx, cy = Ks[0, 0], Ks[1, 1], Ks[0, 2], Ks[1, 2]
+    a_o, cu_o, cv_o = _mask_moments(masks_lo[0])
+
+    @torch.no_grad()
+    def moments(b):
+        Tc = b["Tc"]
+        for _ in range(iters):
+            a_r, _, _ = _mask_moments(score_renderer.silhouette(Tc, lp[0], Ks))
+            sc = torch.sqrt(torch.clamp(a_r, min=1e-6) / torch.clamp(a_o, min=1e-6))
+            c_c = Tc[:, :3, :3] @ target + Tc[:, :3, 3]  # [k, 3]
+            z_new = c_c[:, 2] * sc
+            x_new = (cu_o - cx) * z_new / fx
+            y_new = (cv_o - cy) * z_new / fy
+            Tc[:, :3, 3] += torch.stack([x_new, y_new, z_new], dim=-1) - c_c
+
+    bufs = dict(Tc=Tc.clone())
+    repeat(moments, bufs, 1, counters, pool)
+    return bufs["Tc"]
+
+
+def _grad_refine(score_renderer, dofs, lpk, Ks, masks_lo, steps, lr, graphed, pool):
+    """Stage 3: ``steps`` Adam steps on all the se(3) poses dofs [k, 6] at
+    once, on the sum of their mask losses: calib._Scan over the one step,
+    with no bin state (the silhouette bins afresh each step), captured as a
+    CUDA graph in ``pool`` and replayed ``steps`` times when ``graphed``.
+    -> dofs [k, 6]."""
+    from .calib import _Scan
+
+    if steps <= 0:
+        return dofs
+
+    def loss_of(d, _):
+        sil = score_renderer.silhouette(se3.exp(d)[:, None], lpk, Ks)
+        return ((sil - masks_lo) ** 2).sum((-2, -1)).mean(-1).sum()
+
+    opt = make_optimizer("adam", max_lr=lr, total_steps=steps)
+    scan = _Scan(dofs, opt.init(dofs), opt, loss_of, None, steps, rebin_every=0,
+                 graphed=graphed, pool=pool)
+    scan.queue(steps)
+    return scan.dof
 
 
 def _scoring_renderer(renderer, Hs: int, Ws: int):

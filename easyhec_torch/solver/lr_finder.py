@@ -2,10 +2,15 @@
 
 Counterpart of easyhec_tpu/solver/lr_finder.py (the reference trainer's
 find_lr: an exponential LR sweep, the loss EMA-smoothed, a stop on
-divergence, the steepest-descent LR suggested). The JAX package's one
-``lax.scan`` is an eager loop here, with autograd for the gradient, so it
-also sweeps the 6-dof calibration loss through the fused kernels on the
-card: one forward and one backward launch per step.
+divergence, the steepest-descent LR suggested), with autograd for the
+gradient, so it also sweeps the 6-dof calibration loss through the fused
+kernels on the card: one forward and one backward launch per step. The
+JAX package runs the sweep as one jitted ``lax.scan``; here, on CUDA
+parameters, one step (the loss, its gradient, the update at the lr of a
+device step index, the loss written to a device buffer) is captured as a
+CUDA graph and replayed ``num_steps`` times, and the host reads the losses
+once. A loss that cannot be captured (one that reads the device from the
+host) raises, as JAX's jit fails on it. On the CPU the step runs eagerly.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.cuda_graph import Counters, repeat
 from .optim import make_optimizer
 
 __all__ = ["LRFindResult", "find_lr"]
@@ -35,6 +41,11 @@ def _leaves(params):
         keys = list(params)
         return [params[k] for k in keys], lambda ls: dict(zip(keys, ls))
     return list(params), lambda ls: type(params)(ls)
+
+
+def _capturable(leaves) -> bool:
+    """Whether find_lr's step runs as a CUDA graph: on CUDA parameters."""
+    return leaves[0].device.type == "cuda"
 
 
 def find_lr(
@@ -66,22 +77,41 @@ def find_lr(
         raise ValueError(f"unknown optimizer {optimizer!r}")
 
     leaves, rebuild = _leaves(params)
+    dev = leaves[0].device
     p = [t.detach().clone() for t in leaves]
-    states = [adam.init(t) for t in p] if optimizer == "adam" else None
-    losses = []
-    for lr in lrs.tolist():
-        p = [t.requires_grad_() for t in p]
-        loss = loss_fn(rebuild(p))
-        grads = torch.autograd.grad(loss, p)
-        losses.append(loss.detach())
+    states = [adam.init(t) for t in p] if optimizer == "adam" else []
+    n_state = len(adam.leaves(states[0])) if states else 0
+    bufs = dict(
+        p=p,
+        state=[leaf.clone() for s in states for leaf in adam.leaves(s)],
+        lrs=lrs.to(dev),
+        idx=torch.zeros(1, dtype=torch.int64, device=dev),
+        losses=torch.zeros(num_steps, dtype=torch.float32, device=dev),
+    )
+
+    def step(b):
+        ps = [t.detach().requires_grad_() for t in b["p"]]
+        loss = loss_fn(rebuild(ps))
+        grads = torch.autograd.grad(loss, ps)
+        b["losses"].index_copy_(0, b["idx"], loss.detach().reshape(1).float())
+        lr = b["lrs"].index_select(0, b["idx"]).reshape(())
         with torch.no_grad():
-            if states is None:
-                p = [t - lr * g for t, g in zip(p, grads)]
+            if not n_state:
+                new = [t - lr * g for t, g in zip(b["p"], grads)]
             else:
-                upd = [adam.update(g, s) for g, s in zip(grads, states)]
-                states = [s for _, s in upd]
-                p = [t + lr * u for t, (u, _) in zip(p, upd)]
-    losses = torch.stack(losses).cpu().numpy()
+                new = []
+                for i, (t, g) in enumerate(zip(b["p"], grads)):
+                    sl = b["state"][i * n_state:(i + 1) * n_state]
+                    u, s = adam.update(g, adam.from_leaves(sl))
+                    new.append(t + lr * u)
+                    for buf, leaf in zip(sl, adam.leaves(s)):
+                        buf.copy_(leaf)
+            for buf, t in zip(b["p"], new):
+                buf.copy_(t)
+            b["idx"] += 1
+
+    repeat(step, bufs, num_steps, Counters.kernels() if _capturable(p) else None)
+    losses = bufs["losses"].cpu().numpy()
     lrs_np = lrs.numpy()
 
     # EMA smoothing with bias correction (reference base.py:311-315)

@@ -1,9 +1,11 @@
-"""CUDA graphs for the port's two hot loops, with counters that count replays.
+"""CUDA graphs for the JAX package's compiled programs, with counters that
+count replays.
 
-The JAX package compiles each calibration chunk and each explorer scoring
-pass into one device program (``jax.jit``). Here the counterpart is a CUDA
-graph (``torch.cuda.graph``): the work of one step or one scoring batch is
-captured once and replayed, so the host launches one graph where it
+The JAX package compiles each calibration chunk, each explorer scoring
+pass, the global search's three stages and the LR finder's sweep into
+device programs (``jax.jit``). Here the counterpart is a CUDA graph
+(``torch.cuda.graph``): the work of one step or one batch is captured once
+and replayed (``repeat``), so the host launches one graph where it
 launched hundreds of eager operations. Where the JAX program branches on
 the device (``lax.cond``), ``CondGraph`` captures ``if flag: body()`` then
 ``tail()`` as one graph with a conditional node: a replay runs the body only
@@ -28,7 +30,7 @@ import weakref
 
 import torch
 
-__all__ = ["CondGraph", "Counters", "Graph", "warm_up"]
+__all__ = ["CondGraph", "Counters", "Graph", "repeat", "warm_up"]
 
 
 class Counters:
@@ -95,6 +97,33 @@ class Graph:
     def replay(self) -> None:
         self.graph.replay()
         self.counters.add(self.moved)
+
+
+def repeat(fn, bufs: dict, n: int, counters: Counters | None, pool=None) -> Graph | None:
+    """fn(bufs) n times, where fn reads and writes only the tensors of bufs
+    (a dict of tensors, or of lists of tensors) and what it closes over.
+    With ``counters`` (CUDA only): as one CUDA graph, warmed up once on
+    copies of bufs (so the warm-up moves no buffer), captured on bufs in
+    ``pool`` and replayed n times; returns the Graph, which the caller keeps
+    while it shares the pool. Without: eagerly; returns None."""
+    if counters is None:
+        for _ in range(n):
+            fn(bufs)
+        return None
+
+    def clone(v):
+        return v.clone() if torch.is_tensor(v) else [t.clone() for t in v]
+
+    copies = {k: clone(v) for k, v in bufs.items()}
+    dev = next(iter(copies.values()))
+    dev = (dev if torch.is_tensor(dev) else dev[0]).device
+    with torch.cuda.device(dev):
+        warm_up(lambda: fn(copies), counters, dev)
+        del copies
+        graph = Graph(lambda: fn(bufs), counters, pool)
+        for _ in range(n):
+            graph.replay()
+    return graph
 
 
 def _versions() -> str:

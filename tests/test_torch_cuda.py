@@ -1132,3 +1132,118 @@ def test_graphed_score_matches_eager(dev, shared, route, monkeypatch):
     assert counts[True][:2] == counts[False][:2] == (3 * 4, 3 if shared else 12)
     assert counts[True][2] == 3 and counts[False][2] == 0
     assert counts[True][3] == counts[False][3] > 0
+
+
+def _mini_arm_search_scene(dev, H=192, W=256):
+    """The mini arm on the card (the scoring renderer takes UNFUSED's tiles
+    and cap), two frames, and its masks from a look-at pose."""
+    from easyhec_torch.models.pose_init import lookat_init
+    from easyhec_torch.robot import build_chain, load_link_meshes, parse_urdf
+
+    names = ["base", "upper", "fore"]
+    model = parse_urdf(ROOT / "assets" / "mini_arm.urdf")
+    chain = build_chain(model)
+    meshes = load_link_meshes(model, link_names=names)
+    r = RobotRenderer([meshes[n] for n in names], H, W, tile=UNFUSED, device=dev)
+    idx = [chain.link_names.index(n) for n in names]
+    lp = np.stack([chain.fk(torch.tensor(q))[idx].numpy()
+                   for q in ([0.3, -0.4], [-0.2, 0.5])]).astype(np.float32)
+    K = np.array([[240.0, 0, W / 2], [0, 240.0, H / 2], [0, 0, 1]], np.float32)
+    T = torch.from_numpy(lookat_init([0.9, 0.5, 0.6], [0, 0, 0.2])).to(dev)
+    with torch.no_grad():
+        masks = (r.silhouette(T, torch.from_numpy(lp).to(dev), torch.from_numpy(K).to(dev))
+                 > 0.5).float().cpu().numpy()
+    return r, lp, K, masks
+
+
+@pytest.mark.parametrize("kw", [{}, dict(n_dirs=13, radii=(0.9, 1.3), n_roll=3,
+                                         refine_steps=20)], ids=["default3072", "ragged78"])
+def test_graphed_search_matches_eager(dev, kw, monkeypatch):
+    """global_search_init graphed (the sweep one graph replayed per batch of
+    64, the moment refine one graph, the Adam step one graph replayed per
+    step) and eager (pose_init._capturable patched to refuse) on the mini
+    arm at 24x32 scoring renders: the scores, tiles_at_cap, Tc_c2b and
+    score equal bit for bit, with equal K5 launch counts (one K5f per sweep
+    batch, moment iteration and step, plus the final IoU; one counted K5b
+    per step); the graphed call replays its graphs that often, the eager
+    one never. At 3072 candidates (48 full batches) and at 78 (a ragged
+    batch of 14 padded to 64)."""
+    from easyhec_torch.models import pose_init
+    from easyhec_torch.ops import tile_raster as tr_
+
+    r, lp, K, masks = _mini_arm_search_scene(dev)
+    kernels = (tr_.tile_fwd_cuda, tr_.tile_bwd_counted_cuda, tr_.tile_bwd_cuda)
+    capturable = pose_init._capturable
+    replays = _count_replays(monkeypatch)
+    out, counts = {}, {}
+    for graphed in (True, False):
+        monkeypatch.setattr(pose_init, "_capturable",
+                            capturable if graphed else lambda renderer: False)
+        for k in kernels:
+            k.launches = 0
+        replays.clear()
+        out[graphed] = pose_init.global_search_init(r, lp, K, masks, **kw)
+        torch.cuda.synchronize()
+        counts[graphed] = ([k.launches for k in kernels], len(replays))
+    g, e = out[True], out[False]
+    assert np.array_equal(g.scores, e.scores) and np.array_equal(g.poses, e.poses)
+    assert np.array_equal(g.Tc_c2b, e.Tc_c2b) and g.score == e.score
+    assert g.tiles_at_cap == e.tiles_at_cap
+    n = g.scores.size
+    steps = kw.get("refine_steps", 200)
+    nb = -(-n // 64)
+    assert n == (3072 if not kw else 78)
+    assert counts[True][0] == counts[False][0] == [nb + 2 + steps + 1, steps, 0]
+    assert counts == {True: (counts[True][0], nb + 1 + steps), False: (counts[True][0], 0)}
+    assert np.isfinite(g.Tc_c2b).all() and 0 < g.score <= 1
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "sgd"])
+def test_graphed_find_lr_matches_eager(dev, optimizer, monkeypatch):
+    """find_lr over the compact mask loss on one bin state, graphed (one step
+    graph replayed per step) and eager (lr_finder._capturable patched to
+    refuse), 40 steps: the losses equal bit for bit, one K2f and one K2b per
+    step in both."""
+    from easyhec_torch.models.calib import mask_loss, tile_masks
+    from easyhec_torch.solver import lr_finder
+
+    r, st, t = _scene(dev, True)
+    ref = tile_masks(t["target"], r)
+    d0 = t["xi"] + 0.01
+    capturable = lr_finder._capturable
+    replays = _count_replays(monkeypatch)
+    out, counts = {}, {}
+    for graphed in (True, False):
+        monkeypatch.setattr(lr_finder, "_capturable",
+                            capturable if graphed else lambda leaves: False)
+        prc.loss_fwd_compact_cuda.launches = prc.loss_bwd_compact_cuda.launches = 0
+        replays.clear()
+        out[graphed] = lr_finder.find_lr(
+            lambda d: mask_loss(d, r, t["lp"], t["K"], t["target"], bin_state=st,
+                                ref_tiles=ref), d0, 1e-5, 1e-1, 40, optimizer=optimizer)
+        counts[graphed] = (prc.loss_fwd_compact_cuda.launches,
+                           prc.loss_bwd_compact_cuda.launches, len(replays))
+    assert np.array_equal(out[True].losses, out[False].losses)
+    assert np.isfinite(out[True].losses).all()
+    assert out[True].suggestion == out[False].suggestion
+    assert counts == {True: (40, 40, 40), False: (40, 40, 0)}
+
+
+def test_find_lr_capture_failure_raises(dev):
+    """A loss that reads the device from the host (.item()) cannot be
+    captured: find_lr raises, as JAX's jit fails on it, with no eager
+    fallback. Last in the file, with the default stream restored after it:
+    were capture_end to fail as well, torch.cuda.graph would leave the
+    thread on its capture stream."""
+    from easyhec_torch.solver.lr_finder import find_lr
+
+    def loss_fn(x):
+        loss = torch.sum((x - 1.0) ** 2)
+        return loss * (1.0 if loss.item() > 0 else 2.0)
+
+    try:
+        with pytest.raises(RuntimeError):
+            find_lr(loss_fn, torch.zeros(3, device=dev), num_steps=5)
+    finally:
+        torch.cuda.set_stream(torch.cuda.default_stream(dev))
+        torch.cuda.synchronize()

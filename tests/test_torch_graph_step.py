@@ -281,6 +281,49 @@ def test_graph_replays_advance_the_launch_counters(monkeypatch):
     prc.loss_fwd_compact_cuda.launches, prc.loss_bwd_compact_cuda.launches = f0, b0
 
 
+def test_repeat_warms_up_on_copies_then_replays(monkeypatch):
+    """utils.cuda_graph.repeat (the search's stages, find_lr's step and the
+    explorer's batch): with counters, fn runs once on copies of the buffers
+    (the warm-up), once on the buffers themselves inside the capture (in
+    the given pool), and the graph replays n times, adding fn's counter
+    movement each time; without counters, fn runs n times on the
+    buffers, eagerly."""
+    pools, seen, warm = [], [], []
+
+    @contextlib.contextmanager
+    def stub_capture(graph, pool=None):
+        pools.append(pool)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StubGraph)
+    monkeypatch.setattr(torch.cuda, "graph", stub_capture)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(cuda_graph, "warm_up",
+                        lambda fn, counters, dev: warm.append(counters.moved_by(fn)))
+
+    class Holder:
+        launches = 0
+
+    h = Holder()
+    bufs = dict(x=torch.zeros(2), leaves=[torch.ones(3)])
+
+    def fn(b):
+        seen.append((b["x"], b["leaves"][0]))
+        b["x"] += 1
+        h.launches += 2
+
+    g = cuda_graph.repeat(fn, bufs, 4, cuda_graph.Counters([(h, "launches")]), pool="p")
+    assert warm == [[2]] and pools == ["p"] and g.graph.replays == 4
+    (wx, wl), (cx, cl) = seen
+    assert wx is not bufs["x"] and wl is not bufs["leaves"][0]
+    assert cx is bufs["x"] and cl is bufs["leaves"][0]
+    assert h.launches == 8 and g.moved == [2]
+    seen.clear()
+    assert cuda_graph.repeat(fn, bufs, 3, None) is None
+    assert len(seen) == 3 and all(x is bufs["x"] for x, _ in seen)
+    assert torch.equal(bufs["x"], torch.full((2,), 4.0)) and h.launches == 14
+
+
 class _StubRawGraph(_StubGraph):
     """_StubGraph that takes keep_graph (the conditional node's parts)."""
 
