@@ -49,6 +49,15 @@ Phases, in order (any failure exits non-zero):
    median and spread of each, the capture's seconds by part, each runner's peak
    memory and host reads per chunk (graphed: only the read after it)
    (tests/test_torch_cuda.py holds the unfused route's graphs too).
+   ``[behaviour]``: each route's analytic pose gradient (K2b, K1b, the
+   counted K5b) against central differences of its own forward at xi +
+   0.01, with the JAX package's rule (tests/test_fused.py:173-188: each
+   component within max(12 % of the FD component, 3 % of max|g|), eps
+   1e-4), after the spread of repeated forwards and the FD at eps 1e-4 and
+   1e-3; then the capture profile: the compact route's calibrate, 1000
+   steps from xi + m·d for m in (0.05, 0.1, 0.15, 0.3), d from numpy's
+   default_rng(7): each final error, 0.05 converged (1 cm, 1 deg) and the
+   basin not inverted, as the JAX package's profile test asserts.
 4. Dense trainer: ``run_offline_calibration`` with an in-memory Config and
    CalibBatch. Asserts no overflow, a falling loss, one K1f and one K1b
    launch per step, one K4f launch per render_outputs call, the artifacts.
@@ -1356,6 +1365,107 @@ def main_eager_phase(lp, K, xi, steps, routes, reps=5):
                   f"{sum(reads[label][False].values())} at {dict(reads[label][False])}")
     finally:
         calib._Scan._capture = real_capture
+
+
+FD_EPS = 1e-4  # central-difference step of [behaviour] (tests/test_fused.py:184)
+CAPTURE_MAGS = (0.05, 0.1, 0.15, 0.3)  # [behaviour]'s se(3) perturbation norms
+
+
+def behaviour_phase(routes, lp, K, xi, steps):
+    """[behaviour]: the end results of the JAX package's slow tests, on the
+    card at the bench scene.
+
+    1. Each route's analytic pose gradient (routes: (label, renderer, target,
+       forward wrapper, backward wrapper): compact K2f/K2b, dense K1f/K1b,
+       unfused K5f and the counted K5b) against central differences of its
+       own forward (``calib.mask_loss``, the calibration's loss, its bin
+       state built at each pose) at the bench start pose xi + 0.01, with
+       tests/test_fused.py:173-188's rule: each component within max(12 %
+       of the FD component, 3 % of max|g|) at eps FD_EPS (the step taken
+       is the f32 difference of the two poses). Printed first: the spread
+       of 5 repeated forwards (0 under the fixed-order sums) and the FD at
+       eps 1e-4 and 1e-3; the launches (one backward per gradient).
+    2. The capture profile: ``calibrate`` on the compact route, ``steps``
+       Adam steps at 3e-3 with adaptive rebinning, from xi + m·d for m in
+       CAPTURE_MAGS, d a unit se(3) direction from numpy's default_rng(7)
+       (tests/test_capture_range.py:92-94); converged within 1 cm
+       (err_trans) and 1 deg (err_rot). Asserts what JAX's profile test
+       asserts: 0.05 converges, and if 0.3 converges so does 0.15.
+    Prints the phase's seconds."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.models.calib import calibrate, mask_loss
+
+    t_phase = time.perf_counter()
+    x0 = (xi + 0.01).float()
+    for label, r, target, fwd, bwd in routes:
+        kern = {"fwd": fwd, "bwd": bwd}
+
+        def loss(x):
+            with torch.no_grad():
+                return float(mask_loss(x, r, lp, K, target))
+
+        _reset(kern)
+        x = x0.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(mask_loss(x, r, lp, K, target), x)
+        g = g.cpu().numpy().astype(np.float64)
+        grad_launches = {k: fn.launches for k, fn in kern.items()}
+        reps = [loss(x0) for _ in range(5)]
+        fd = {}
+        for eps in (1e-4, 1e-3):
+            fd[eps] = np.zeros(6)
+            for i in range(6):
+                e = torch.zeros(6, device=x0.device)
+                e[i] = eps
+                xp, xm = x0 + e, x0 - e
+                step = float(xp[i]) - float(xm[i])  # the f32 step actually taken
+                fd[eps][i] = (loss(xp) - loss(xm)) / step
+        gmax = np.abs(g).max()
+        tol = np.maximum(0.12 * np.abs(fd[FD_EPS]), 0.03 * gmax)
+        err = np.abs(g - fd[FD_EPS])
+        print(f"[behaviour] FD {label}: loss {reps[0]:.6f}, spread of 5 repeated forwards "
+              f"{max(reps) - min(reps):.3e}; analytic g {np.array2string(g, precision=4)}; FD at "
+              f"eps 1e-4 {np.array2string(fd[1e-4], precision=4)}; at 1e-3 "
+              f"{np.array2string(fd[1e-3], precision=4)}; |g - FD(eps {FD_EPS:g})| / tol "
+              f"{np.array2string(err / tol, precision=3)} (tol max(12 % |FD|, 3 % max|g| = "
+              f"{0.03 * gmax:.4f})); launches for the gradient {json.dumps(grad_launches)}, "
+              f"{kern['fwd'].launches - grad_launches['fwd']} forwards for the differences")
+        if grad_launches["bwd"] != 1 or grad_launches["fwd"] < 1:
+            raise AssertionError(f"[behaviour] {label}: the gradient launched {grad_launches}")
+        if not (np.isfinite(g).all() and gmax > 0 and (err < tol).all()):
+            raise AssertionError(f"[behaviour] {label}: the analytic gradient {g} disagrees with "
+                                 f"central differences {fd[FD_EPS]} (tol {tol})")
+
+    label, r, target = routes[0][:3]
+    d = np.random.default_rng(7).normal(size=6)
+    d = d / np.linalg.norm(d)
+    gt = se3.exp(xi).cpu().numpy()
+    results = {}
+    for mag in CAPTURE_MAGS:
+        t0 = time.perf_counter()
+        res = calibrate((xi.cpu().numpy() + mag * d).astype(np.float32), r, lp, K, target,
+                        num_steps=steps, max_lr=3e-3, rebin_every=0, Tc_c2b_gt=gt,
+                        on_overflow="warn")
+        m = res.metrics
+        ok = bool(m["err_trans"] < 1.0 and m["err_rot"] < 1.0)
+        results[mag] = ok
+        print(f"[behaviour] capture {label} from xi_gt + {mag}·d: {steps} steps in "
+              f"{time.perf_counter() - t0:.3f} s, loss {res.losses[0]:.3f} -> "
+              f"{res.losses[-1]:.3f}, {res.rebins} rebins, overflow {res.overflow}; error "
+              f"{m['err_trans']:.4f} cm {m['err_rot']:.4f} deg (geodesic "
+              f"{m['err_trans_geodesic_cm']:.4f} cm {m['err_rot_geodesic_deg']:.4f} deg): "
+              f"{'converged' if ok else 'not converged'}")
+        if not (np.isfinite(res.losses).all() and np.isfinite(res.dof).all()):
+            raise AssertionError(f"[behaviour] capture from {mag}: non-finite loss or pose")
+    print(f"[behaviour] capture profile (converged within 1 cm and 1 deg) "
+          f"{json.dumps({str(k): v for k, v in results.items()})} along d = "
+          f"{np.array2string(d, precision=4)}; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s; {GPU}")
+    if not results[0.05] or (results[0.3] and not results[0.15]):
+        raise AssertionError(f"[behaviour] capture profile {results}: 0.05 must converge and "
+                             f"the basin must not be inverted")
 
 
 def trainer_phase(lp, K, xi, qs, target, steps, out_dir):
@@ -3988,7 +4098,11 @@ def cli_phase(work: Path, trainer_ms: float):
        rebinning, 1000 steps) with the arm swapped by CLI_X7's overrides:
        ``simulate --n-frames 10`` (its own camera: 1.6 m, 40 deg, 0.9 m, f =
        1.2 x 1280); ``run`` with the config's global_search init (no pose
-       limit: on the mini arm the search lands on a rolled pose); ``run``
+       limit: on the mini arm the search may land on a rolled pose, and
+       its refine parts from the JAX package's for the method's reasons,
+       held by tests/test_torch_pose_init.py's
+       test_global_search_bench_arm_matches_jax and
+       test_refine_parting_is_explained); ``run``
        from the GT perturbed as cli/run.py::perturbed_start does, passed as
        a nested flow list with init_method=manual (1.5 cm, 1.5 deg);
        ``validate`` and ``tune_init --global-search`` on the first run;
@@ -4180,6 +4294,11 @@ def main() -> int:
         ("compact", renderer, target, compact_k),
         ("dense", dense, target_d, {"loss_fwd": pr.loss_fwd_cuda,
                                     "loss_bwd": pr.loss_bwd_cuda})])
+    behaviour_phase([
+        ("compact", renderer, target, prc.loss_fwd_compact_cuda, prc.loss_bwd_compact_cuda),
+        ("dense", dense, target_d, pr.loss_fwd_cuda, pr.loss_bwd_cuda),
+        ("unfused", unfused, target_u, tr.tile_fwd_cuda, tr.tile_bwd_counted_cuda)],
+        lp, K, xi, args.steps)
     profile_s = 0.0
     if args.profile:
         t0 = time.perf_counter()
