@@ -1202,58 +1202,22 @@ def _host_reads(fn) -> list[str]:
 
 @contextlib.contextmanager
 def _capture_parts(parts: list):
-    """Time each part of the graph captures made inside the block, appending
-    (part, seconds) to ``parts`` in the order they ran: "warmup"
-    (utils.cuda_graph.warm_up), "gc" and "empty_cache" (gc.collect and
-    torch.cuda.empty_cache, which torch.cuda.graph runs before each
-    capture), "capture" (the rest of each torch.cuda.graph block: the
-    captured Python, capture_begin and capture_end) and "instantiate"
-    (utils.cuda_graph._CondExec: the conditional graph's assembly and
-    cudaGraphInstantiate). The card is synchronized around each part."""
-    import gc
+    """The graph captures made inside the block, by part, from the program's
+    own spans (easyhec_torch.utils.profiling): appends (part, seconds) to
+    ``parts`` in the order the parts started, at the block's end.
+    "warm_up" (utils.cuda_graph.warm_up), "capture" (a torch.cuda.graph
+    block: its gc.collect and empty_cache, the captured Python, capture_end)
+    and "instantiate" (utils.cuda_graph._CondExec: the conditional graph's
+    assembly and cudaGraphInstantiate)."""
+    from easyhec_torch.utils import profiling
 
-    import torch
-
-    from easyhec_torch.utils import cuda_graph
-
-    def timed(holder, name, part):
-        real = getattr(holder, name)
-
-        def wrapper(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            try:
-                return real(*a, **kw)
-            finally:
-                torch.cuda.synchronize()
-                parts.append((part, time.perf_counter() - t0))
-
-        setattr(holder, name, wrapper)
-        return lambda: setattr(holder, name, real)
-
-    real_graph = torch.cuda.graph
-
-    class timed_graph(real_graph):
-        def __enter__(self):
-            torch.cuda.synchronize()
-            self.t0, self.n = time.perf_counter(), len(parts)
-            return super().__enter__()
-
-        def __exit__(self, *exc):
-            out = super().__exit__(*exc)
-            torch.cuda.synchronize()
-            inner = sum(t for _, t in parts[self.n:])  # gc and empty_cache
-            parts.append(("capture", time.perf_counter() - self.t0 - inner))
-            return out
-
-    with contextlib.ExitStack() as undo:
-        undo.callback(timed(cuda_graph, "warm_up", "warmup"))
-        undo.callback(timed(gc, "collect", "gc"))
-        undo.callback(timed(torch.cuda, "empty_cache", "empty_cache"))
-        undo.callback(timed(cuda_graph._CondExec, "__init__", "instantiate"))
-        torch.cuda.graph = timed_graph
-        undo.callback(setattr, torch.cuda, "graph", real_graph)
+    t0 = time.time_ns()
+    try:
         yield parts
+    finally:
+        for s in sorted(profiling.spans(since_ns=t0), key=lambda s: s.id):
+            if s.name.startswith("graph."):
+                parts.append((s.name[len("graph."):], (s.end_ns - s.start_ns) / 1e9))
 
 
 def main_eager_phase(lp, K, xi, steps, routes, reps=5):
@@ -1266,10 +1230,11 @@ def main_eager_phase(lp, K, xi, steps, routes, reps=5):
     route's kernels as often, the backward once per step. Prints ms/step
     median and spread per runner, the capture's seconds (warmup on copies,
     then the step graph with its conditional rebin) and, per turn, its
-    parts (_capture_parts: warmup, each capture's gc.collect, empty_cache
-    and capture proper, the conditional graph's instantiation), each runner's peak
-    device memory over what was allocated before the run, and the host
-    reads per chunk of 50 of each runner (synchronizing operations under
+    parts (_capture_parts, from the program's spans: the warm-up, each
+    capture with its gc.collect and empty_cache, the conditional graph's
+    instantiation), each runner's peak device memory over what was
+    allocated before the run, and the host reads per chunk of 50 of each
+    runner (synchronizing operations under
     torch.cuda.set_sync_debug_mode("warn"), a 100-step run's less a 50-step
     run's, with the Python lines that made them): graphed, only _Scan.run's
     read after the chunk.
@@ -1281,17 +1246,6 @@ def main_eager_phase(lp, K, xi, steps, routes, reps=5):
     import torch
 
     from easyhec_torch.models import calib
-
-    real_capture = calib._Scan._capture
-    capture_s = []
-
-    def timed_capture(self, *a):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        graph = real_capture(self, *a)
-        torch.cuda.synchronize()
-        capture_s.append(time.perf_counter() - t0)
-        return graph
 
     d0 = (xi + 0.01).detach()
 
@@ -1307,64 +1261,59 @@ def main_eager_phase(lp, K, xi, steps, routes, reps=5):
     run_lines = {f"calib.py:{first + i}" for i in range(len(src))}
     reads = {label: {g: per_chunk(r, target, g) for g in (True, False)}
              for label, r, target, _ in routes}
-    calib._Scan._capture = timed_capture
-    try:
-        for label, r, target, kernels in routes:
-            ms, peak, ref = {True: [], False: []}, {True: [], False: []}, None
-            caps, cap_parts = [], []
-            for _ in range(reps):
-                for graphed in (True, False):
-                    _reset(kernels)
-                    capture_s.clear()
-                    torch.cuda.synchronize()
-                    base = torch.cuda.memory_allocated()
-                    torch.cuda.reset_peak_memory_stats()
-                    parts = []
-                    t0 = time.perf_counter()
-                    with _capture_parts(parts) if graphed else contextlib.nullcontext():
-                        out = run(r, target, steps, graphed)
-                    torch.cuda.synchronize()
-                    ms[graphed].append((time.perf_counter() - t0) / steps * 1e3)
-                    peak[graphed].append((torch.cuda.max_memory_allocated() - base) / 2**20)
-                    launches = {k: fn.launches for k, fn in kernels.items()}
-                    if graphed:
-                        caps += capture_s
-                        cap_parts.append(", ".join(f"{k} {v:.3f}" for k, v in parts))
-                    dof, losses, history, ov, rebins = out
-                    if ov or list(launches.values())[1] != steps:
-                        raise AssertionError(f"[main eager] {label}: overflow {ov} or "
-                                             f"launches {launches} for {steps} steps")
-                    if ref is None:
-                        ref = (out, launches)
-                        continue
-                    (d1, l1, h1, o1, r1), la = ref
-                    if not (torch.equal(losses, l1) and torch.equal(history, h1)
-                            and torch.equal(dof, d1) and (ov, rebins) == (o1, r1)
-                            and launches == la):
-                        raise AssertionError(f"[main eager] {label}: graphed={graphed} "
-                                             f"differs from the first run (rebins {rebins} "
-                                             f"vs {r1}, launches {launches} vs {la})")
-            if set(reads[label][True]) - run_lines or not reads[label][True]:
-                raise AssertionError(f"[main eager] {label}: a graphed chunk reads the host "
-                                     f"at {dict(reads[label][True])}, not only in _Scan.run")
-            g, e = ms[True], ms[False]
-            print(f"[main eager] {label}: {reps} turns of graphed then eager, {steps} steps "
-                  f"each; ms/step graphed {_spread(g)}, eager {_spread(e)}: eager / graphed "
-                  f"{statistics.median(e) / statistics.median(g):.2f}x; traces bit-identical "
-                  f"across all {2 * reps} runs ({ref[0][4]} rebins, launches "
-                  f"{json.dumps(ref[1])}); capture (warmup + the step graph) "
-                  f"{', '.join(f'{c:.3f}' for c in caps)} s; peak memory over the scene "
-                  f"graphed {max(peak[True]):.1f} MiB, eager {max(peak[False]):.1f} MiB "
-                  f"({GPU})")
-            print(f"[main eager] {label}: each graphed turn's capture by part, s: "
-                  + "; ".join(f"turn {i}: {c}" for i, c in enumerate(cap_parts)))
-            print(f"[main eager] {label}: host reads per chunk of 50 (synchronizing "
-                  f"operations under set_sync_debug_mode, 100 steps less 50): graphed "
-                  f"{sum(reads[label][True].values())} at {dict(reads[label][True])} (the "
-                  f"chunk's read of the overflow flag and the rebin count), eager "
-                  f"{sum(reads[label][False].values())} at {dict(reads[label][False])}")
-    finally:
-        calib._Scan._capture = real_capture
+    for label, r, target, kernels in routes:
+        ms, peak, ref = {True: [], False: []}, {True: [], False: []}, None
+        caps, cap_parts = [], []
+        for _ in range(reps):
+            for graphed in (True, False):
+                _reset(kernels)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                parts = []
+                t0 = time.perf_counter()
+                with _capture_parts(parts) if graphed else contextlib.nullcontext():
+                    out = run(r, target, steps, graphed)
+                torch.cuda.synchronize()
+                ms[graphed].append((time.perf_counter() - t0) / steps * 1e3)
+                peak[graphed].append((torch.cuda.max_memory_allocated() - base) / 2**20)
+                launches = {k: fn.launches for k, fn in kernels.items()}
+                if graphed:
+                    caps.append(sum(t for _, t in parts))
+                    cap_parts.append(", ".join(f"{k} {v:.3f}" for k, v in parts))
+                dof, losses, history, ov, rebins = out
+                if ov or list(launches.values())[1] != steps:
+                    raise AssertionError(f"[main eager] {label}: overflow {ov} or "
+                                         f"launches {launches} for {steps} steps")
+                if ref is None:
+                    ref = (out, launches)
+                    continue
+                (d1, l1, h1, o1, r1), la = ref
+                if not (torch.equal(losses, l1) and torch.equal(history, h1)
+                        and torch.equal(dof, d1) and (ov, rebins) == (o1, r1)
+                        and launches == la):
+                    raise AssertionError(f"[main eager] {label}: graphed={graphed} "
+                                         f"differs from the first run (rebins {rebins} "
+                                         f"vs {r1}, launches {launches} vs {la})")
+        if set(reads[label][True]) - run_lines or not reads[label][True]:
+            raise AssertionError(f"[main eager] {label}: a graphed chunk reads the host "
+                                 f"at {dict(reads[label][True])}, not only in _Scan.run")
+        g, e = ms[True], ms[False]
+        print(f"[main eager] {label}: {reps} turns of graphed then eager, {steps} steps "
+              f"each; ms/step graphed {_spread(g)}, eager {_spread(e)}: eager / graphed "
+              f"{statistics.median(e) / statistics.median(g):.2f}x; traces bit-identical "
+              f"across all {2 * reps} runs ({ref[0][4]} rebins, launches "
+              f"{json.dumps(ref[1])}); capture (warmup + the step graph) "
+              f"{', '.join(f'{c:.3f}' for c in caps)} s; peak memory over the scene "
+              f"graphed {max(peak[True]):.1f} MiB, eager {max(peak[False]):.1f} MiB "
+              f"({GPU})")
+        print(f"[main eager] {label}: each graphed turn's capture by part, s: "
+              + "; ".join(f"turn {i}: {c}" for i, c in enumerate(cap_parts)))
+        print(f"[main eager] {label}: host reads per chunk of 50 (synchronizing "
+              f"operations under set_sync_debug_mode, 100 steps less 50): graphed "
+              f"{sum(reads[label][True].values())} at {dict(reads[label][True])} (the "
+              f"chunk's read of the overflow flag and the rebin count), eager "
+              f"{sum(reads[label][False].values())} at {dict(reads[label][False])}")
 
 
 FD_EPS = 1e-4  # central-difference step of [behaviour] (tests/test_fused.py:184)
@@ -1564,56 +1513,46 @@ def _eager_search(graphed: bool):
 
 
 SEARCH_STAGES = ("_sweep", "_moment_refine", "_grad_refine")
+STAGE_SPANS = ("search.sweep", "search.moment_refine", "search.grad_refine")
 
 
 @contextlib.contextmanager
 def _search_stages(secs: dict, spans: dict):
-    """Inside the block, each stage of global_search_init (SEARCH_STAGES,
-    functions of models/pose_init.py) runs between two synchronizations, its seconds added to
-    secs[stage], and each CUDA graph replay inside it between two CUDA
-    events, appended to spans[stage]: the card's time for the stage's
-    replays, queued back to back."""
+    """Inside the block, the host seconds of each stage of global_search_init
+    from the program's spans (STAGE_SPANS: the stage's capture and the
+    queueing of its replays), added to secs[stage], and each CUDA graph
+    replay between two CUDA events, appended to spans[stage] for the stage
+    span it was queued in: the card's time for the stage's replays, queued
+    back to back."""
     import torch
 
-    from easyhec_torch.models import pose_init
-    from easyhec_torch.utils import cuda_graph
+    from easyhec_torch.utils import cuda_graph, profiling
 
-    current = []
-
-    def staged(name, real):
-        def wrapper(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            current.append(name)
-            try:
-                return real(*a, **kw)
-            finally:
-                current.pop()
-                torch.cuda.synchronize()
-                secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
-        return wrapper
-
+    t0, queued = time.time_ns(), []
     real_replay = cuda_graph.Graph.replay
 
     def replay(self):
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        at = time.time_ns()
         e0.record()
         real_replay(self)
         e1.record()
-        spans.setdefault(current[-1] if current else "other", []).append((e0, e1))
+        queued.append((at, e0, e1))
 
-    with contextlib.ExitStack() as undo:
-        for name in SEARCH_STAGES:
-            undo.enter_context(_patched(pose_init, name,
-                                        staged(name, getattr(pose_init, name))))
-        undo.enter_context(_patched(cuda_graph.Graph, "replay", replay))
+    with _patched(cuda_graph.Graph, "replay", replay):
         yield
+    stages = [s for s in profiling.spans(since_ns=t0) if s.name in STAGE_SPANS]
+    for s in stages:
+        secs[s.name] = secs.get(s.name, 0.0) + (s.end_ns - s.start_ns) / 1e9
+    for at, e0, e1 in queued:
+        name = next((s.name for s in stages if s.start_ns <= at <= s.end_ns), "other")
+        spans.setdefault(name, []).append((e0, e1))
 
 
 def _by_stage(parts) -> list[float]:
     """_capture_parts' (part, seconds) list of one search -> the seconds of
-    each stage's capture (warm-up, empty_cache, capture), the parts up to
-    and including each "capture"."""
+    each stage's capture (its warm-up and its capture), the parts up to and
+    including each "capture"."""
     out, acc = [], 0.0
     for part, t in parts:
         acc += t
@@ -1633,10 +1572,10 @@ def search_phase(renderer, lp, K, xi, target, reps=3):
     tiles at cap, pose, score and launches equal the first's bit for bit.
     Prints the seconds (median and spread), each graphed turn's capture
     seconds by stage (_capture_parts), each runner's peak memory over what
-    was allocated before, then one more run of each synchronized at the
-    stage boundaries (seconds by stage; graphed, the device span of each
-    stage's replays by CUDA events) and the host reads of a graphed run
-    (set_sync_debug_mode, by line). Returns the result."""
+    was allocated before, then one more run of each with its host seconds
+    by stage (_search_stages: the search.* spans) and, graphed, the device
+    span of each stage's replays by CUDA events, and the host reads of a
+    graphed run (set_sync_debug_mode, by line). Returns the result."""
     import inspect
     import statistics
     from collections import Counter
@@ -1725,12 +1664,12 @@ def search_phase(renderer, lp, K, xi, target, reps=3):
         if not same(same_res, ref):
             raise AssertionError(f"[search eager] the staged run (graphed={graphed}) differs")
         dev_ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
-        print(f"[search eager] one {'graphed' if graphed else 'eager'} run synchronized at "
-              f"each stage: {dt:.3f} s; s by stage "
-              + ", ".join(f"{k.strip('_')} {v:.3f}" for k, v in stage_s.items())
+        print(f"[search eager] one {'graphed' if graphed else 'eager'} run: {dt:.3f} s; "
+              f"host s by stage (the search.* spans) "
+              + ", ".join(f"{k.removeprefix('search.')} {v:.3f}" for k, v in stage_s.items())
               + f", the rest {dt - sum(stage_s.values()):.3f}"
               + ("; device span of the stage's graph replays, ms: "
-                 + ", ".join(f"{k.strip('_')} {v:.3f} ({len(spans[k])} replays)"
+                 + ", ".join(f"{k.removeprefix('search.')} {v:.3f} ({len(spans[k])} replays)"
                              for k, v in dev_ms.items()) if graphed else ""))
     reads = Counter(_host_reads(lambda: run(True)))
     stages = set()

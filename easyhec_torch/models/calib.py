@@ -23,6 +23,15 @@ and the rebin count once per chunk, as the JAX package does. On the CPU the
 same function runs eagerly. Steps go in chunks of ``chunk`` (50): overflow
 is checked and ``step_hook`` fires once per chunk, exactly as in the JAX
 package, so states and traces line up across the two.
+
+Spans (utils.profiling): ``calib.call`` around ``calibrate`` (counts
+``rebins`` and, while a torch profiler records, ``device_allocs``),
+``calib.prepare`` (the optimizer and the tiled masks), per chunk
+``calib.chunk.queue`` (queueing its steps) and ``calib.chunk.read`` (the host
+read that waits for them), then ``calib.finish`` (the copies out). When a
+torch profiler records the capture, the graph also times ``calib.rebin`` on
+the device (utils.profiling.DeviceSpans), read after each chunk's read: the
+chunk's rebins summed.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ from ..geometry import se3
 from ..ops.pose_raster import tile_image
 from ..render.renderer import RobotRenderer
 from ..solver.optim import make_optimizer
+from ..utils.profiling import DeviceSpans, device_allocs, span
 
 __all__ = [
     "BinOverflowError",
@@ -241,6 +251,7 @@ class _Scan:
         self.nrb = torch.zeros((), dtype=torch.int32, device=dev)
         self.need = torch.zeros((), dtype=torch.bool, device=dev)  # rebin before the next step
         self.state = self.pix = None  # written by _rebin
+        self.device_spans = DeviceSpans(("calib.rebin",), dev)  # traced captures
         self.graph = self._capture(pool) if graphed else None
 
     def _rebin(self):
@@ -296,12 +307,16 @@ class _Scan:
                 warm._rebin()
             warm._step()
 
+        def rebin():  # a device span of a traced capture
+            with self.device_spans.span("calib.rebin"):
+                self._rebin()
+
         with torch.cuda.device(self.dof.device):
             warm_up(once, counters, self.dof.device)
             del warm
             if self.rebin_every < 1:
                 return Graph(self._step, counters, pool)
-            return CondGraph(self.need, self._rebin, self._step, counters)
+            return CondGraph(self.need, rebin, self._step, counters)
 
     def queue(self, chunk: int) -> None:
         """Queue ``chunk`` steps (a fixed cadence runs whole windows) from a
@@ -323,9 +338,13 @@ class _Scan:
         """``chunk`` steps on from the buffers' pose and optimizer state ->
         (dof, opt_state, losses [chunk], history [chunk, 6], overflow,
         rebins), copies of the buffers: opt_scan's result. The overflow
-        flag and the rebin count are the chunk's one host read."""
-        self.queue(chunk)
-        ov, nrb = torch.stack([self.ov.int(), self.nrb.int()]).tolist()
+        flag and the rebin count are the chunk's one host read, after which
+        the device spans of a traced capture are read."""
+        with span("calib.chunk.queue"):
+            self.queue(chunk)
+        with span("calib.chunk.read"):
+            ov, nrb = torch.stack([self.ov.int(), self.nrb.int()]).tolist()
+            self.device_spans.read()
         if self.graph is not None and nrb:  # only a CondGraph rebins
             self.graph.taken(nrb)
         return (self.dof.clone(), self.opt.from_leaves([b.clone() for b in self.leaves]),
@@ -415,27 +434,29 @@ def _calibrate_scan(
 ):
     """calibrate's loop over chunks. graphed=False runs the same step and
     rebin eagerly on CUDA too (the card's comparison for the graph)."""
-    opt = make_optimizer(optimizer_name, max_lr=max_lr, total_steps=num_steps,
-                         scheduler=scheduler, grad_clip=grad_clip)
-    dev = init_dof.device
-    dof = init_dof
-    opt_state = opt.init(init_dof)
-    losses, history = [], []
-    done = 0
-    if resume_state is not None:
-        dof = torch.as_tensor(np.asarray(resume_state["dof"]), dtype=torch.float32,
-                              device=dev)
-        leaves = opt.leaves(opt_state)
-        opt_state = opt.from_leaves([
-            torch.as_tensor(np.asarray(resume_state[f"opt_{i}"]), dtype=leaf.dtype,
-                            device=dev)
-            for i, leaf in enumerate(leaves)
-        ])
-        done = int(resume_state["step"])
-        if done:
-            losses.append(torch.as_tensor(np.asarray(resume_state["losses"]), device=dev))
-            history.append(torch.as_tensor(np.asarray(resume_state["history"]), device=dev))
-    ref_tiles = tile_masks(masks_ref, renderer)
+    with span("calib.prepare"):
+        opt = make_optimizer(optimizer_name, max_lr=max_lr, total_steps=num_steps,
+                             scheduler=scheduler, grad_clip=grad_clip)
+        dev = init_dof.device
+        dof = init_dof
+        opt_state = opt.init(init_dof)
+        losses, history = [], []
+        done = 0
+        if resume_state is not None:
+            dof = torch.as_tensor(np.asarray(resume_state["dof"]), dtype=torch.float32,
+                                  device=dev)
+            leaves = opt.leaves(opt_state)
+            opt_state = opt.from_leaves([
+                torch.as_tensor(np.asarray(resume_state[f"opt_{i}"]), dtype=leaf.dtype,
+                                device=dev)
+                for i, leaf in enumerate(leaves)
+            ])
+            done = int(resume_state["step"])
+            if done:
+                losses.append(torch.as_tensor(np.asarray(resume_state["losses"]), device=dev))
+                history.append(torch.as_tensor(np.asarray(resume_state["history"]),
+                                               device=dev))
+        ref_tiles = tile_masks(masks_ref, renderer)
     overflowed = False
     rebins = 0
     scan = None
@@ -509,22 +530,29 @@ def calibrate(
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
                                dtype=torch.float32, device=dev)
 
-    dof, losses, history, overflowed, rebins = _calibrate_scan(
-        t(init_dof), t(link_poses), t(K), t(masks_ref), renderer,
-        int(num_steps), float(max_lr), optimizer, scheduler, float(grad_clip),
-        float(sharpness), float(robust_delta), rebin_every=int(rebin_every),
-        resume_state=resume_state, step_hook=step_hook, on_overflow=on_overflow,
-    )
-    dof_np = dof.cpu().numpy()
-    return CalibResult(
-        dof=dof_np,
-        Tc_c2b=se3.exp(dof).cpu().numpy(),
-        losses=losses.cpu().numpy(),
-        history=history.cpu().numpy(),
-        metrics=pose_metrics(dof_np, Tc_c2b_gt) if Tc_c2b_gt is not None else {},
-        overflow=overflowed,
-        rebins=rebins,
-    )
+    with span("calib.call") as counts:
+        allocs = device_allocs(dev)
+        dof, losses, history, overflowed, rebins = _calibrate_scan(
+            t(init_dof), t(link_poses), t(K), t(masks_ref), renderer,
+            int(num_steps), float(max_lr), optimizer, scheduler, float(grad_clip),
+            float(sharpness), float(robust_delta), rebin_every=int(rebin_every),
+            resume_state=resume_state, step_hook=step_hook, on_overflow=on_overflow,
+        )
+        with span("calib.finish"):
+            dof_np = dof.cpu().numpy()
+            result = CalibResult(
+                dof=dof_np,
+                Tc_c2b=se3.exp(dof).cpu().numpy(),
+                losses=losses.cpu().numpy(),
+                history=history.cpu().numpy(),
+                metrics=pose_metrics(dof_np, Tc_c2b_gt) if Tc_c2b_gt is not None else {},
+                overflow=overflowed,
+                rebins=rebins,
+            )
+        counts["rebins"] = rebins
+        if allocs is not None and (now := device_allocs(dev)) is not None:
+            counts["device_allocs"] = now - allocs
+    return result
 
 
 def render_outputs(dof, renderer: RobotRenderer, link_poses, K, masks_ref,

@@ -21,6 +21,16 @@ device. The overflow flags are OR-ed on the device and read once per
 ``_score`` call. The random draws come from a ``torch.Generator`` on the
 CPU (``draw_hypotheses_and_candidates``), so the card and the CPU draw the
 same numbers; they are not JAX's.
+
+Spans (utils.profiling): ``explore.call`` around ``explore`` (counts
+``bin_states``, ``escalations``, ``shared``), ``explore.draw`` (the draws and
+the hypotheses' spread), ``explore.score.queue`` (``_score``: the gates, the
+capture and the batches' replays), ``explore.score.read`` (the overflow
+flag's host read), ``explore.escalate`` (a renderer with doubled budgets) and
+``explore.finish``. When a torch profiler records the capture, the batch's
+graph also times each ``explore.bin_state`` and ``explore.render`` on the
+device (utils.profiling.DeviceSpans), read after the overflow read: their
+sums over the call's batches.
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ from ..render.fused import CompactState, silhouette_compact
 from ..render.renderer import RobotRenderer
 from ..robot import KinematicChain
 from ..robot.mesh import TriMesh
+from ..utils.profiling import DeviceSpans, span
 
 __all__ = [
     "LinkSpheres",
@@ -293,6 +304,7 @@ class SpaceExplorer:
         # them (read by explore after the overflow flag, no extra sync)
         self.last_bin_states = 0
         self._max_load = torch.zeros((), dtype=torch.int64, device=dev)
+        self._device_spans = spans = DeviceSpans(("explore.bin_state", "explore.render"), dev)
         if not (shared or compact_renderer or counted):
             # Stateless routes: one batched render of every hypothesis per
             # batch, eagerly (their overflow flag is not observable).
@@ -327,16 +339,18 @@ class SpaceExplorer:
 
         def batch(b):
             def bin_state(T):
-                st = r.bin_state(T, lp_b, K)
+                with spans.span("explore.bin_state"):
+                    st = r.bin_state(T, lp_b, K)
                 self.last_bin_states += 1
                 torch.maximum(b["max_load"], st.counts.max().long(), out=b["max_load"])
                 return st
 
             def render(T_h, state):
-                if isinstance(state, CompactState):
-                    sil = silhouette_compact(r, T_h, K, state)
-                else:
-                    sil = r.silhouette(T_h, lp_b, K, bin_state=state)
+                with spans.span("explore.render"):
+                    if isinstance(state, CompactState):
+                        sil = silhouette_compact(r, T_h, K, state)
+                    else:
+                        sil = r.silhouette(T_h, lp_b, K, bin_state=state)
                 return sil, torch.any(state.overflow)
 
             lp_b = batches.index_select(0, b["bidx"])[0]
@@ -378,55 +392,74 @@ class SpaceExplorer:
     ) -> ExploreResult:
         """Pick the next qpos maximizing render disagreement across the pose
         history (reference forward(), space_explorer.py:49-197)."""
-        hist = np.asarray(history)
-        hist = hist[min(self.history_start, max(len(hist) - 1, 0)):]
-        if len(hist) == 0:
-            raise ValueError("empty pose history")
-        f = self.limit_fraction
-        lim = np.asarray(self.chain.joint_limits, np.float32)
-        sel, qposes = draw_hypotheses_and_candidates(
-            key, self.n_hypotheses, len(hist), self.n_sample_qposes,
-            lim[:, 0] * np.float32(f), lim[:, 1] * np.float32(f),
-        )
-        hyp_dofs = np.asarray(hist, np.float32)[np.asarray(sel)]
-        if qpos_candidates is not None:
-            qposes = np.asarray(qpos_candidates, np.float32)
+        with span("explore.call") as counts:
+            result = self._explore(history, K, key, qpos_candidates)
+            counts.update(bin_states=self.last_bin_states, escalations=self.last_escalations,
+                          shared=int(self.last_shared))
+        return result
 
-        # Shared-bin fast path when every hypothesis stays within the binning
-        # margin of their mean (minus soft-band slack); wide clouds take the
-        # exact per-pair path.
-        shared = False
-        spread = float("nan")
-        if self._can_share_bins():
-            spread = self.hypothesis_spread_px(hyp_dofs, K)
-            shared = spread <= float(self.renderer.tile.margin) - 2.0
+    def _explore(self, history, K, key, qpos_candidates) -> ExploreResult:
+        with span("explore.draw"):
+            hist = np.asarray(history)
+            hist = hist[min(self.history_start, max(len(hist) - 1, 0)):]
+            if len(hist) == 0:
+                raise ValueError("empty pose history")
+            f = self.limit_fraction
+            lim = np.asarray(self.chain.joint_limits, np.float32)
+            sel, qposes = draw_hypotheses_and_candidates(
+                key, self.n_hypotheses, len(hist), self.n_sample_qposes,
+                lim[:, 0] * np.float32(f), lim[:, 1] * np.float32(f),
+            )
+            hyp_dofs = np.asarray(hist, np.float32)[np.asarray(sel)]
+            if qpos_candidates is not None:
+                qposes = np.asarray(qpos_candidates, np.float32)
+
+            # Shared-bin fast path when every hypothesis stays within the
+            # binning margin of their mean (minus soft-band slack); wide
+            # clouds take the exact per-pair path.
+            shared = False
+            spread = float("nan")
+            if self._can_share_bins():
+                spread = self.hypothesis_spread_px(hyp_dofs, K)
+                shared = spread <= float(self.renderer.tile.margin) - 2.0
         # introspection for benchmarks/logs
         self.last_shared = shared
         self.last_spread_px = spread
         self.last_escalations = 0
-        var, feasible, overflow = self._score(qposes, hyp_dofs, K, shared=shared)
+
+        def score():
+            with span("explore.score.queue"):
+                var, feasible, overflow = self._score(qposes, hyp_dofs, K, shared=shared)
+            with span("explore.score.read"):
+                overflow = bool(overflow)
+                self._device_spans.read()
+            return var, feasible, overflow
+
+        var, feasible, overflow = score()
         # Truncated bins rank variance on wrong silhouettes: escalate the
         # budgets 2x and re-score, as the trainers do on BinOverflowError.
         log = logging.getLogger("easyhec_torch")
-        while bool(overflow) and self.last_escalations < 3:
+        while overflow and self.last_escalations < 3:
             self.last_escalations += 1
             log.warning("explorer: tile-bin overflow during candidate scoring — "
                         "escalating budgets 2x and re-scoring (attempt %d)",
                         self.last_escalations)
-            self._escalate_budgets()
-            var, feasible, overflow = self._score(qposes, hyp_dofs, K, shared=shared)
-        if bool(overflow):
+            with span("explore.escalate"):
+                self._escalate_budgets()
+            var, feasible, overflow = score()
+        if overflow:
             log.warning("explorer: tile-bin overflow persists after escalation — "
                         "variance ranking may be degraded; decimate more")
-        self.last_max_load = int(self._max_load)
-        var_np = var.cpu().numpy()
-        if not np.isfinite(var_np).any():
-            raise RuntimeError("no feasible qpos among candidates")
-        best = int(np.argmax(var_np))
-        return ExploreResult(
-            qpos=np.asarray(qposes[best]),
-            variance=float(var_np[best]),
-            var_all=var_np,
-            feasible=feasible.cpu().numpy(),
-            qpos_all=np.asarray(qposes),
-        )
+        with span("explore.finish"):
+            self.last_max_load = int(self._max_load)
+            var_np = var.cpu().numpy()
+            if not np.isfinite(var_np).any():
+                raise RuntimeError("no feasible qpos among candidates")
+            best = int(np.argmax(var_np))
+            return ExploreResult(
+                qpos=np.asarray(qposes[best]),
+                variance=float(var_np[best]),
+                var_all=var_np,
+                feasible=feasible.cpu().numpy(),
+                qpos_all=np.asarray(qposes),
+            )

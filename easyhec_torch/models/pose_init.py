@@ -27,6 +27,7 @@ from ..geometry import camera, se3
 from ..render.tiled import TileConfig
 from ..solver.optim import make_optimizer
 from ..utils.cuda_graph import Counters, repeat
+from ..utils.profiling import span
 
 __all__ = ["lookat_init", "global_search_init", "GlobalSearchResult", "ransac_pnp",
            "draw_ransac_samples"]
@@ -145,57 +146,65 @@ def global_search_init(
     the moment refine (replayed once) and the Adam step (calib._Scan,
     replayed refine_steps times). The host reads nothing until the final
     IoUs; elsewhere the same functions run eagerly.
+
+    Spans (utils.profiling): ``search.call``, and ``search.sweep``,
+    ``search.moment_refine`` and ``search.grad_refine`` around the three
+    stages (their capture and queued replays).
     """
     from .calib import downscale_K
 
-    dev = renderer.device
-    link_poses = np.asarray(link_poses, np.float32)
-    masks = np.asarray(masks, np.float32)
-    if link_poses.ndim == 3:
-        link_poses = link_poses[None]
-    if masks.ndim == 2:
-        masks = masks[None]
-    Bs = min(masks.shape[0], max_score_frames)
-    lp = torch.tensor(link_poses[:Bs], device=dev)
-    H, W = masks.shape[-2:]
-    Hs, Ws = H // downscale, W // downscale
-    Ks = torch.tensor(downscale_K(np.asarray(K), downscale), device=dev)
-    m = masks[:Bs, : Hs * downscale, : Ws * downscale]
-    masks_lo = torch.tensor(m.reshape(Bs, Hs, downscale, Ws, downscale).mean((2, 4)),
-                            device=dev)
+    with span("search.call"):
+        dev = renderer.device
+        link_poses = np.asarray(link_poses, np.float32)
+        masks = np.asarray(masks, np.float32)
+        if link_poses.ndim == 3:
+            link_poses = link_poses[None]
+        if masks.ndim == 2:
+            masks = masks[None]
+        Bs = min(masks.shape[0], max_score_frames)
+        lp = torch.tensor(link_poses[:Bs], device=dev)
+        H, W = masks.shape[-2:]
+        Hs, Ws = H // downscale, W // downscale
+        Ks = torch.tensor(downscale_K(np.asarray(K), downscale), device=dev)
+        m = masks[:Bs, : Hs * downscale, : Ws * downscale]
+        masks_lo = torch.tensor(m.reshape(Bs, Hs, downscale, Ws, downscale).mean((2, 4)),
+                                device=dev)
 
-    if target is None:
-        target = link_poses[:Bs, :, :3, 3].mean((0, 1))
-    target = np.asarray(target, np.float32)
-    poses = _candidate_poses(target, radii, n_dirs, n_roll, dev)
-    score_renderer = _scoring_renderer(renderer, Hs, Ws)
-    graphed = _capturable(score_renderer)
-    counters = Counters.kernels() if graphed else None
+        if target is None:
+            target = link_poses[:Bs, :, :3, 3].mean((0, 1))
+        target = np.asarray(target, np.float32)
+        poses = _candidate_poses(target, radii, n_dirs, n_roll, dev)
+        score_renderer = _scoring_renderer(renderer, Hs, Ws)
+        graphed = _capturable(score_renderer)
+        counters = Counters.kernels() if graphed else None
 
-    def iou(sil):  # [..., Bs, Hs, Ws] -> [...]
-        inter = torch.minimum(sil, masks_lo).sum((-2, -1))
-        union = torch.maximum(sil, masks_lo).sum((-2, -1))
-        return (inter / torch.clamp(union, min=1e-6)).mean(-1)
+        def iou(sil):  # [..., Bs, Hs, Ws] -> [...]
+            inter = torch.minimum(sil, masks_lo).sum((-2, -1))
+            union = torch.maximum(sil, masks_lo).sum((-2, -1))
+            return (inter / torch.clamp(union, min=1e-6)).mean(-1)
 
-    scores, at_cap, sweep = _sweep(score_renderer, poses, lp, Ks, iou, counters)
-    pool = sweep.graph.pool() if graphed else None  # the later stages share it
-    order = torch.argsort(-scores, stable=True)[:topk]
-    Tc = _moment_refine(score_renderer, poses[order], lp, Ks, masks_lo,
-                        torch.from_numpy(target).to(dev), moment_iters, counters, pool)
-    lpk = lp.expand((Tc.shape[0],) + lp.shape)
-    dofs = _grad_refine(score_renderer, se3.log(Tc), lpk, Ks, masks_lo, refine_steps,
-                        refine_lr, graphed, pool)
-    with torch.no_grad():
-        ious = iou(score_renderer.silhouette(se3.exp(dofs)[:, None], lpk, Ks))
-    best = int(torch.argmax(ious))
-    full, tiles = at_cap.tolist()
-    return GlobalSearchResult(
-        Tc_c2b=se3.exp(dofs[best]).cpu().numpy(),
-        score=float(ious[best]),
-        scores=scores.cpu().numpy(),
-        poses=poses.cpu().numpy(),
-        tiles_at_cap=full / max(tiles, 1),
-    )
+        with span("search.sweep"):
+            scores, at_cap, sweep = _sweep(score_renderer, poses, lp, Ks, iou, counters)
+        pool = sweep.graph.pool() if graphed else None  # the later stages share it
+        order = torch.argsort(-scores, stable=True)[:topk]
+        with span("search.moment_refine"):
+            Tc = _moment_refine(score_renderer, poses[order], lp, Ks, masks_lo,
+                                torch.from_numpy(target).to(dev), moment_iters, counters, pool)
+        lpk = lp.expand((Tc.shape[0],) + lp.shape)
+        with span("search.grad_refine"):
+            dofs = _grad_refine(score_renderer, se3.log(Tc), lpk, Ks, masks_lo, refine_steps,
+                                refine_lr, graphed, pool)
+        with torch.no_grad():
+            ious = iou(score_renderer.silhouette(se3.exp(dofs)[:, None], lpk, Ks))
+        best = int(torch.argmax(ious))
+        full, tiles = at_cap.tolist()
+        return GlobalSearchResult(
+            Tc_c2b=se3.exp(dofs[best]).cpu().numpy(),
+            score=float(ious[best]),
+            scores=scores.cpu().numpy(),
+            poses=poses.cpu().numpy(),
+            tiles_at_cap=full / max(tiles, 1),
+        )
 
 
 def _sweep(score_renderer, poses, lp, Ks, iou, counters):

@@ -21,14 +21,22 @@ the counters keep counting what ran on the card. A conditional body's
 movement is kept apart and added once per taken branch (``CondGraph.taken``),
 from a count the caller reads off the device.
 
+Each warm-up, capture and instantiation is a span of utils.profiling:
+``graph.warm_up``, ``graph.capture`` (a ``torch.cuda.graph`` block, with the
+gc.collect and empty_cache torch runs at its start and the instantiation at
+its end) and ``graph.instantiate`` (the conditional graph's assembly).
+
 Graphs are CUDA only: the same functions run eagerly on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import weakref
 
 import torch
+
+from .profiling import span
 
 __all__ = ["CondGraph", "Counters", "Graph", "repeat", "warm_up"]
 
@@ -71,11 +79,19 @@ def warm_up(fn, counters: Counters, device) -> None:
     (it settles lazy initialisation: the kernels' libraries and grid sizes,
     autograd's device thread). Its launches do none of the caller's work and
     are taken back from the counters."""
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        counters.moved_by(fn)
-    torch.cuda.current_stream(device).wait_stream(side)
+    with span("graph.warm_up"):
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            counters.moved_by(fn)
+        torch.cuda.current_stream(device).wait_stream(side)
+
+
+@contextlib.contextmanager
+def _capture(graph, pool=None):
+    """torch.cuda.graph(graph, pool=pool) inside a ``graph.capture`` span."""
+    with span("graph.capture"), torch.cuda.graph(graph, pool=pool):
+        yield
 
 
 class Graph:
@@ -89,7 +105,7 @@ class Graph:
         self.counters = counters
 
         def capture():
-            with torch.cuda.graph(self.graph, pool=pool):
+            with _capture(self.graph, pool):
                 fn()
 
         self.moved = counters.moved_by(capture)
@@ -169,9 +185,10 @@ class _CondExec:
     def __init__(self, flag: torch.Tensor, body, tail):
         lib = _lib()
         x, g = ctypes.c_void_p(), ctypes.c_void_p()
-        _check(lib.cond_graph_build(flag.data_ptr(), body.raw_cuda_graph(),
-                                    tail.raw_cuda_graph(), ctypes.byref(x), ctypes.byref(g)),
-               "building the graph with a conditional node")
+        with span("graph.instantiate"):
+            rc = lib.cond_graph_build(flag.data_ptr(), body.raw_cuda_graph(),
+                                      tail.raw_cuda_graph(), ctypes.byref(x), ctypes.byref(g))
+        _check(rc, "building the graph with a conditional node")
         self.exec = x
         weakref.finalize(self, lib.cond_graph_destroy, x, g)
 
@@ -204,9 +221,9 @@ class CondGraph:
     def __init__(self, flag: torch.Tensor, body, tail, counters: Counters):
         self.counters = counters
         body_graph, tail_graph = _raw_graph(), _raw_graph()
-        with torch.cuda.graph(body_graph):
+        with _capture(body_graph):
             self.body_moved = counters.moved_by(body)
-        with torch.cuda.graph(tail_graph, pool=body_graph.pool()):
+        with _capture(tail_graph, body_graph.pool()):
             self.moved = counters.moved_by(tail)
         self.exec = _CondExec(flag, body_graph, tail_graph)
         self.parts = (body_graph, tail_graph)  # the exec's children and their pool
