@@ -1135,19 +1135,21 @@ def _reset(kernels):
 def main_path(renderer, lp, K, xi, target, steps, kernels, label):
     """``calibrate`` at full width on `renderer`'s route; kernels
     {name: (forward wrapper, backward wrapper)} names the loss pair that must
-    run once per step. Returns (launches by name, ms/step)."""
+    run once per step. The binner must launch once per bin build. Returns
+    (launches by name, the binner's under "bin_count"; ms/step; rebins)."""
     import numpy as np
     import torch
 
     from easyhec_torch.geometry import se3
     from easyhec_torch.models.calib import calibrate
+    from easyhec_torch.ops.binning import bin_count_cuda
     from easyhec_torch.utils.cuda_graph import _CondExec
 
     d0 = (xi + 0.01).cpu().numpy()
     gt = se3.exp(xi).cpu().numpy()
     torch.cuda.synchronize()
     _reset(kernels)
-    _CondExec.launches = 0
+    _CondExec.launches = bin_count_cuda.launches = 0
     t0 = time.perf_counter()
     res = calibrate(d0, renderer, lp, K, target, num_steps=steps, max_lr=3e-3,
                     rebin_every=0, Tc_c2b_gt=gt)
@@ -1160,6 +1162,12 @@ def main_path(renderer, lp, K, xi, target, steps, kernels, label):
     if _CondExec.launches != steps:
         raise AssertionError(f"[{label}] {_CondExec.launches} step-graph launches for "
                              f"{steps} steps")
+    print(f"[{label}] binner (bin_count) launches {bin_count_cuda.launches}, one per bin "
+          f"build ({res.rebins})")
+    if bin_count_cuda.launches != res.rebins:
+        raise AssertionError(f"[{label}] {bin_count_cuda.launches} binner launches for "
+                             f"{res.rebins} bin builds")
+    launches["bin_count"] = bin_count_cuda.launches
     print(f"[{label}] loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}; launches "
           f"{json.dumps(launches)}; pose error {json.dumps(res.metrics)}")
     if res.overflow:
@@ -1168,7 +1176,7 @@ def main_path(renderer, lp, K, xi, target, steps, kernels, label):
         raise AssertionError("non-finite loss or pose")
     if not res.losses[-1] < res.losses[0]:
         raise AssertionError("loss did not fall")
-    fwd, bwd = list(launches.values())
+    fwd, bwd = [launches[k] for k in kernels]
     if fwd < steps or bwd != steps:
         raise AssertionError(f"launch counts {launches} for {steps} steps ({label})")
     return launches, dt / steps * 1e3, res.rebins
@@ -1804,12 +1812,16 @@ def trainer_search_phase(lp, K, xi, qs, target, steps):
 
 
 def _all_kernels():
-    """Every kernel wrapper's launch counter (ops.pose_raster.COUNTED), by
-    its name without ``_cuda``."""
+    """Every rasterizer kernel wrapper's launch counter (ops.pose_raster.COUNTED
+    but the binner's, which every bin state of every route on the card
+    launches: main_path and iterative_phase count that one against the bin
+    states they build), by its name without ``_cuda``."""
+    from easyhec_torch.ops import binning
     from easyhec_torch.ops import pose_raster as pr
     from easyhec_torch.ops import pose_raster_compact, tile_raster  # noqa: F401
 
-    return {fn.__name__.removesuffix("_cuda"): fn for fn in pr.COUNTED}
+    return {fn.__name__.removesuffix("_cuda"): fn for fn in pr.COUNTED
+            if fn is not binning.bin_count_cuda}
 
 
 def _launched(kernels):
@@ -2979,7 +2991,8 @@ def iterative_phase(steps):
     render through K4f. Per round it prints the frames, the loss, the pose
     error, the seconds of each part and the explorer's statistics, and it
     holds K3's launches per _score to ⌈C / score_batch⌉ × n_hypotheses per
-    scoring pass. Returns (launches, the round-1 explore call's inputs)."""
+    scoring pass and the binner's to one per bin state. Returns (launches,
+    the round-1 explore call's inputs)."""
     import math
     import tempfile
 
@@ -2991,13 +3004,14 @@ def iterative_phase(steps):
     from easyhec_torch.models.explorer import SpaceExplorer
     from easyhec_torch.ops import pose_raster as pr
     from easyhec_torch.ops import pose_raster_compact as prc
+    from easyhec_torch.ops.binning import bin_count_cuda
     from easyhec_torch.trainer import iterative as itr
 
     cfg = iterative_config(steps)
     gt, K = iterative_rig()
     cfg.model.init_Tc_c2b = perturbed_start(gt, cfg.solver.seed)
     counters = {"K2f/K3": prc.loss_fwd_compact_cuda, "K2b": prc.loss_bwd_compact_cuda,
-                "K4f": pr.sil_fwd_cuda}
+                "K4f": pr.sil_fwd_cuda, "bin": bin_count_cuda}
     rounds, explore_in = [], {}
 
     def snap():
@@ -3034,7 +3048,8 @@ def iterative_phase(steps):
         s0 = snap()
         res = real[1](self, history, K_e, key=key, **kw)
         d, dt = delta(s0)
-        rounds[-1].update(explore_s=dt, K3=d["K2f/K3"], explore=res, shared=self.last_shared,
+        rounds[-1].update(explore_s=dt, K3=d["K2f/K3"], bins=d["bin"], explore=res,
+                          shared=self.last_shared,
                           spread=self.last_spread_px, esc=self.last_escalations,
                           max_load=self.last_max_load, bin_states=self.last_bin_states,
                           cap=self.renderer.tile.capacity)
@@ -3085,18 +3100,23 @@ def iterative_phase(steps):
             line += (f"; explorer: variance {e.variance:.3f}, {int(e.feasible.sum())}/"
                      f"{len(e.feasible)} feasible, {'shared' if r['shared'] else 'exact'} "
                      f"(spread {r['spread']:.2f} px), {r['esc']} escalations, max tile load "
-                     f"{r['max_load']} (cap {r['cap']}), {r['bin_states']} bin states and "
-                     f"{r['K3']} K3 launches ({r['K3'] / (1 + r['esc']):.0f} per _score)")
+                     f"{r['max_load']} (cap {r['cap']}), {r['bin_states']} bin states, "
+                     f"{r['bins']} binner launches and {r['K3']} K3 launches "
+                     f"({r['K3'] / (1 + r['esc']):.0f} per _score)")
             if r["K3"] != (1 + r["esc"]) * per_score:
                 raise AssertionError(f"round {i}: {r['K3']} K3 launches for {1 + r['esc']} "
                                      f"scoring passes of {per_score}")
             if r["bin_states"] != per_score // (Hh if r["shared"] else 1):
                 raise AssertionError(f"round {i}: {r['bin_states']} bin states per _score")
+            if r["bins"] < r["bin_states"] or (not r["esc"] and r["bins"] != r["bin_states"]):
+                raise AssertionError(f"round {i}: {r['bins']} binner launches for "
+                                     f"{r['bin_states']} bin states per _score")
         line += f"; planned {r.get('planned')}"
         print(line)
     m = res.metrics
     launches = {"K2f": sum(r["K2f"] for r in rounds), "K2b": totals["K2b"],
-                "K3": sum(r["K3"] for r in rounds), "K4f": totals["K4f"]}
+                "K3": sum(r["K3"] for r in rounds), "K4f": totals["K4f"],
+                "bin_count explore": sum(r.get("bins", 0) for r in rounds)}
     print(f"[iterative] {wall:.3f} s in all: calibrate {sum(r['calibrate_s'] for r in rounds):.3f}"
           f", explore {sum(r['explore_s'] for r in rounds):.3f}, plan "
           f"{sum(r['plan_s'] for r in rounds):.3f}, capture "
@@ -3225,6 +3245,121 @@ def explore_kernel_phase(explore_in, launches_k3, n_explored):
     if not same:
         raise AssertionError("the graphed _score differs from the eager one")
     return row
+
+
+# The benchmark's two cells (hec_bench/workloads) whose bin_count inputs
+# binner_phase takes from a real bin state, and the seeds that draw them.
+BIN_CELLS = (("explore", "franka-1080p.explore-wide", 8200000777),
+             ("calib", "xarm7-720p.calib", 8100000777))
+
+
+def _bin_count_args(r, T, lp, K):
+    """bin_count's arguments in r.bin_state(T, lp, K) (render/fused.py's
+    call), flat [B, F] as render/binning.py::bin_count hands them on."""
+    import easyhec_torch.render.fused as rf
+
+    got, real = {}, rf.bin_count
+
+    def rec(*a, **kw):
+        got["a"], got["kw"] = a, kw
+        return real(*a, **kw)
+
+    rf.bin_count = rec
+    try:
+        r.bin_state(T, lp, K)
+    finally:
+        rf.bin_count = real
+    a, kw = got["a"], got["kw"]
+    F = a[4].shape[-1]
+    flat = [None if x is None else x.reshape(-1, F).contiguous() for x in a]
+    return flat + [kw[k] for k in ("H", "W", "tile_h", "tile_w", "cap", "ry", "rx", "big_k")]
+
+
+def _bin_cell_args(kind, name, seed):
+    """bin_count's arguments in one bin state of a benchmark cell at its
+    shapes: the explorer's scoring batch at the history's first pose, or
+    the calibration's capture set 0 at 0.01 off its ground truth."""
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from hec_bench import harness as hb
+    from hec_bench.traffic.calib import Calib
+    from hec_bench.traffic.explore import Explore
+
+    wl = hb.cell(name)
+    cfg = hb.config(wl["config"])
+    if kind == "explore":
+        x = Explore(cfg, wl, seed, DEVICE)
+        r, _, lp, K, _ = x.scoring_batch()
+        T = se3.exp(torch.as_tensor(x.history[0], device=DEVICE))
+    else:
+        r, dof, lp, K, _ = Calib(cfg, wl, seed, DEVICE).loss_inputs()
+        T = se3.exp(dof + 0.01)
+    return _bin_count_args(r, T, lp, K)
+
+
+def binner_phase(main_renderer, lp, K, xi, explore_in):
+    """The binner's counting sort (ops/binning.py::bin_count_cuda, four
+    kernels) against its plain version (render/binning.py::_bin_count_flat)
+    on the same card tensors: the inputs of a real bin state at the
+    benchmark cells' shapes (the explorer's scoring batch of
+    franka-1080p.explore-wide, the rebin of xarm7-720p.calib) and at this
+    smoke's (the main compact route's, the online loop's explorer). idx,
+    counts, q and overflow must be equal, and equal again on a second
+    launch. At the cells' shapes it is timed and bounded by its bytes: the
+    inputs read once, idx, counts, q and overflow written whole. Returns
+    the two kernels-line rows, "bin_count explore" and "bin_count calib"."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.ops.binning import bin_count_cuda
+    from easyhec_torch.render.binning import _bin_count_flat
+
+    e = explore_in["explorer"]
+    hist = explore_in["history"]
+    mid = np.asarray(e.chain.joint_limits, np.float32).mean(axis=1)  # joints mid-range
+    lp_e = e.chain.fk(torch.as_tensor(np.tile(mid, (e.score_batch, 1)), device=DEVICE))
+    lp_e = lp_e[:, torch.as_tensor(e.link_idx, device=DEVICE).long()]
+    cases = [(kind, name, lambda kind=kind, name=name, seed=seed:
+              _bin_cell_args(kind, name, seed)) for kind, name, seed in BIN_CELLS]
+    cases += [
+        ("smoke main", "main compact route",
+         lambda: _bin_count_args(main_renderer, se3.exp(xi + 0.01), lp, K)),
+        ("smoke explore", "online loop's explorer",
+         lambda: _bin_count_args(e.renderer, se3.exp(torch.as_tensor(hist[0], device=DEVICE)),
+                                 lp_e, torch.as_tensor(explore_in["K"], device=DEVICE))),
+    ]
+    rows = []
+    for kind, what, make in cases:
+        args = make()
+        want = _bin_count_flat(*args)
+        got, again = bin_count_cuda(*args), bin_count_cuda(*args)
+        torch.cuda.synchronize()
+        equal = {n: bool(torch.equal(w, g)) for n, w, g in zip(want._fields, want, got)}
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        B, F = args[4].shape
+        H, W, th, tw, cap, ry, rx, big_k = args[6:]
+        Kc = want.idx.shape[1] * want.idx.shape[2]
+        real = int((want.q < Kc).sum())
+        print(f"[binner] {kind} ({what}): {B} frames of {F} triangles, {W}x{H}, tiles "
+              f"{th}x{tw}, cap {cap}, rect {ry}x{rx}, big_k {big_k}, row classes "
+              f"{args[5] is not None}; {real} entries placed, max tile count "
+              f"{int(want.counts.max())}, overflow {want.overflow.tolist()}; equal to the "
+              f"plain version {json.dumps(equal)}; a second launch bit-identical {same}")
+        if not all(equal.values()) or not same:
+            raise AssertionError(f"[binner] {kind}: the kernels differ from the plain version "
+                                 f"or from themselves")
+        if kind not in ("explore", "calib"):
+            continue
+        nbytes = (sum(a.numel() * a.element_size() for a in args[:6] if a is not None)
+                  + sum(t.numel() * t.element_size() for t in want))
+        rows.append(_row(f"bin_count {kind}", f"binner {kind}",
+                         "easyhec_torch/ops/csrc/binning.cu",
+                         "easyhec_tpu/render/binning.py:275", 0.0,
+                         lambda: bin_count_cuda(*args), lambda: _bin_count_flat(*args),
+                         nbytes, 0, "bin_place_kernel"))
+    return rows
 
 
 def reference_explore():
@@ -4224,6 +4359,8 @@ def main() -> int:
                                       {"tile_fwd": tr.tile_fwd_cuda,
                                        "tile_bwd_counted": tr.tile_bwd_counted_cuda},
                                       "main unfused")
+    launches["bin_count calib"] = launches.pop("bin_count")
+    unf_launches.pop("bin_count")
     if unf_launches != {"tile_fwd": args.steps, "tile_bwd_counted": args.steps}:
         raise AssertionError(f"K5 launches {unf_launches}: not one K5f and one K5b per step")
     launches.update(unf_launches)
@@ -4268,7 +4405,9 @@ def main() -> int:
     trainer_search_phase(lp, K, xi, qs, target, args.steps)
     iter_launches, explore_in, n_explored = iterative_phase(args.steps)
     kernels.append(explore_kernel_phase(explore_in, iter_launches["K3"], n_explored))
+    kernels += binner_phase(renderer, lp, K, xi, explore_in)
     launches["compact_tile_acc"] = iter_launches["K3"]
+    launches["bin_count explore"] = iter_launches["bin_count explore"]
     schedules_phase(renderer, lp, K, xi, target, args.steps)
     optimizer_groups_phase()
     option_routes_phase(renderer, lp, K, xi)

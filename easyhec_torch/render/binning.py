@@ -10,7 +10,10 @@ The JAX version ranks entries with a counting sort whose slot is the stable
 rank of an entry within its key (per-chunk histograms + a triangular
 matmul). A stable ``torch.sort`` on the keys produces exactly those ranks,
 so ``idx``, ``counts``, ``q`` and ``overflow`` agree bit for bit given the
-same bboxes.
+same bboxes. That sort is the plain version (``_bin_count_flat``), which
+``bin_count`` takes for CPU tensors; for CUDA tensors it launches the
+counting-sort kernels of ops/binning.py, which enumerate only the real
+entries and give the same four arrays bit for bit.
 
 The unfused silhouette route (``silhouette_counted``) packs tile-local edge
 records from the bins and rasterizes them with K5 in one
@@ -30,6 +33,8 @@ import math
 
 import torch
 
+from ..ops.binning import bin_count_cuda
+from ..ops.pose_raster import dispatch
 from .tiled import _cdiv, _edge_fields_soa, _topk_compact, _untile
 
 __all__ = [
@@ -196,24 +201,26 @@ def bin_count(
     """Bin (margin-dilated) triangle bboxes [..., F] into tiles. Any number
     of leading batch axes; see BinState.
 
-    big_k > 0 enables span-classed enumeration (q then has R = 2 + ry*rx
-    columns); suby [..., F] (bbox center y, image px) enables row-sub-classed
-    bins."""
+    big_k > 0 enables span-classed enumeration (q then has R = min(2, ry) +
+    ry*rx columns); suby [..., F] (bbox center y, image px) enables
+    row-sub-classed bins. CPU tensors take the plain version, CUDA tensors the kernels
+    (ops/binning.py); other devices raise."""
     batch = valid.shape[:-1]
     F = valid.shape[-1]
 
     def flat(a):
         return None if a is None else a.reshape(-1, F)
 
-    st = _bin_count_flat(
+    idx, counts, q, overflow = dispatch(
+        bin_count_cuda, _bin_count_flat,
         flat(lox), flat(loy), flat(hix), flat(hiy), flat(valid), flat(suby),
         H, W, tile_h, tile_w, cap, ry, rx, big_k,
     )
     return BinState(
-        idx=st.idx.reshape(batch + st.idx.shape[1:]),
-        counts=st.counts.reshape(batch + st.counts.shape[1:]),
-        q=st.q.reshape(batch + st.q.shape[1:]),
-        overflow=st.overflow.reshape(batch),
+        idx=idx.reshape(batch + idx.shape[1:]),
+        counts=counts.reshape(batch + counts.shape[1:]),
+        q=q.reshape(batch + q.shape[1:]),
+        overflow=overflow.reshape(batch),
     )
 
 

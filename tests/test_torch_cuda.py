@@ -687,14 +687,167 @@ def test_boundary_prefix_map_backward(dev):
     np.testing.assert_allclose(pk.cpu(), pf.cpu(), rtol=0, atol=1e-3 * scale)
 
 
+# ---------------------------------------------------------------------------
+# The binner's counting-sort kernels (ops/binning.py) against the plain
+# version (render/binning.py::_bin_count_flat) on the same card tensors.
+# ---------------------------------------------------------------------------
+
+# name: (B, F, H, W, tile_h, tile_w, cap, ry, rx, big_k, suby,
+#        bbox half-size mean, big share, big half-size (y, x)) and whether the
+#        plain version flags an overflow in some frame
+BIN_CASES = {
+    # the explorer's scoring shape (960x540 of franka-1080p, budgets doubled)
+    "explore": ((5, 21312, 540, 960, 16, 64, 4096, 21, 7, 10752, True, 4.0, 0.03, (100, 150)),
+                False),
+    # the calibration's rebin (xarm7-720p)
+    "calib": ((10, 21312, 720, 1280, 16, 32, 1664, 8, 5, 3840, True, 2.0, 0.03, (40, 60)),
+              False),
+    # the global search's sweep batch: 60x80, the auto window (the whole 4x3
+    # grid), no big class, no row classes; its tiles truncate at cap
+    "search": ((64, 21312, 60, 80, 16, 32, 1664, 4, 3, 0, False, 0.5, 0.02, (10, 10)), True),
+    # a config (5) band: 1920x540, 16x64 tiles
+    "c5_band": ((40, 21312, 540, 1920, 16, 64, 1280, 7, 4, 3584, True, 3.0, 0.02, (30, 80)),
+                False),
+    "cap_over": ((3, 3000, 64, 96, 16, 32, 64, 3, 3, 300, True, 2.0, 0.05, (20, 30)), True),
+    "rect_over": ((3, 3000, 256, 384, 16, 32, 1024, 2, 2, 0, True, 2.0, 0.05, (40, 60)), True),
+    "big_over": ((3, 3000, 256, 384, 16, 32, 1024, 4, 3, 16, True, 2.0, 0.05, (20, 30)), True),
+    # histograms past the kernels' shared memory (16320 and 16200 keys), so
+    # they are counted and placed in passes over key ranges: 1920x1080 with
+    # 16x32 tiles, row classes and big_k; 8x16 tiles, one class, one group
+    "multi_pass": ((2, 21312, 1080, 1920, 16, 32, 1664, 8, 5, 7680, True, 3.0, 0.03, (40, 50)),
+                   False),
+    "multi_pass_dense": ((2, 3000, 1080, 1920, 8, 16, 256, 6, 5, 0, False, 1.5, 0.02, (6, 12)),
+                         False),
+}
+
+
+def _bin_boxes(dev, B, F, H, W, th, tw, half, big_frac, big_half, seed=0):
+    """Margin-dilated bboxes [B, F]: most on an arm-sized blob, the rest
+    anywhere on and off the image, a share spanning many tiles, every
+    seventh starting or ending exactly on a tile edge; valid 90 %; suby the
+    centre row."""
+    rng = np.random.default_rng(seed)
+    near = rng.random((B, F)) < 0.7
+    cx = np.where(near, rng.normal(0.5 * W, 0.08 * W, (B, F)),
+                  rng.uniform(-0.05 * W, 1.05 * W, (B, F)))
+    cy = np.where(near, rng.normal(0.5 * H, 0.12 * H, (B, F)),
+                  rng.uniform(-0.05 * H, 1.05 * H, (B, F)))
+    big = rng.random((B, F)) < big_frac
+    hw = np.where(big, rng.uniform(0, big_half[1], (B, F)), rng.exponential(half, (B, F)))
+    hh = np.where(big, rng.uniform(0, big_half[0], (B, F)), rng.exponential(half, (B, F)))
+    lox, hix, loy, hiy = cx - hw, cx + hw, cy - hh, cy + hh
+    edge = np.arange(F) % 7 == 0
+    lox[:, edge] = np.floor(lox[:, edge] / tw) * tw
+    hiy[:, edge] = np.ceil(hiy[:, edge] / th) * th
+    valid = rng.random((B, F)) < 0.9
+    boxes = [torch.from_numpy(a.astype(np.float32)).to(dev)
+             for a in (lox, loy, hix, hiy, 0.5 * (loy + hiy))]
+    return boxes[:4] + [torch.from_numpy(valid).to(dev), boxes[4]]
+
+
+def _bin_args(dev, case):
+    (B, F, H, W, th, tw, cap, ry, rx, big_k, sub, *box), _ = BIN_CASES[case]
+    lox, loy, hix, hiy, valid, suby = _bin_boxes(dev, B, F, H, W, th, tw, *box)
+    return (lox, loy, hix, hiy, valid, suby if sub else None, H, W, th, tw, cap, ry, rx, big_k)
+
+
+@pytest.mark.parametrize("case", list(BIN_CASES))
+def test_bin_count_kernels_match_plain(dev, case):
+    """bin_count_cuda against _bin_count_flat on the same card tensors: idx,
+    counts, q and overflow bit for bit, eagerly (outputs on memory the
+    allocator last held garbage in), inside a captured graph and inside a
+    CondGraph body, both replayed onto outputs scribbled over, and a body
+    that is not taken leaves them alone. .launches counts each run, graph
+    replays and taken branches too."""
+    from easyhec_torch.ops.binning import bin_count_cuda
+    from easyhec_torch.render.binning import _bin_count_flat
+    from easyhec_torch.utils import cuda_graph
+
+    args = _bin_args(dev, case)
+    want = _bin_count_flat(*args)
+    assert bool(want.overflow.any()) == BIN_CASES[case][1]
+    assert int(want.counts.sum()) > 0
+
+    def check(got, how):
+        for name, w, g in zip(want._fields, want, got):
+            assert torch.equal(w, g), f"{case}, {how}: {name} differs"
+
+    def scribble(st):
+        for w, g in zip(want, st):
+            g.copy_(~w) if g.dtype == torch.bool else g.fill_(-7)
+
+    junk = torch.full((2 * sum(t.numel() for t in want),), -7, dtype=torch.int32, device=dev)
+    del junk
+    n0 = bin_count_cuda.launches
+    check(bin_count_cuda(*args), "eager")
+    assert bin_count_cuda.launches == n0 + 1
+
+    counters = cuda_graph.Counters.kernels()
+    out = {}
+
+    def run():
+        out["st"] = bin_count_cuda(*args)
+
+    cuda_graph.warm_up(run, counters, dev)
+    n0 = bin_count_cuda.launches
+    g = cuda_graph.Graph(run, counters)
+    assert bin_count_cuda.launches == n0
+    scribble(out["st"])
+    g.replay()
+    torch.cuda.synchronize()
+    check(out["st"], "graph")
+    assert bin_count_cuda.launches == n0 + 1
+
+    flag = torch.ones((), dtype=torch.bool, device=dev)
+    ticks = torch.zeros((), dtype=torch.int32, device=dev)
+    run()  # the body's outputs exist before its capture, as _Scan's warm-up gives them
+    cg = cuda_graph.CondGraph(flag, run, lambda: ticks.add_(1), counters)
+    n0 = bin_count_cuda.launches
+    scribble(out["st"])
+    cg.replay()
+    cg.taken(1)
+    torch.cuda.synchronize()
+    check(out["st"], "conditional body")
+    assert bin_count_cuda.launches == n0 + 1
+    flag.fill_(False)
+    scribble(out["st"])
+    cg.replay()
+    torch.cuda.synchronize()
+    assert int(ticks) == 2 and bool((out["st"][1] == -7).all())
+    assert bin_count_cuda.launches == n0 + 1
+
+
+def test_bin_count_on_the_card_runs_no_sort_or_scatter(dev):
+    """render/binning.py::bin_count on CUDA tensors at the explorer's
+    scoring shape: under the profiler, only the binner's four kernels run
+    (no radix sort, no scatter or gather of PyTorch's), one launch
+    counted."""
+    from easyhec_torch.ops.binning import bin_count_cuda
+    from easyhec_torch.render.binning import bin_count
+
+    a = _bin_args(dev, "explore")
+    kw = dict(zip(("H", "W", "tile_h", "tile_w", "cap", "ry", "rx", "big_k"), a[6:]))
+    bin_count(*a[:6], **kw)  # loads the library outside the trace
+    torch.cuda.synchronize()
+    n0 = bin_count_cuda.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        bin_count(*a[:6], **kw)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
+    assert bin_count_cuda.launches == n0 + 1
+    assert {n for n in names if "bin_" in n and "_kernel" in n} and all(
+        "bin_" in n for n in names if "Memcpy" not in n and "Memset" not in n), names
+
+
 @pytest.mark.parametrize("shared", [False, True], ids=["exact", "shared"])
 def test_explorer_score_cuda_matches_cpu_and_counts_launches(dev, shared):
-    """SpaceExplorer._score (one K3 launch per batch and hypothesis) on the
-    card against the plain path on the CPU: the variance to 1e-4 of its
-    largest value, feasibility equal."""
+    """SpaceExplorer._score (one K3 launch per batch and hypothesis, one
+    binner launch per bin state) on the card against the plain path on the
+    CPU: the variance to 1e-4 of its largest value, feasibility equal."""
     from pathlib import Path
 
     from easyhec_torch.models.explorer import SpaceExplorer, draw_hypotheses_and_candidates
+    from easyhec_torch.ops.binning import bin_count_cuda
     from easyhec_torch.robot import build_chain, load_link_meshes, parse_urdf
 
     names = ["base", "upper", "fore"]
@@ -712,12 +865,13 @@ def test_explorer_score_cuda_matches_cpu_and_counts_launches(dev, shared):
     for d in (dev, torch.device("cpu")):
         r = RobotRenderer([meshes[n] for n in names], H, W, tile=CFG, device=d)
         e = SpaceExplorer(chain, r, names, score_batch=5, max_dist=None)
-        prc.loss_fwd_compact_cuda.launches = 0
+        prc.loss_fwd_compact_cuda.launches = bin_count_cuda.launches = 0
         out[d.type] = [a.cpu().numpy() for a in e._score(q, hyp, K, shared=shared)]
         launches = prc.loss_fwd_compact_cuda.launches
         if d.type == "cuda":
             assert launches == 3 * 4  # ⌈12 / 5⌉ batches × 4 hypotheses
             assert e.last_bin_states == (3 if shared else 12)
+        assert bin_count_cuda.launches == (e.last_bin_states if d.type == "cuda" else 0)
     (vk, fk, ok), (vp, fp, op) = out["cuda"], out["cpu"]
     assert np.array_equal(fk, fp) and not ok and not op
     assert np.abs(vp).max() > 1.0
