@@ -15,6 +15,18 @@ here runs the same Python: it holds the full host arrays, takes its frame
 slice and row band, and meets the others in explicit collectives. The
 default process group is the mesh (``make_mesh`` refuses a larger world),
 and the "tile" axis has its own group.
+
+Spans (utils.profiling): ``shard.call`` around ``sharded_calibrate``, with
+counts ``rebins`` (the mesh's: each chunk's largest rank count, summed),
+``own_rebins`` (this rank's), ``collectives`` (those this rank issued on
+the mesh: the step's, once a step, and each chunk's flags) and
+``overflow``; below it ``shard.prepare`` (this rank's slice of the host
+arrays on the device, the optimizer, the tiled masks) and, per chunk, the
+scan's ``calib.chunk.*`` spans, then ``shard.flags`` (the flags' max-reduce
+over the mesh and its host read). When a torch profiler records the
+capture, the step graph also times ``shard.combine`` on the device, the
+combine's all-reduce with the wait for the slowest rank, read after each
+chunk's flags.
 """
 from __future__ import annotations
 
@@ -28,6 +40,7 @@ import torch.distributed as dist
 from ..geometry import se3
 from ..render.renderer import RobotRenderer
 from ..solver.optim import make_optimizer
+from ..utils.profiling import DeviceSpans, span
 from . import comm
 
 __all__ = [
@@ -287,113 +300,136 @@ def sharded_calibrate(
     on a one-rank mesh, which issues none (``_capturable``). A gloo group
     and frame_chunk > 0 run eagerly. The flags' all-reduce stays outside the
     graph, once per chunk.
+
+    The call's rebins and overflow are the counts of its ``shard.call``
+    span (utils.profiling.spans()), identical on every rank but
+    ``own_rebins``.
     """
     from torch.utils.checkpoint import checkpoint
 
-    from ..models.calib import BinOverflowError, _scan_for, mask_loss_per_frame, tile_masks
+    from ..models.calib import (BinOverflowError, _scan_for, _trace_len, mask_loss_per_frame,
+                                tile_masks)
 
-    lay = _layout(mesh)
-    n_mesh = lay.n_data * lay.n_tile
-    n_tile = lay.n_tile
-    masks = _host(masks_ref)
-    H_full = masks.shape[-2]
-    band_h = H_full // n_tile
-    if band_h != renderer.H:
-        raise ValueError(
-            f"renderer H ({renderer.H}) must equal band height "
-            f"({H_full}//{n_tile}={band_h})"
-        )
-    dev = renderer.device
-    lp, w = pad_frames(_host(link_poses), lay.n_data)
-    masks, _ = pad_frames(masks, lay.n_data)
-    sl = _frame_slice(lay, masks.shape[0])
-    rows = slice(lay.ti * band_h, (lay.ti + 1) * band_h)
-    lp = torch.as_tensor(lp[sl], device=dev)
-    m_local = torch.as_tensor(np.ascontiguousarray(masks[sl, rows]), device=dev)
-    wl = torch.as_tensor(w[sl], device=dev)
-    den = float(w.sum())  # every rank holds all of w: the psum over "data"
-    Kb = _band_K(torch.as_tensor(_host(K), device=dev), lay.ti * band_h)
-    dof = torch.as_tensor(_host(init_dof), device=dev)
+    with span("shard.call") as counts:
+        lay = _layout(mesh)
+        n_mesh = lay.n_data * lay.n_tile
+        n_tile = lay.n_tile
+        with span("shard.prepare"):
+            masks = _host(masks_ref)
+            H_full = masks.shape[-2]
+            band_h = H_full // n_tile
+            if band_h != renderer.H:
+                raise ValueError(
+                    f"renderer H ({renderer.H}) must equal band height "
+                    f"({H_full}//{n_tile}={band_h})"
+                )
+            dev = renderer.device
+            lp, w = pad_frames(_host(link_poses), lay.n_data)
+            masks, _ = pad_frames(masks, lay.n_data)
+            sl = _frame_slice(lay, masks.shape[0])
+            rows = slice(lay.ti * band_h, (lay.ti + 1) * band_h)
+            lp = torch.as_tensor(lp[sl], device=dev)
+            m_local = torch.as_tensor(np.ascontiguousarray(masks[sl, rows]), device=dev)
+            wl = torch.as_tensor(w[sl], device=dev)
+            den = float(w.sum())  # every rank holds all of w: the psum over "data"
+            Kb = _band_K(torch.as_tensor(_host(K), device=dev), lay.ti * band_h)
+            dof = torch.as_tensor(_host(init_dof), device=dev)
 
-    opt = make_optimizer(
-        optimizer, max_lr=max_lr, total_steps=num_steps,
-        scheduler=scheduler, grad_clip=grad_clip,
-    )
-    ref_tiles = tile_masks(m_local, renderer) if frame_chunk <= 0 else None
-    if robust_delta > 0:
-        # full-image mask area per frame (robust normalization), forward only
-        area = torch.clamp(_all_reduce(torch.sum(m_local, dim=(-2, -1)), n_tile,
-                                       lay.tile_group), min=1.0)
-
-    def block(d, lp_c, m_c):
-        return mask_loss_per_frame(d, renderer, lp_c, Kb, m_c, sharpness)
-
-    def _pf(d, bin_state):
-        if frame_chunk <= 0:
-            return mask_loss_per_frame(d, renderer, lp, Kb, m_local, sharpness,
-                                       bin_state=bin_state, ref_tiles=ref_tiles)
-        bl = lp.shape[0]
-        fc = min(frame_chunk, bl)
-        pad = (-bl) % fc
-        lp_p = torch.cat([lp, lp[:1].expand((pad,) + lp.shape[1:])]) if pad else lp
-        m_p = torch.cat([m_local, m_local.new_zeros((pad,) + m_local.shape[1:])]) \
-            if pad else m_local
-        pf = [checkpoint(block, d, lp_p[i:i + fc], m_p[i:i + fc], use_reentrant=False)
-              for i in range(0, bl + pad, fc)]
-        return torch.cat(pf)[:bl]
-
-    def loss_of(d, bin_state):
-        pf_local = _pf(d, bin_state)
-        if robust_delta > 0:
-            pf_full = _all_reduce(pf_local.detach().clone(), n_tile, lay.tile_group)
-            norm = pf_full / area
-            dlt = robust_delta
-            slope = torch.where(norm <= dlt, 1.0,
-                                torch.sqrt(dlt / torch.clamp(norm, min=1e-20)))
-            rho = torch.where(norm <= dlt, norm, 2.0 * torch.sqrt(norm * dlt) - dlt)
-            obj = torch.sum(pf_local * wl * slope)
-            true_local = torch.sum(wl * rho * area) / n_tile
-        else:
-            obj = torch.sum(pf_local * wl)
-            true_local = obj
-        return obj, true_local
-
-    def combine(true_local, g):
-        # one all-reduce of [loss, g0..g5] over the mesh
-        buf = _all_reduce(torch.cat([true_local.detach().reshape(1), g]), n_mesh) / den
-        return buf[0], buf[1:]
-
-    def bin_state_of(d):
-        return renderer.bin_state(se3.exp(d), lp, Kb, sharpness=sharpness)
-
-    # Bin states whenever the renderer supports them (rebin_every == 0:
-    # adaptive, each rank gating on the drift of its own frames' probe
-    # points); the frame-chunked path rebuilds bins inside each block. Graphed
-    # where the step's collectives can be captured; one scan for every chunk.
-    losses, history = [], []
-    done = 0
-    scan = None
-    while done < num_steps:
-        n = min(chunk, num_steps - done)
-        if scan is None:
-            scan = _scan_for(dof, opt.init(dof), opt, loss_of, bin_state_of, n, renderer, lp,
-                             Kb, sharpness, rebin_every, _capturable(n_mesh), combine=combine,
-                             states=frame_chunk <= 0)
-        dof, _, l, h, ov, nrb = scan.run(n)
-        losses.append(l)
-        history.append(h)
-        done += n
-        # any rank's overflow truncates the summed gradient: reduce the flag
-        # (and the rebin count) over the whole mesh, forward only
-        flags = _all_reduce(torch.tensor([float(ov), float(nrb)], device=dev), n_mesh,
-                            op=dist.ReduceOp.MAX)
-        if on_overflow != "ignore" and bool(flags[0] > 0):
-            msg = (
-                f"sharded calibrate: bin overflow at step ~{done} on some "
-                "shard — raise render.capacity / compact_chunks or "
-                "decimate more"
+            opt = make_optimizer(
+                optimizer, max_lr=max_lr, total_steps=num_steps,
+                scheduler=scheduler, grad_clip=grad_clip,
             )
-            if on_overflow == "raise":
-                raise BinOverflowError(msg)
-            logging.getLogger("easyhec_torch").warning(msg)
-    return dof, torch.cat(losses), torch.cat(history)
+            ref_tiles = tile_masks(m_local, renderer) if frame_chunk <= 0 else None
+            if robust_delta > 0:
+                # full-image mask area per frame (robust normalization), forward only
+                area = torch.clamp(_all_reduce(torch.sum(m_local, dim=(-2, -1)), n_tile,
+                                               lay.tile_group), min=1.0)
+        # collectives this rank issues on the mesh: per step the combine's (and
+        # the robust weights' over "tile"), per chunk the flags'
+        per_step = int(n_mesh > 1) + int(robust_delta > 0 and n_tile > 1)
+        collectives = int(robust_delta > 0 and n_tile > 1)
+        device_spans = DeviceSpans(("shard.combine",), dev)  # traced captures
+
+        def block(d, lp_c, m_c):
+            return mask_loss_per_frame(d, renderer, lp_c, Kb, m_c, sharpness)
+
+        def _pf(d, bin_state):
+            if frame_chunk <= 0:
+                return mask_loss_per_frame(d, renderer, lp, Kb, m_local, sharpness,
+                                           bin_state=bin_state, ref_tiles=ref_tiles)
+            bl = lp.shape[0]
+            fc = min(frame_chunk, bl)
+            pad = (-bl) % fc
+            lp_p = torch.cat([lp, lp[:1].expand((pad,) + lp.shape[1:])]) if pad else lp
+            m_p = torch.cat([m_local, m_local.new_zeros((pad,) + m_local.shape[1:])]) \
+                if pad else m_local
+            pf = [checkpoint(block, d, lp_p[i:i + fc], m_p[i:i + fc], use_reentrant=False)
+                  for i in range(0, bl + pad, fc)]
+            return torch.cat(pf)[:bl]
+
+        def loss_of(d, bin_state):
+            pf_local = _pf(d, bin_state)
+            if robust_delta > 0:
+                pf_full = _all_reduce(pf_local.detach().clone(), n_tile, lay.tile_group)
+                norm = pf_full / area
+                dlt = robust_delta
+                slope = torch.where(norm <= dlt, 1.0,
+                                    torch.sqrt(dlt / torch.clamp(norm, min=1e-20)))
+                rho = torch.where(norm <= dlt, norm, 2.0 * torch.sqrt(norm * dlt) - dlt)
+                obj = torch.sum(pf_local * wl * slope)
+                true_local = torch.sum(wl * rho * area) / n_tile
+            else:
+                obj = torch.sum(pf_local * wl)
+                true_local = obj
+            return obj, true_local
+
+        def combine(true_local, g):
+            # one all-reduce of [loss, g0..g5] over the mesh
+            buf = torch.cat([true_local.detach().reshape(1), g])
+            with device_spans.span("shard.combine"):
+                buf = _all_reduce(buf, n_mesh)
+            buf = buf / den
+            return buf[0], buf[1:]
+
+        def bin_state_of(d):
+            return renderer.bin_state(se3.exp(d), lp, Kb, sharpness=sharpness)
+
+        # Bin states whenever the renderer supports them (rebin_every == 0:
+        # adaptive, each rank gating on the drift of its own frames' probe
+        # points); the frame-chunked path rebuilds bins inside each block. Graphed
+        # where the step's collectives can be captured; one scan for every chunk.
+        losses, history = [], []
+        done = rebins = own_rebins = overflow = 0
+        scan = None
+        while done < num_steps:
+            n = min(chunk, num_steps - done)
+            if scan is None:
+                scan = _scan_for(dof, opt.init(dof), opt, loss_of, bin_state_of, n, renderer, lp,
+                                 Kb, sharpness, rebin_every, _capturable(n_mesh), combine=combine,
+                                 states=frame_chunk <= 0)
+            dof, _, l, h, ov, nrb = scan.run(n)
+            losses.append(l)
+            history.append(h)
+            done += n
+            own_rebins += nrb
+            collectives += per_step * _trace_len(n, scan.rebin_every) + int(n_mesh > 1)
+            # any rank's overflow truncates the summed gradient: reduce the flag
+            # (and the rebin count) over the whole mesh, forward only
+            with span("shard.flags"):
+                flags = _all_reduce(torch.tensor([float(ov), float(nrb)], device=dev), n_mesh,
+                                    op=dist.ReduceOp.MAX).tolist()
+                device_spans.read()
+            rebins += int(flags[1])
+            overflow |= flags[0] > 0
+            counts.update(rebins=rebins, own_rebins=own_rebins, collectives=collectives,
+                          overflow=int(overflow))
+            if on_overflow != "ignore" and flags[0] > 0:
+                msg = (
+                    f"sharded calibrate: bin overflow at step ~{done} on some "
+                    "shard — raise render.capacity / compact_chunks or "
+                    "decimate more"
+                )
+                if on_overflow == "raise":
+                    raise BinOverflowError(msg)
+                logging.getLogger("easyhec_torch").warning(msg)
+        return dof, torch.cat(losses), torch.cat(history)
