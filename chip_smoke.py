@@ -88,7 +88,12 @@ Phases, in order (any failure exits non-zero):
    CUDA-event time (host-paced), host time and device busy time (the
    profiler's sum of its device ops); ``[explore eager]``: round 1's
    scoring pass on its first 200 candidates graphed, then eager, bit for
-   bit, with the seconds of each.
+   bit, with the seconds of each. ``[binner]`` and ``[rebin]``: a bin
+   state's binner, triangle setup and compact pack at the benchmark cells'
+   shapes against their plain versions, bit for bit (kernels-line rows),
+   and the whole bin state's device time. The binner launches once per bin
+   build on every route and in every explore round, the setup once per
+   fused bin build and the pack once per compact one.
 8. The remaining options and offline tools. ``[schedules]``: the compact
    route's calibrate under warmup_cosine (100 warmup steps), its lr at
    four steps against the closed form, one K2f/K2b pair per step.
@@ -182,6 +187,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import functools
 import json
 import re
 import shutil
@@ -1135,14 +1141,18 @@ def _reset(kernels):
 def main_path(renderer, lp, K, xi, target, steps, kernels, label):
     """``calibrate`` at full width on `renderer`'s route; kernels
     {name: (forward wrapper, backward wrapper)} names the loss pair that must
-    run once per step. The binner must launch once per bin build. Returns
-    (launches by name, the binner's under "bin_count"; ms/step; rebins)."""
+    run once per step. The binner must launch once per bin build, the
+    triangle setup once per bin build of a fused route and the compact pack
+    once per bin build of the compact route. Returns (launches by name, the
+    binner's under "bin_count", the setup's under "tri_setup", the pack's
+    under "compact_pack"; ms/step; rebins)."""
     import numpy as np
     import torch
 
     from easyhec_torch.geometry import se3
     from easyhec_torch.models.calib import calibrate
     from easyhec_torch.ops.binning import bin_count_cuda
+    from easyhec_torch.ops.rebin import compact_pack_cuda, tri_setup_cuda
     from easyhec_torch.utils.cuda_graph import _CondExec
 
     d0 = (xi + 0.01).cpu().numpy()
@@ -1150,6 +1160,7 @@ def main_path(renderer, lp, K, xi, target, steps, kernels, label):
     torch.cuda.synchronize()
     _reset(kernels)
     _CondExec.launches = bin_count_cuda.launches = 0
+    tri_setup_cuda.launches = compact_pack_cuda.launches = 0
     t0 = time.perf_counter()
     res = calibrate(d0, renderer, lp, K, target, num_steps=steps, max_lr=3e-3,
                     rebin_every=0, Tc_c2b_gt=gt)
@@ -1168,6 +1179,15 @@ def main_path(renderer, lp, K, xi, target, steps, kernels, label):
         raise AssertionError(f"[{label}] {bin_count_cuda.launches} binner launches for "
                              f"{res.rebins} bin builds")
     launches["bin_count"] = bin_count_cuda.launches
+    fused = renderer.tile.fused
+    builds = {"tri_setup": tri_setup_cuda.launches, "compact_pack": compact_pack_cuda.launches}
+    want = {"tri_setup": res.rebins if fused else 0,
+            "compact_pack": res.rebins if fused and renderer.tile.compact_chunks > 0 else 0}
+    print(f"[{label}] bin state launches {json.dumps(builds)}: the setup one per fused bin "
+          f"build, the pack one per compact bin build ({res.rebins} bin builds)")
+    if builds != want:
+        raise AssertionError(f"[{label}] bin state launches {builds}, not {want}")
+    launches.update(builds)
     print(f"[{label}] loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}; launches "
           f"{json.dumps(launches)}; pose error {json.dumps(res.metrics)}")
     if res.overflow:
@@ -1813,15 +1833,16 @@ def trainer_search_phase(lp, K, xi, qs, target, steps):
 
 def _all_kernels():
     """Every rasterizer kernel wrapper's launch counter (ops.pose_raster.COUNTED
-    but the binner's, which every bin state of every route on the card
-    launches: main_path and iterative_phase count that one against the bin
-    states they build), by its name without ``_cuda``."""
-    from easyhec_torch.ops import binning
+    but the bin state's: the binner, which every bin state of every route on
+    the card launches, and the triangle setup and compact pack around it;
+    main_path and iterative_phase count those against the bin states they
+    build), by its name without ``_cuda``."""
+    from easyhec_torch.ops import binning, rebin
     from easyhec_torch.ops import pose_raster as pr
     from easyhec_torch.ops import pose_raster_compact, tile_raster  # noqa: F401
 
-    return {fn.__name__.removesuffix("_cuda"): fn for fn in pr.COUNTED
-            if fn is not binning.bin_count_cuda}
+    skip = (binning.bin_count_cuda, rebin.tri_setup_cuda, rebin.compact_pack_cuda)
+    return {fn.__name__.removesuffix("_cuda"): fn for fn in pr.COUNTED if fn not in skip}
 
 
 def _launched(kernels):
@@ -3005,13 +3026,15 @@ def iterative_phase(steps):
     from easyhec_torch.ops import pose_raster as pr
     from easyhec_torch.ops import pose_raster_compact as prc
     from easyhec_torch.ops.binning import bin_count_cuda
+    from easyhec_torch.ops.rebin import compact_pack_cuda, tri_setup_cuda
     from easyhec_torch.trainer import iterative as itr
 
     cfg = iterative_config(steps)
     gt, K = iterative_rig()
     cfg.model.init_Tc_c2b = perturbed_start(gt, cfg.solver.seed)
     counters = {"K2f/K3": prc.loss_fwd_compact_cuda, "K2b": prc.loss_bwd_compact_cuda,
-                "K4f": pr.sil_fwd_cuda, "bin": bin_count_cuda}
+                "K4f": pr.sil_fwd_cuda, "bin": bin_count_cuda, "setup": tri_setup_cuda,
+                "pack": compact_pack_cuda}
     rounds, explore_in = [], {}
 
     def snap():
@@ -3048,7 +3071,8 @@ def iterative_phase(steps):
         s0 = snap()
         res = real[1](self, history, K_e, key=key, **kw)
         d, dt = delta(s0)
-        rounds[-1].update(explore_s=dt, K3=d["K2f/K3"], bins=d["bin"], explore=res,
+        rounds[-1].update(explore_s=dt, K3=d["K2f/K3"], bins=d["bin"], setups=d["setup"],
+                          packs=d["pack"], explore=res,
                           shared=self.last_shared,
                           spread=self.last_spread_px, esc=self.last_escalations,
                           max_load=self.last_max_load, bin_states=self.last_bin_states,
@@ -3101,7 +3125,8 @@ def iterative_phase(steps):
                      f"{len(e.feasible)} feasible, {'shared' if r['shared'] else 'exact'} "
                      f"(spread {r['spread']:.2f} px), {r['esc']} escalations, max tile load "
                      f"{r['max_load']} (cap {r['cap']}), {r['bin_states']} bin states, "
-                     f"{r['bins']} binner launches and {r['K3']} K3 launches "
+                     f"{r['bins']} binner, {r['setups']} setup and {r['packs']} pack "
+                     f"launches and {r['K3']} K3 launches "
                      f"({r['K3'] / (1 + r['esc']):.0f} per _score)")
             if r["K3"] != (1 + r["esc"]) * per_score:
                 raise AssertionError(f"round {i}: {r['K3']} K3 launches for {1 + r['esc']} "
@@ -3111,12 +3136,17 @@ def iterative_phase(steps):
             if r["bins"] < r["bin_states"] or (not r["esc"] and r["bins"] != r["bin_states"]):
                 raise AssertionError(f"round {i}: {r['bins']} binner launches for "
                                      f"{r['bin_states']} bin states per _score")
+            if not r["setups"] == r["packs"] == r["bins"]:
+                raise AssertionError(f"round {i}: {r['setups']} setup and {r['packs']} pack "
+                                     f"launches for {r['bins']} bin builds")
         line += f"; planned {r.get('planned')}"
         print(line)
     m = res.metrics
     launches = {"K2f": sum(r["K2f"] for r in rounds), "K2b": totals["K2b"],
                 "K3": sum(r["K3"] for r in rounds), "K4f": totals["K4f"],
-                "bin_count explore": sum(r.get("bins", 0) for r in rounds)}
+                "bin_count explore": sum(r.get("bins", 0) for r in rounds),
+                "tri_setup explore": sum(r.get("setups", 0) for r in rounds),
+                "compact_pack explore": sum(r.get("packs", 0) for r in rounds)}
     print(f"[iterative] {wall:.3f} s in all: calibrate {sum(r['calibrate_s'] for r in rounds):.3f}"
           f", explore {sum(r['explore_s'] for r in rounds):.3f}, plan "
           f"{sum(r['plan_s'] for r in rounds):.3f}, capture "
@@ -3275,10 +3305,12 @@ def _bin_count_args(r, T, lp, K):
     return flat + [kw[k] for k in ("H", "W", "tile_h", "tile_w", "cap", "ry", "rx", "big_k")]
 
 
-def _bin_cell_args(kind, name, seed):
-    """bin_count's arguments in one bin state of a benchmark cell at its
-    shapes: the explorer's scoring batch at the history's first pose, or
-    the calibration's capture set 0 at 0.01 off its ground truth."""
+@functools.lru_cache(maxsize=None)
+def _cell_bin_state(kind, name, seed):
+    """(renderer, pose, link poses, K) of one bin state of a benchmark cell at
+    its shapes: the explorer's scoring batch at the history's first pose, or
+    the calibration's capture set 0 at 0.01 off its ground truth (made once
+    a process: binner_phase and rebin_phase share it)."""
     import torch
 
     from easyhec_torch.geometry import se3
@@ -3295,44 +3327,186 @@ def _bin_cell_args(kind, name, seed):
     else:
         r, dof, lp, K, _ = Calib(cfg, wl, seed, DEVICE).loss_inputs()
         T = se3.exp(dof + 0.01)
-    return _bin_count_args(r, T, lp, K)
+    return r, T, lp, K
+
+
+# The benchmark's rig cell, whose data rank 0 binner_phase and rebin_phase
+# bin in each of its two bands, and the bank seed of its captures.
+RIG_CELL = ("c5-rig-1080p.calib-4card", 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _rig_band_state(band):
+    """(renderer, pose, link poses, K) of one rank's bin state in the rig
+    cell on one card: data rank 0's 40 frame-views of the cell's first rig
+    (hec_bench's set-up: rig.capture_rig from the bank's seed) in image band
+    `band` (540 rows; the principal point shifted by the band's first row,
+    as parallel/sharding.py::_band_K does), at 0.01 off the ground truth."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.parallel.sharding import _band_K
+    from hec_bench import harness as hb
+    from hec_bench import rig, scene
+    from hec_bench.traffic.calib import renderer
+
+    name, bank = RIG_CELL
+    cfg = hb.config(hb.cell(name)["config"])
+    n_data, n_tile = int(cfg["mesh"]["data"]), int(cfg["mesh"]["tile"])
+    arm = scene.arm(cfg)
+    s = rig.capture_rig(cfg, arm, None, scene.rng(bank, 1, 0), masks=False)
+    lp = torch.as_tensor(s["lp"].astype(np.float32), device=DEVICE)
+    lp = lp[: lp.shape[0] // n_data]
+    bh = cfg["H"] // n_tile
+    r = renderer(cfg, [arm.meshes[n] for n in arm.names], bh, cfg["W"], DEVICE)
+    K = torch.as_tensor(scene.geo.intrinsics(cfg["H"], cfg["W"], cfg["f"]),
+                        dtype=torch.float32, device=DEVICE)
+    dof = torch.as_tensor(s["xi"], dtype=torch.float32, device=DEVICE)
+    return r, se3.exp(dof + 0.01), lp, _band_K(K, band * bh)
+
+
+def _bin_state_cases(main_renderer, lp, K, xi, explore_in):
+    """[(kind, what, make)]: make() gives (renderer, pose, link poses, K) of
+    one real bin state on the main path: the benchmark cells' (the wide
+    explore cell's scoring batch, the xarm7 calibration's rebin, the rig
+    cell's two bands) and this smoke's (the main compact route's, the
+    online loop's explorer at its history's first pose, joints mid-range)."""
+    import numpy as np
+    import torch
+
+    from easyhec_torch.geometry import se3
+
+    e = explore_in["explorer"]
+    hist = explore_in["history"]
+
+    def smoke_explore():
+        mid = np.asarray(e.chain.joint_limits, np.float32).mean(axis=1)
+        lp_e = e.chain.fk(torch.as_tensor(np.tile(mid, (e.score_batch, 1)), device=DEVICE))
+        lp_e = lp_e[:, torch.as_tensor(e.link_idx, device=DEVICE).long()]
+        return (e.renderer, se3.exp(torch.as_tensor(hist[0], device=DEVICE)), lp_e,
+                torch.as_tensor(explore_in["K"], device=DEVICE))
+
+    cases = [(kind, name, lambda kind=kind, name=name, seed=seed:
+              _cell_bin_state(kind, name, seed)) for kind, name, seed in BIN_CELLS]
+    cases += [(f"rig band {b}", f"{RIG_CELL[0]}, data rank 0",
+               lambda b=b: _rig_band_state(b)) for b in (0, 1)]
+    cases += [
+        ("smoke main", "main compact route",
+         lambda: (main_renderer, se3.exp(xi + 0.01), lp, K)),
+        ("smoke explore", "online loop's explorer", smoke_explore),
+    ]
+    return cases
+
+
+def _rebin_args(r, T, lp, K):
+    """The arguments render/fused.py hands to the triangle setup and to the
+    compact pack in r.bin_state(T, lp, K): {wrapper name: args}."""
+    import easyhec_torch.render.fused as rf
+
+    got, real = {}, rf.dispatch
+
+    def rec(cuda_fn, plain_fn, *a):
+        got[cuda_fn.__name__] = a
+        return real(cuda_fn, plain_fn, *a)
+
+    rf.dispatch = rec
+    try:
+        r.bin_state(T, lp, K)
+    finally:
+        rf.dispatch = real
+    return got
+
+
+def rebin_phase(main_renderer, lp, K, xi, explore_in):
+    """The bin state's triangle setup and compact pack (ops/rebin.py: one
+    kernel, then the binner, then two) on a real bin state's inputs at every
+    shape the main path gives them (_bin_state_cases: the benchmark cells'
+    explore, calib and rig bands, hec_bench's set-up drawing them, and this
+    smoke's main compact route and online explorer): each equal to its
+    plain version (render/fused.py's _tri_setup_plain, _compact_pack_plain)
+    on the same card tensors bit for bit, and a second launch bit-identical.
+    At the explore and calib cells' shapes each is timed (CUDA events) and
+    bounded by its bytes (the setup: its inputs read once, the bboxes,
+    validity and field table written; the pack: the counts, the live slots'
+    list entries and fields read once, the records and chunk map written);
+    at the cells' shapes the whole bin state's device time is printed.
+    Returns the four kernels-line rows, "tri_setup explore|calib" and
+    "compact_pack explore|calib"."""
+    import torch
+
+    from easyhec_torch.ops.rebin import compact_pack_cuda, tri_setup_cuda
+    from easyhec_torch.render.fused import _compact_pack_plain, _tri_setup_plain
+
+    def flat(out):  # (box, valid, fields) or the pack's tuple -> tensors
+        return [t for x in out for t in (x if isinstance(x, tuple) else (x,))
+                if t is not None]
+
+    def nb(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    rows = []
+    for kind, name, make in _bin_state_cases(main_renderer, lp, K, xi, explore_in):
+        r, T, lp_c, K_c = make()
+        args = _rebin_args(r, T, lp_c, K_c)
+        sa, pa = args["tri_setup_cuda"], args["compact_pack_cuda"]
+        counts = pa[0]
+        live = int(counts.sum())
+        B, T_ = counts.shape
+        for tag, cuda_fn, plain_fn, a in (("tri_setup", tri_setup_cuda, _tri_setup_plain, sa),
+                                          ("compact_pack", compact_pack_cuda,
+                                           _compact_pack_plain, pa)):
+            want, got, again = (flat(f(*a)) for f in (plain_fn, cuda_fn, cuda_fn))
+            torch.cuda.synchronize()
+            equal = all(w.dtype == g.dtype and torch.equal(w, g) for w, g in zip(want, got))
+            same = all(torch.equal(g, h) for g, h in zip(got, again))
+            print(f"[rebin] {kind} {tag} ({name}): {B} frames, {T_} tiles, {live} live slots; "
+                  f"equal to the plain version {equal}; a second launch bit-identical {same}")
+            if not (equal and same and len(want) == len(got)):
+                raise AssertionError(f"[rebin] {kind} {tag} differs from the plain version "
+                                     f"or from itself")
+            if kind not in ("explore", "calib"):
+                continue
+            if tag == "tri_setup":
+                corners, _, link, cam, base, Km = a[:6]
+                nbytes = nb((corners, link, cam, base, Km)) + nb(got)
+                kernel = "tri_setup_kernel"
+            else:
+                fields = a[3]
+                rec_b = min(fields.numel() * 4, 12 * 4 * live)
+                nbytes = nb((counts, a[1])) + 4 * live + rec_b + nb(got)
+                kernel = "compact_gather_kernel"
+            rows.append(_row(f"{tag} {kind}", f"{tag} {kind}", "easyhec_torch/ops/csrc/rebin.cu",
+                             "easyhec_tpu/render/fused.py", 0.0,
+                             lambda f=cuda_fn, a=a: f(*a), lambda f=plain_fn, a=a: f(*a),
+                             nbytes, 0, kernel))
+        if kind.startswith("smoke"):
+            continue
+        ms = _time_ms(lambda: r.bin_state(T, lp_c, K_c), 20)
+        print(f"[rebin] {kind} bin_state {ms:.4f} ms on the device (setup, binner, pack and "
+              f"the camera-from-link product; CUDA events over 20 calls) ({GPU})")
+    return rows
 
 
 def binner_phase(main_renderer, lp, K, xi, explore_in):
     """The binner's counting sort (ops/binning.py::bin_count_cuda, four
     kernels) against its plain version (render/binning.py::_bin_count_flat)
-    on the same card tensors: the inputs of a real bin state at the
-    benchmark cells' shapes (the explorer's scoring batch of
-    franka-1080p.explore-wide, the rebin of xarm7-720p.calib) and at this
-    smoke's (the main compact route's, the online loop's explorer). idx,
+    on the same card tensors: the inputs of a real bin state at every
+    shape the main path gives it (_bin_state_cases: the benchmark cells'
+    explore, calib and rig bands, and this smoke's main compact route and
+    online explorer). idx,
     counts, q and overflow must be equal, and equal again on a second
     launch. At the cells' shapes it is timed and bounded by its bytes: the
     inputs read once, idx, counts, q and overflow written whole. Returns
     the two kernels-line rows, "bin_count explore" and "bin_count calib"."""
-    import numpy as np
     import torch
 
-    from easyhec_torch.geometry import se3
     from easyhec_torch.ops.binning import bin_count_cuda
     from easyhec_torch.render.binning import _bin_count_flat
 
-    e = explore_in["explorer"]
-    hist = explore_in["history"]
-    mid = np.asarray(e.chain.joint_limits, np.float32).mean(axis=1)  # joints mid-range
-    lp_e = e.chain.fk(torch.as_tensor(np.tile(mid, (e.score_batch, 1)), device=DEVICE))
-    lp_e = lp_e[:, torch.as_tensor(e.link_idx, device=DEVICE).long()]
-    cases = [(kind, name, lambda kind=kind, name=name, seed=seed:
-              _bin_cell_args(kind, name, seed)) for kind, name, seed in BIN_CELLS]
-    cases += [
-        ("smoke main", "main compact route",
-         lambda: _bin_count_args(main_renderer, se3.exp(xi + 0.01), lp, K)),
-        ("smoke explore", "online loop's explorer",
-         lambda: _bin_count_args(e.renderer, se3.exp(torch.as_tensor(hist[0], device=DEVICE)),
-                                 lp_e, torch.as_tensor(explore_in["K"], device=DEVICE))),
-    ]
     rows = []
-    for kind, what, make in cases:
-        args = make()
+    for kind, what, make in _bin_state_cases(main_renderer, lp, K, xi, explore_in):
+        args = _bin_count_args(*make())
         want = _bin_count_flat(*args)
         got, again = bin_count_cuda(*args), bin_count_cuda(*args)
         torch.cuda.synchronize()
@@ -4359,8 +4533,9 @@ def main() -> int:
                                       {"tile_fwd": tr.tile_fwd_cuda,
                                        "tile_bwd_counted": tr.tile_bwd_counted_cuda},
                                       "main unfused")
-    launches["bin_count calib"] = launches.pop("bin_count")
-    unf_launches.pop("bin_count")
+    for k in ("bin_count", "tri_setup", "compact_pack"):
+        launches[f"{k} calib"] = launches.pop(k)
+        unf_launches.pop(k)
     if unf_launches != {"tile_fwd": args.steps, "tile_bwd_counted": args.steps}:
         raise AssertionError(f"K5 launches {unf_launches}: not one K5f and one K5b per step")
     launches.update(unf_launches)
@@ -4406,8 +4581,10 @@ def main() -> int:
     iter_launches, explore_in, n_explored = iterative_phase(args.steps)
     kernels.append(explore_kernel_phase(explore_in, iter_launches["K3"], n_explored))
     kernels += binner_phase(renderer, lp, K, xi, explore_in)
+    kernels += rebin_phase(renderer, lp, K, xi, explore_in)
     launches["compact_tile_acc"] = iter_launches["K3"]
-    launches["bin_count explore"] = iter_launches["bin_count explore"]
+    for k in ("bin_count", "tri_setup", "compact_pack"):
+        launches[f"{k} explore"] = iter_launches[f"{k} explore"]
     schedules_phase(renderer, lp, K, xi, target, args.steps)
     optimizer_groups_phase()
     option_routes_phase(renderer, lp, K, xi)

@@ -8,6 +8,8 @@ Torch counterpart of easyhec_tpu/render/fused.py:
   slots per tile (FusedState), or chunk-aligned and compact
   (CompactState, ``compact_chunks > 0``). Records and bins are constants
   of the rebin window.
+  On the card the setup and the compact pack are the kernels of
+  ops/rebin.py around the binner's (ops/binning.py).
 - At STEP time: one forward and one backward kernel whose only
   differentiable input is the 16-scalar camera row per frame
   [Tc[:3,:4] | fx fy cx cy]: ops/pose_raster.py (dense: the loss K1 and the
@@ -22,8 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from ..geometry import camera
-from ..ops.pose_raster import CHUNK, pose_tile_loss, pose_tile_silhouette, tile_image
+from ..ops.pose_raster import CHUNK, dispatch, pose_tile_loss, pose_tile_silhouette, tile_image
 from ..ops.pose_raster_compact import compact_tile_acc, pose_tile_loss_compact
+from ..ops.rebin import compact_pack_cuda, tri_setup_cuda
 from .binning import BinState, _rect_window, bin_count
 from .projection import setup_triangles_corners
 from .tiled import _cdiv, _untile
@@ -113,39 +116,53 @@ class CompactState(NamedTuple):
     bwd_cpos: torch.Tensor
 
 
-def _fused_bins_and_fields(renderer, Tc_c2b, link_poses, K):
-    """Shared rebin stage: current-pose binning + base-frame corner field
-    table. Returns (BinState, fpad [B, 12, F+1], lp [B, L, 4, 4])."""
-    cfg = renderer.tile
-    H, W = renderer.H, renderer.W
-    lp = link_poses.reshape((-1,) + link_poses.shape[-3:])
-    B = lp.shape[0]
-    Tc = Tc_c2b.reshape((-1, 4, 4)) if Tc_c2b.ndim > 2 else Tc_c2b
-    Tc_c2l = torch.einsum(
-        "ij,bljk->blik" if Tc.ndim == 2 else "bij,bljk->blik", Tc, lp
-    )
-    tris = setup_triangles_corners(
-        renderer.corners_rest, renderer.face_link_onehot, Tc_c2l, K,
-        cull_backfaces=cfg.cull_backfaces,
-    )
+def _tri_setup_plain(corners_rest, face_link_onehot, face_link_id, Tc_c2l, lp, K, margin,
+                     near, far, cull_backfaces, subsort):
+    """The triangle setup of a fused bin state in PyTorch (ops/rebin.py::
+    tri_setup_cuda is the card's): the projection under Tc_c2l [B, L, 4, 4],
+    the culls, the margin-dilated bboxes and row centres the binner takes,
+    and the base-frame field table under lp [B, L, 4, 4] -> ((lox - m,
+    loy - m, hix + m, hiy + m, suby or None) [B, F], valid [B, F], fpad
+    [B, 12, F + 1], its last column zero). face_link_id is the kernel's."""
+    tris = setup_triangles_corners(corners_rest, face_link_onehot, Tc_c2l, K, near, far,
+                                   cull_backfaces=cull_backfaces)
     lox = tris.u.amin(dim=-2)
     hix = tris.u.amax(dim=-2)
     loy = tris.v.amin(dim=-2)
     hiy = tris.v.amax(dim=-2)
+    suby = 0.5 * (loy + hiy) if subsort else None
+    # w row = valid: 0 disables the slot via the kernel's z > near test.
+    rows = _base_corner_fields(corners_rest, face_link_onehot, lp)
+    vrow = tris.valid.to(torch.float32)
+    fields = torch.stack([vrow if r is None else r for r in rows], dim=1)
+    B = fields.shape[0]
+    fpad = torch.cat([fields, fields.new_zeros((B, 12, 1))], dim=-1)
+    return (lox - margin, loy - margin, hix + margin, hiy + margin, suby), tris.valid, fpad
 
+
+def _fused_bins_and_fields(renderer, Tc_c2b, link_poses, K):
+    """Shared rebin stage: current-pose binning + base-frame corner field
+    table. Returns (BinState, fpad [B, 12, F+1], lp [B, L, 4, 4]). On the
+    card the setup is one kernel (ops/rebin.py), the binner four."""
+    cfg = renderer.tile
+    H, W = renderer.H, renderer.W
+    lp = link_poses.reshape((-1,) + link_poses.shape[-3:])
+    Tc = Tc_c2b.reshape((-1, 4, 4)) if Tc_c2b.ndim > 2 else Tc_c2b
+    Tc_c2l = torch.einsum(
+        "ij,bljk->blik" if Tc.ndim == 2 else "bij,bljk->blik", Tc, lp
+    )
+    box, valid, fpad = dispatch(
+        tri_setup_cuda, _tri_setup_plain, renderer.corners_rest, renderer.face_link_onehot,
+        renderer.face_link_id, Tc_c2l, lp, K, cfg.margin, camera.NEAR_DEFAULT,
+        camera.FAR_DEFAULT, cfg.cull_backfaces, cfg.bin_subsort_rows,
+    )
+    lox, loy, hix, hiy, suby = box
     ry, rx = _rect_window(H, W, cfg)
-    m = cfg.margin
-    suby = 0.5 * (loy + hiy) if cfg.bin_subsort_rows else None
     state: BinState = bin_count(
-        lox - m, loy - m, hix + m, hiy + m, tris.valid, suby,
+        lox, loy, hix, hiy, valid, suby,
         H=H, W=W, tile_h=cfg.tile_h, tile_w=cfg.tile_w, cap=cfg.capacity,
         ry=ry, rx=rx, big_k=cfg.bin_big_k,
     )
-    # w row = valid: 0 disables the slot via the kernel's z > near test.
-    rows = _base_corner_fields(renderer.corners_rest, renderer.face_link_onehot, lp)
-    vrow = tris.valid.to(torch.float32)
-    fields = torch.stack([vrow if r is None else r for r in rows], dim=1)
-    fpad = torch.cat([fields, fields.new_zeros((B, 12, 1))], dim=-1)
     return state, fpad, lp
 
 
@@ -184,17 +201,50 @@ def build_compact_state(
         nc = int(cfg.compact_chunks)
     if nc <= 0:
         raise ValueError("compact_chunks must be set (> 0) for the compact path")
-    cap = cfg.capacity
     state, fpad, _ = _fused_bins_and_fields(renderer, Tc_c2b, link_poses, K)
-    counts = state.counts.long()  # [B, T]
+    rec, nlive, ctmap, ncu, overflow, cpos, starts = dispatch(
+        compact_pack_cuda, _compact_pack_plain, state.counts, state.overflow, state.idx,
+        fpad, nc,
+    )
+    bwd = (nlive, ctmap, cpos)
+    ncb = int(cfg.bwd_chunks)
+    if ncb > 0 and cfg.bwd_band_only:
+        cam = cam_rows(Tc_c2b, K, nlive.shape[0])
+        bwd, bwd_over = _boundary_prefix_map(
+            renderer, cam, rec, nlive, ctmap, ncu, state.counts, starts, nc, ncb,
+            sharpness,
+        )
+        overflow = overflow | bwd_over
+    return CompactState(
+        rec=rec,
+        nlive=nlive,
+        ctmap=ctmap,
+        ncu=ncu,
+        counts=state.counts,
+        overflow=overflow,
+        bwd_nlive=bwd[0],
+        bwd_ctmap=bwd[1],
+        bwd_cpos=bwd[2],
+    )
+
+
+def _compact_pack_plain(counts, bin_overflow, idx, fpad, nc):
+    """The compact pack in PyTorch (ops/rebin.py::compact_pack_cuda is the
+    card's): BinState counts [B, T], overflow [B] and idx [B, T, cap], the
+    field table fpad [B, 12, F + 1] -> (rec [B, 12, nc*128], nlive [B, nc],
+    ctmap [B, nc], ncu [B] int32, overflow [], cpos [B, nc] int32: the
+    backward's identity chunk map, starts [B, T] int32: each tile's first
+    chunk)."""
+    counts = counts.long()  # [B, T]
     B, T = counts.shape
+    cap = idx.shape[-1]
     n_faces = fpad.shape[-1] - 1  # index of the all-zero sentinel column
     dev = counts.device
 
     cpt = -(-counts // CHUNK)  # chunks per tile
     ends = torch.cumsum(cpt, dim=-1)
     ncu = ends[:, -1]
-    overflow = torch.any(state.overflow) | torch.any(ncu > nc)
+    overflow = torch.any(bin_overflow) | torch.any(ncu > nc)
 
     c0 = torch.arange(nc, device=dev)
     # tile of chunk c = first t with ends[t] > c (empty tiles are skipped)
@@ -217,50 +267,33 @@ def build_compact_state(
     sl = koff[:, :, None] + torch.arange(CHUNK, device=dev)  # [B, nc, CH]
     ok = is_real[:, :, None] & (sl >= 0) & (sl < cap)
     gi = tile_of[:, :, None] * cap + torch.clamp(sl, 0, cap - 1)
-    idxf = state.idx.reshape(B, -1).long()
+    idxf = idx.reshape(B, -1).long()
     tri = idxf.gather(-1, gi.reshape(B, -1)).reshape(B, nc, CHUNK)
     gidx = torch.where(ok, tri, torch.full_like(tri, n_faces)).reshape(B, -1)
     rec = fpad.gather(-1, gidx[:, None, :].expand(B, 12, nc * CHUNK))
 
     i32 = torch.int32
-    nlive = nlive.to(i32)
-    ctmap = tile_of.to(i32)
-    ncu_i = ncu.to(i32)
-    bwd = (nlive, ctmap, c0.to(i32).expand(B, nc).contiguous())
-    ncb = int(cfg.bwd_chunks)
-    if ncb > 0 and cfg.bwd_band_only:
-        cam = cam_rows(Tc_c2b, K, B)
-        bwd, bwd_over = _boundary_prefix_map(
-            renderer, cam, rec, nlive, ctmap, ncu_i, counts, cpt, starts, nc,
-            ncb, sharpness,
-        )
-        overflow = overflow | bwd_over
-    return CompactState(
-        rec=rec.contiguous(),
-        nlive=nlive,
-        ctmap=ctmap,
-        ncu=ncu_i,
-        counts=state.counts,
-        overflow=overflow,
-        bwd_nlive=bwd[0],
-        bwd_ctmap=bwd[1],
-        bwd_cpos=bwd[2],
-    )
+    return (rec.contiguous(), nlive.to(i32), tile_of.to(i32), ncu.to(i32), overflow,
+            c0.to(i32).expand(B, nc).contiguous(), starts.to(i32))
 
 
-def _boundary_prefix_map(renderer, cam, rec, nlive, ctmap, ncu, counts, cpt,
-                         starts, nc, ncb, sharpness):
+def _boundary_prefix_map(renderer, cam, rec, nlive, ctmap, ncu, counts, starts, nc,
+                         ncb, sharpness):
     """The backward's own chunk map over the tiles that can hold a
     silhouette-band pixel (0 < acc < 1) anywhere in the rebin window: the
     rebin-pose band/edge region dilated by margin + band width, the same
     drift contract the binning's bbox dilation assumes. With bwd_band_only
     the other tiles carry no gradient, so the backward skips their chunks.
 
-    Returns ((bwd_nlive, bwd_ctmap, bwd_cpos) [B, ncb] int32, overflow [])."""
+    counts, starts [B, T] and ncu [B]: the BinState's loads and the pack's
+    chunk layout (each tile's first chunk, the chunks used). Returns
+    ((bwd_nlive, bwd_ctmap, bwd_cpos) [B, ncb] int32, overflow [])."""
     cfg = renderer.tile
     H, W = renderer.H, renderer.W
     B, T = counts.shape
     dev = counts.device
+    counts, starts = counts.long(), starts.long()
+    cpt = torch.cat([starts[:, 1:], ncu.long()[:, None]], dim=-1) - starts  # chunks per tile
     th, tw = cfg.tile_h, cfg.tile_w
     acc = compact_tile_acc(cam, rec, nlive, ctmap, ncu, T, th, tw, _cdiv(W, tw),
                            H, W, sharpness=sharpness)

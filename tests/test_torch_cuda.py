@@ -839,6 +839,191 @@ def test_bin_count_on_the_card_runs_no_sort_or_scatter(dev):
         "bin_" in n for n in names if "Memcpy" not in n and "Memset" not in n), names
 
 
+# ---------------------------------------------------------------------------
+# The bin state's setup and compact pack kernels (ops/rebin.py) against the
+# plain build (render/fused.py's _tri_setup_plain and _compact_pack_plain) on
+# the same card tensors.
+# ---------------------------------------------------------------------------
+
+_REBIN_TILES = {  # the cells' tile configurations (hec_bench/configs)
+    "franka": dict(tile_h=16, tile_w=64, margin=4.0, rect_y=21, rect_x=7),
+    "xarm7": dict(tile_h=16, tile_w=32, margin=2.0, rect_y=8, rect_x=5),
+    "rig": dict(tile_h=16, tile_w=64, margin=4.0, rect_y=5, rect_x=3),
+}
+# name: (tiles, B, H, W, f, rows above the band, capacity, bin_big_k,
+#        compact_chunks, edits of the scene, TileConfig fields replaced)
+COMPACT_CASES = {
+    # the explorer's scoring shape (franka-1080p at 960x540, budgets doubled)
+    "explore": ("franka", 5, 540, 960, 700.0, 0, 4096, 10752, 1104, (), {}),
+    # the calibration's rebin (xarm7-720p)
+    "calib": ("xarm7", 10, 720, 1280, 906.8, 0, 1664, 3840, 384, (), {}),
+    # a rig band: the lower 540 rows of 1920x1080 (cy shifted), 40 frame-views
+    "rig_band": ("rig", 40, 540, 1920, 1400.0, 540, 2176, 3840, 400, (), {}),
+    "no_cull": ("xarm7", 4, 720, 1280, 906.8, 0, 1664, 3840, 384, (),
+                {"cull_backfaces": False}),
+    "no_subsort": ("xarm7", 4, 720, 1280, 906.8, 0, 1664, 3840, 384, (),
+                   {"bin_subsort_rows": False}),
+    # frame 0's fore link 1 cm in front of the camera: faces cross the near plane
+    "behind_near": ("xarm7", 3, 720, 1280, 906.8, 0, 4096, 3840, 768, ("near",), {}),
+    # faces with a repeated corner (zero area)
+    "degenerate": ("xarm7", 3, 720, 1280, 906.8, 0, 1664, 3840, 384, ("degenerate",), {}),
+    # frame 1's links 5 m behind the camera: no triangle, ncu 0
+    "empty_frame": ("xarm7", 3, 720, 1280, 906.8, 0, 1664, 3840, 384, ("empty",), {}),
+    # a chunk budget below the used chunks: overflow, no padding
+    "ncu_over": ("xarm7", 3, 720, 1280, 906.8, 0, 1664, 3840, 6, (), {}),
+    # the explorer's budgets after three doublings
+    "escalated": ("franka", 5, 540, 960, 700.0, 0, 32768, 86016, 8832, (), {}),
+    # every frame's links 5 m behind the camera: all frames pad on the last tile
+    "all_empty": ("xarm7", 2, 720, 1280, 906.8, 0, 1664, 3840, 384, ("all_empty",), {}),
+    # a one-tile image: the whole arm in tile 0
+    "one_tile": ("franka", 2, 16, 64, 20.0, 0, 32768, 10752, 256, (), {}),
+    # two tiles both past a capacity of two chunks: full tiles, the last one
+    # continued by the padding; the binner's overflow
+    "full_tiles": ("franka", 2, 16, 128, 20.0, 0, 256, 10752, 8, (), {}),
+    # the rig band with the boundary-prefix backward map (bwd_chunks > 0),
+    # which reads the pack's chunk layout
+    "bwd_map": ("rig", 40, 540, 1920, 1400.0, 540, 2176, 3840, 400, (), {"bwd_chunks": 400}),
+}
+_ARM = {}
+
+
+def _arm_meshes():
+    """The benchmark's arm: the mini arm subdivided to 8 mm edges (21,312
+    triangles), with its chain."""
+    if not _ARM:
+        from easyhec_torch.robot import build_chain, load_link_meshes, parse_urdf
+        from easyhec_torch.robot.mesh import subdivide_to_max_edge
+
+        model = parse_urdf(ROOT / "assets" / "mini_arm.urdf")
+        names = ["base", "upper", "fore"]
+        meshes = load_link_meshes(model, link_names=names)
+        _ARM.update(chain=build_chain(model), names=names,
+                    meshes=[subdivide_to_max_edge(meshes[n], 0.008) for n in names])
+    return _ARM["chain"], _ARM["names"], _ARM["meshes"]
+
+
+def _compact_case(dev, case):
+    """(renderer, Tc [4, 4], lp [B, L, 4, 4], K, nc) of a COMPACT_CASES case:
+    the mini arm at 0.4 x its joint limits, seen from (1.0, 0.7, 0.8)."""
+    from easyhec_torch.geometry import camera
+
+    tiles, B, Hc, Wc, f, band, cap, big_k, nc, edits, repl = COMPACT_CASES[case]
+    chain, names, meshes = _arm_meshes()
+    tile = TileConfig(capacity=cap, binner="count", fused=True, cull_backfaces=True,
+                      bwd_band_only=True, bin_big_k=big_k, bin_subsort_rows=True,
+                      compact_chunks=nc, **_REBIN_TILES[tiles])._replace(**repl)
+    r = RobotRenderer(meshes, Hc, Wc, tile=tile, device=dev)
+    rng = np.random.default_rng(7)
+    lim = chain.joint_limits * 0.4
+    qs = rng.uniform(lim[:, 0], lim[:, 1], (B, chain.n_dof)).astype(np.float32)
+    lp = chain.fk(torch.from_numpy(qs).to(dev))[:, [chain.link_index(n) for n in names]]
+    K = torch.tensor([[f, 0, Wc / 2], [0, f, (Hc + band) / 2 - band], [0, 0, 1]],
+                     dtype=torch.float32, device=dev)
+    up = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    Tc = se3.inverse(camera.look_at(torch.tensor([1.0, 0.7, 0.8], device=dev),
+                                    torch.tensor([0.0, 0.0, 0.3], device=dev), up))
+    lp = lp.clone()
+    if "near" in edits:
+        shift = torch.eye(4, device=dev)
+        shift[2, 3] = 0.01
+        lp[0, 2] = se3.inverse(Tc) @ shift
+    if "empty" in edits or "all_empty" in edits:
+        shift = torch.eye(4, device=dev)
+        shift[2, 3] = -5.0
+        lp[slice(None) if "all_empty" in edits else 1] = se3.inverse(Tc) @ shift
+    if "degenerate" in edits:
+        r.corners_rest[2, :, ::97] = r.corners_rest[1, :, ::97]
+    return r, Tc, lp, K, nc
+
+
+def _plain_compact(monkeypatch, r, Tc, lp, K, nc):
+    """build_compact_state through the plain setup and pack on the same card
+    tensors (the binner's kernels equal its plain version bit for bit)."""
+    import easyhec_torch.render.fused as rf
+
+    with monkeypatch.context() as m:
+        m.setattr(rf, "dispatch", lambda cuda_fn, plain_fn, *a: plain_fn(*a))
+        return (build_compact_state(r, Tc, lp, K, nc=nc),
+                rf._fused_bins_and_fields(r, Tc, lp, K))
+
+
+@pytest.mark.parametrize("case", list(COMPACT_CASES))
+def test_compact_state_kernels_match_plain(dev, case, monkeypatch):
+    """build_compact_state on the card (one setup kernel, the binner, the
+    pack's two kernels) against the plain PyTorch build on the same inputs:
+    every CompactState field equal bit for bit (rec, nlive, ctmap, ncu,
+    counts, overflow and the backward's chunk map: the identity, or with
+    bwd_chunks the boundary-prefix map read off the pack's layout), and the
+    shared stage
+    the dense route takes too (the bins and the field table); one launch of
+    each new wrapper per bin state."""
+    import easyhec_torch.render.fused as rf
+    from easyhec_torch.ops.rebin import compact_pack_cuda, tri_setup_cuda
+
+    r, Tc, lp, K, nc = _compact_case(dev, case)
+    want, (wbins, wf, _) = _plain_compact(monkeypatch, r, Tc, lp, K, nc)
+    n0 = (tri_setup_cuda.launches, compact_pack_cuda.launches)
+    got = build_compact_state(r, Tc, lp, K, nc=nc)
+    assert (tri_setup_cuda.launches, compact_pack_cuda.launches) == (n0[0] + 1, n0[1] + 1)
+    gbins, gf, _ = rf._fused_bins_and_fields(r, Tc, lp, K)
+    torch.cuda.synchronize()
+    for name, w, g in zip(want._fields, want, got):
+        assert w.dtype == g.dtype and torch.equal(w, g), f"{case}: {name} differs"
+    for name, w, g in zip(wbins._fields, wbins, gbins):
+        assert torch.equal(w, g), f"{case}: bins' {name} differs"
+    assert torch.equal(wf, gf), f"{case}: the field table differs"
+    ncu, counts, valid = got.ncu.cpu(), got.counts.cpu(), gf[:, 3, :-1].cpu()
+    assert (int(counts.sum()) > 0) == (case != "all_empty")
+    if case == "all_empty":
+        T = counts.shape[1]
+        assert not bool(got.overflow) and not bool(ncu.any()) and not bool(got.nlive.any())
+        assert bool((got.ctmap == T - 1).all())
+    if case == "one_tile":
+        assert counts.shape[1] == 1 and not bool(got.overflow)
+    if case == "full_tiles":
+        assert bool(got.overflow) and bool((counts == r.tile.capacity).all())
+        assert bool((got.ctmap.cpu()[:, int(ncu.max()):] == counts.shape[1] - 1).all())
+    if case == "bwd_map":
+        assert got.bwd_nlive.shape == (counts.shape[0], 400) and bool(got.bwd_nlive.any())
+    if case == "empty_frame":
+        assert int(ncu[1]) == 0 and int(counts[1].sum()) == 0 and not bool(valid[1].any())
+    if case == "ncu_over":
+        assert bool(got.overflow) and int(ncu.max()) > nc
+    elif case != "behind_near":
+        assert int(ncu.max()) <= nc
+    if case == "behind_near":  # the fore link: some faces kept, some culled
+        fore = (r.face_link_id == 2).cpu()
+        assert bool(valid[0, fore].any()) and not bool(valid[0, fore].all())
+    if case == "degenerate":
+        assert not bool(valid[:, ::97].any())
+
+
+def test_bin_state_on_the_card_runs_seven_kernels(dev):
+    """RobotRenderer.bin_state at the explorer's scoring shape on the card:
+    under the profiler, the setup kernel, the binner's four and the pack's
+    two run, beside at most three kernels of PyTorch's for the camera-from-
+    link product; each new wrapper counts one launch."""
+    from easyhec_torch.ops.rebin import compact_pack_cuda, tri_setup_cuda
+
+    r, Tc, lp, K, _ = _compact_case(dev, "explore")
+    r.bin_state(Tc, lp, K)  # loads the libraries outside the trace
+    torch.cuda.synchronize()
+    n0 = (tri_setup_cuda.launches, compact_pack_cuda.launches)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        r.bin_state(Tc, lp, K)
+        torch.cuda.synchronize()
+    # the trace's device events as hec_bench/harness.py reads them, one per launch
+    kern = [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type().name == "CUDA" and not e.is_user_annotation()
+            and "Memcpy" not in e.name() and "Memset" not in e.name()]
+    ours = ("tri_setup_kernel", "compact_scan_kernel", "compact_gather_kernel", "bin_prep_kernel",
+            "bin_hist_kernel", "bin_scan_kernel", "bin_place_kernel")
+    assert sorted(k for k in ours for n in kern if k in n) == sorted(ours), kern
+    others = [n for n in kern if not any(k in n for k in ours)]
+    assert len(others) <= 3, others
+    assert (tri_setup_cuda.launches, compact_pack_cuda.launches) == (n0[0] + 1, n0[1] + 1)
+
+
 @pytest.mark.parametrize("shared", [False, True], ids=["exact", "shared"])
 def test_explorer_score_cuda_matches_cpu_and_counts_launches(dev, shared):
     """SpaceExplorer._score (one K3 launch per batch and hypothesis, one
@@ -1048,6 +1233,8 @@ def test_graphed_calibrate_matches_eager(dev, route, rebin_every, monkeypatch):
     run replays its one step graph once per step, the eager run none."""
     from easyhec_torch.models import calib
     from easyhec_torch.ops import tile_raster as tr_
+    from easyhec_torch.ops.binning import bin_count_cuda
+    from easyhec_torch.ops.rebin import compact_pack_cuda, tri_setup_cuda
 
     if route.startswith("compact"):
         r, _, t = _scene(dev, True)
@@ -1061,9 +1248,10 @@ def test_graphed_calibrate_matches_eager(dev, route, rebin_every, monkeypatch):
             r = RobotRenderer(r.meshes, HD, WD, tile=UNFUSED, device=dev)
             kernels = (tr_.tile_fwd_cuda, tr_.tile_bwd_counted_cuda)
     replays = _count_replays(monkeypatch)
-    steps, out, launches, n_replays = 60, {}, {}, {}
+    builds = (tri_setup_cuda, compact_pack_cuda, bin_count_cuda)
+    steps, out, launches, n_replays, n_builds = 60, {}, {}, {}, {}
     for graphed in (True, False):
-        for k in kernels:
+        for k in kernels + builds:
             k.launches = 0
         replays.clear()
         out[graphed] = calib._calibrate_scan(
@@ -1072,6 +1260,7 @@ def test_graphed_calibrate_matches_eager(dev, route, rebin_every, monkeypatch):
             graphed=graphed)
         torch.cuda.synchronize()
         launches[graphed] = [k.launches for k in kernels]
+        n_builds[graphed] = [k.launches for k in builds]
         n_replays[graphed] = len(replays)
     (dg, lg, hg, ovg, rbg), (de, le, he, ove, rbe) = out[True], out[False]
     assert torch.equal(lg, le) and torch.equal(hg, he) and torch.equal(dg, de)
@@ -1081,6 +1270,9 @@ def test_graphed_calibrate_matches_eager(dev, route, rebin_every, monkeypatch):
     k3 = rbg if route == "compact_k3" else 0
     assert launches[True] == launches[False] == [run + k3, run]
     assert n_replays == {True: run, False: 0}
+    # one setup a bin state on the fused routes, one pack on the compact ones
+    want = [rbg if route != "unfused" else 0, rbg if route.startswith("compact") else 0, rbg]
+    assert n_builds[True] == n_builds[False] == want
 
 
 def test_graphed_chunk_issues_no_sync(dev):
@@ -1255,6 +1447,7 @@ def test_graphed_score_matches_eager(dev, shared, route, monkeypatch):
 
     from easyhec_torch.models.explorer import SpaceExplorer, draw_hypotheses_and_candidates
     from easyhec_torch.ops import tile_raster as tr_
+    from easyhec_torch.ops.rebin import compact_pack_cuda, tri_setup_cuda
     from easyhec_torch.robot import build_chain, load_link_meshes, parse_urdf
 
     names = ["base", "upper", "fore"]
@@ -1275,17 +1468,21 @@ def test_graphed_score_matches_eager(dev, shared, route, monkeypatch):
     replays = _count_replays(monkeypatch)
     out, counts = {}, {}
     for graphed in (True, False):
-        kernel.launches = 0
+        kernel.launches = tri_setup_cuda.launches = compact_pack_cuda.launches = 0
         replays.clear()
         out[graphed] = e._score(q, hyp, K, shared=shared, graphed=graphed)
         torch.cuda.synchronize()
         counts[graphed] = (kernel.launches, e.last_bin_states, len(replays),
-                           int(e._max_load))
+                           int(e._max_load), tri_setup_cuda.launches,
+                           compact_pack_cuda.launches)
     for a, b in zip(out[True], out[False]):
         assert torch.equal(a, b)
     assert counts[True][:2] == counts[False][:2] == (3 * 4, 3 if shared else 12)
     assert counts[True][2] == 3 and counts[False][2] == 0
     assert counts[True][3] == counts[False][3] > 0
+    # one setup and one pack a bin state on the compact route, none on K5's
+    builds = counts[True][1] if route == "compact" else 0
+    assert counts[True][4:] == counts[False][4:] == (builds, builds)
 
 
 def _mini_arm_search_scene(dev, H=192, W=256):
