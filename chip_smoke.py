@@ -44,7 +44,8 @@ Phases, in order (any failure exits non-zero):
    per chunk of 50. Asserts no overflow, a falling loss, and one loss (or
    K5f and counted K5b) kernel pair launch per step (the wrappers' counters
    count replays). ``[main eager]``: the same scene and
-   calibrate loop, graphed then eager (its private ``graphed=False``), five
+   calibrate loop, graphed then eager (``utils.cuda_graph.captures``, the
+   one place that says whether the card runs graphs, patched to refuse), five
    turns on the compact and dense routes: traces bit-identical, ms/step
    median and spread of each, the capture's seconds by part, each runner's peak
    memory and host reads per chunk (graphed: only the read after it)
@@ -69,7 +70,7 @@ Phases, in order (any failure exits non-zero):
    251 launches, the counted K5b 200), graphed (the sweep one CUDA graph
    replayed per batch of 64, the moment refine one graph, the Adam step
    one graph replayed per step) and, as ``[search eager]``, eagerly
-   (``pose_init._capturable`` patched to refuse), three turns each: bit
+   (``utils.cuda_graph.captures`` patched to refuse), three turns each: bit
    for bit, seconds median and spread, capture seconds by stage, peak
    memory, then seconds and device span by stage and the graphed run's
    host reads; then K5f and both K5b timed against their plain versions
@@ -133,7 +134,7 @@ Phases, in order (any failure exits non-zero):
    swapped (baseline, robust, --repair re-pairs exactly those two).
    ``[lr_finder]``: find_lr over the compact loss on one bin state, 100
    Adam steps, one K2f/K2b pair a step, graphed (one step graph replayed
-   per step) and eager (``lr_finder._capturable`` patched), three turns
+   per step) and eager (``utils.cuda_graph.captures`` patched), three turns
    each: losses bit for bit, ms/step median and spread. ``[profiling]``: EvalTimer with a
    CUDA sync and a torch.profiler trace of 5 calibrate steps. ``[watch]``:
    utils.live.serve answering /api/ls on the trainer's run dir, which
@@ -1251,8 +1252,8 @@ def _capture_parts(parts: list):
 def main_eager_phase(lp, K, xi, steps, routes, reps=5):
     """The graphed calibrate against the eager runner on the same scene, in
     this call: per route, ``reps`` turns of (graphed, eager), each a
-    ``steps``-step run of calib._calibrate_scan (calibrate's loop; its
-    private ``graphed=False`` runs the same step function eagerly) from xi +
+    ``steps``-step run of calib._calibrate_scan (calibrate's loop; under
+    ``_graphs(False)`` it runs the same step function eagerly) from xi +
     0.01 with adaptive rebinning. Every graphed trace must equal the eager
     one bit for bit (losses, history, pose, rebins, overflow) and launch the
     route's kernels as often, the backward once per step. Prints ms/step
@@ -1278,8 +1279,9 @@ def main_eager_phase(lp, K, xi, steps, routes, reps=5):
     d0 = (xi + 0.01).detach()
 
     def run(r, target, n, graphed):
-        return calib._calibrate_scan(d0, lp, K, target, r, n, 3e-3, "adam", "constant", 0.0,
-                                     1.0, rebin_every=0, graphed=graphed)
+        with _graphs(graphed):
+            return calib._calibrate_scan(d0, lp, K, target, r, n, 3e-3, "adam", "constant",
+                                         0.0, 1.0, rebin_every=0)
 
     def per_chunk(r, target, graphed):  # a second chunk's reads: set-up cancels out
         two = Counter(_host_reads(lambda: run(r, target, 100, graphed)))
@@ -1531,13 +1533,15 @@ def _patched(holder, name, value):
         setattr(holder, name, real)
 
 
-def _eager_search(graphed: bool):
-    """pose_init._capturable as it is (graphed) or refusing (eager)."""
-    from easyhec_torch.models import pose_init
+def _graphs(graphed: bool):
+    """utils.cuda_graph.captures, the one place that says whether work on
+    the card runs as CUDA graphs, as it is (graphed) or refusing (eager),
+    inside the block."""
+    from easyhec_torch.utils import cuda_graph
 
     if graphed:
         return contextlib.nullcontext()
-    return _patched(pose_init, "_capturable", lambda renderer: False)
+    return _patched(cuda_graph, "captures", lambda device: False)
 
 
 SEARCH_STAGES = ("_sweep", "_moment_refine", "_grad_refine")
@@ -1596,7 +1600,7 @@ def search_phase(renderer, lp, K, xi, target, reps=3):
     16): one K5f per batch, per moment iteration and per step, plus the
     final IoU; one K5b per step. ``reps`` turns of graphed (the sweep's
     batch, the moment refine and the Adam step each one CUDA graph) then
-    eager (pose_init._capturable patched to refuse): every run's scores,
+    eager (_graphs): every run's scores,
     tiles at cap, pose, score and launches equal the first's bit for bit.
     Prints the seconds (median and spread), each graphed turn's capture
     seconds by stage (_capture_parts), each runner's peak memory over what
@@ -1623,7 +1627,7 @@ def search_phase(renderer, lp, K, xi, target, reps=3):
     args = (renderer, lp[0].cpu().numpy(), K.cpu().numpy(), target[0].cpu().numpy())
 
     def run(graphed):
-        with _eager_search(graphed):
+        with _graphs(graphed):
             return global_search_init(*args)
 
     def same(a, b):
@@ -1761,7 +1765,7 @@ def trainer_search_phase(lp, K, xi, qs, target, steps):
     """run_offline_calibration on the compact route with
     init_method="global_search": the overflow pre-check (one K5f), the
     search (251 K5f, 200 K5b), then calibrate (K2f/K2b); with the search
-    graphed, then eager (pose_init._capturable patched to refuse): the
+    graphed, then eager (_graphs): the
     losses and pose bit for bit, the seconds of each."""
     import tempfile
 
@@ -1795,7 +1799,7 @@ def trainer_search_phase(lp, K, xi, qs, target, steps):
                "loss_bwd_compact": prc.loss_bwd_compact_cuda}
     out = {}
     for graphed in (True, False):
-        with tempfile.TemporaryDirectory() as tmp, _eager_search(graphed):
+        with tempfile.TemporaryDirectory() as tmp, _graphs(graphed):
             cfg.output_dir = tmp
             torch.cuda.synchronize()
             _reset(kernels)
@@ -2618,7 +2622,7 @@ def lr_finder_phase(renderer, lp, K, xi, target, steps=100, reps=3):
     loss at the bench scene on one bin state built at the start pose: one
     K2f and one K2b launch per step and a finite suggestion. ``reps`` turns
     of graphed (one step graph replayed per step) then eager
-    (lr_finder._capturable patched to refuse): the losses bit for bit,
+    (_graphs): the losses bit for bit,
     ms/step median and spread of each."""
     import statistics
 
@@ -2636,8 +2640,7 @@ def lr_finder_phase(renderer, lp, K, xi, target, steps=100, reps=3):
     ms, first = {True: [], False: []}, None
     for _ in range(reps):
         for graphed in (True, False):
-            with (contextlib.nullcontext() if graphed else
-                  _patched(lr_finder, "_capturable", lambda leaves: False)):
+            with _graphs(graphed):
                 torch.cuda.synchronize()
                 _reset(kernels)
                 t0 = time.perf_counter()
@@ -2892,7 +2895,7 @@ def _profile(renderer, lp, K, d0, target, steps, main_rebins, out, tag, fwd_pat,
     def new_scan():  # calibrate's scan from d0, captured here
         return calib._chunk_scan(d, opt.init(d), opt, lp, K, target,
                                  calib.tile_masks(target, renderer), renderer,
-                                 min(50, steps), 1.0, 0.0, 0, graphed=True)
+                                 min(50, steps), 1.0, 0.0, 0)
 
     scan = new_scan()
     enqueue_s = wall_s = 0.0  # unprofiled: the host's share of a chunk's time
@@ -2915,7 +2918,7 @@ def _profile(renderer, lp, K, d0, target, steps, main_rebins, out, tag, fwd_pat,
             rebins += scan.run(min(50, steps - done))[5]
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    body = copy.copy(scan)  # its _rebin rebinds body.state, not the scan's
+    body = scan._on(dict(scan.bufs))  # its _rebin rebinds body's state, not the scan's
     body_graph = Graph(body._rebin, Counters.kernels())
     torch.cuda.synchronize()
     with profile(activities=activities) as prof_body:
@@ -3262,7 +3265,8 @@ def explore_kernel_phase(explore_in, launches_k3, n_explored):
     for graphed in (True, False):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs[graphed] = e._score(qs, hyp, explore_in["K"], shared=shared, graphed=graphed)
+        with _graphs(graphed):
+            outs[graphed] = e._score(qs, hyp, explore_in["K"], shared=shared)
         torch.cuda.synchronize()
         secs[graphed] = time.perf_counter() - t0
     same = all(torch.equal(a, b) for a, b in zip(outs[True], outs[False]))
@@ -3782,7 +3786,7 @@ def parallel_nccl_phase(renderer, lp, K, xi, target, steps):
     """[parallel nccl]: an NCCL process group of one rank and the (1, 1)
     DeviceMesh; sharded_calibrate (graphed: one scan a call, its step a
     CUDA graph) against calibrate on the bench scene's compact route, and
-    against itself eager (sharding._capturable patched to refuse) bit for
+    against itself eager (_graphs) bit for
     bit, all in this phase; then nccl_capture_check. Returns the graphed sharded run's launches."""
     import numpy as np
     import torch
@@ -3790,7 +3794,6 @@ def parallel_nccl_phase(renderer, lp, K, xi, target, steps):
 
     from easyhec_torch.models.calib import calibrate
     from easyhec_torch.parallel import comm, init_distributed, make_mesh, sharded_calibrate
-    from easyhec_torch.parallel import sharding
 
     init_distributed(f"127.0.0.1:{_free_port()}", num_processes=1, process_id=0,
                      backend="nccl")
@@ -3813,16 +3816,12 @@ def parallel_nccl_phase(renderer, lp, K, xi, target, steps):
         torch.cuda.synchronize()
         ms_ref = (time.perf_counter() - t0) / steps * 1e3
         runs, ms = {}, {}
-        capturable = sharding._capturable
-        for graphed in (True, False):  # eager: _capturable patched to refuse
-            sharding._capturable = capturable if graphed else lambda n: False
+        for graphed in (True, False):
             _reset(kern)
             t0 = time.perf_counter()
-            try:
+            with _graphs(graphed):
                 runs[graphed] = sharded_calibrate(d0, renderer, mesh, lp, K, target,
                                                   num_steps=steps, max_lr=3e-3, rebin_every=0)
-            finally:
-                sharding._capturable = capturable
             torch.cuda.synchronize()
             ms[graphed] = (time.perf_counter() - t0) / steps * 1e3
             if graphed:

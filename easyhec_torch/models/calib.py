@@ -46,6 +46,7 @@ from ..geometry import se3
 from ..ops.pose_raster import tile_image
 from ..render.renderer import RobotRenderer
 from ..solver.optim import make_optimizer
+from ..utils import cuda_graph
 from ..utils.profiling import DeviceSpans, device_allocs, span
 
 __all__ = [
@@ -219,115 +220,109 @@ def _trace_len(chunk: int, rebin_every: int) -> int:
 
 
 class _Scan:
-    """opt_scan's loop over static tensors: the pose, the optimizer's
-    leaves, the bin state, the probe pixels, the overflow flag, the rebin
-    count, the rebin flag, a device step index and the loss and pose traces
-    of a chunk (``length`` entries). A turn is ``_rebin`` where the flag is
-    set, then ``_step``, which leaves the next turn's flag behind on the
-    device; both read and write only those tensors in place, so they run
-    eagerly (``_turn``, on the CPU and the eager routes) or, with
-    ``graphed``, as one CUDA graph captured once, the rebin its conditional
-    node (``utils.cuda_graph.CondGraph``): the counterpart of the
-    ``lax.cond`` inside the JAX package's scan. A chunk is then ``length``
-    replays and one host read. The buffers carry over from chunk to
-    chunk. ``pool``: the memory pool a scan without bin states (a plain
-    ``Graph``) captures into, shared with graphs the caller ran before."""
+    """opt_scan's loop over static tensors, held in ``bufs``: the pose, the
+    optimizer's leaves, the loss and pose traces of a chunk (``length``
+    entries), a device step index, the fixed cadence's window, the overflow
+    flag, the rebin count, the rebin flag, and the bin state and probe
+    pixels that ``_rebin`` adds. A turn is ``_rebin`` where the flag is
+    set, then ``_step``, which leaves the next turn's flag on the device;
+    both touch only those buffers, so they run eagerly (``_turn``) or, once
+    ``capture``d, as one CUDA graph with the rebin its conditional node:
+    the counterpart of the ``lax.cond`` inside the JAX package's scan. A
+    chunk is then ``length`` replays and one host read. The buffers carry
+    over from chunk to chunk."""
 
     def __init__(self, dof, opt_state, opt, loss_of, bin_state_of, length: int,
                  rebin_every: int = 1, combine=None, probe_fn=None,
-                 drift_budget: float = 0.0, graphed: bool = False, pool=None):
+                 drift_budget: float = 0.0):
         dev = dof.device
         self.opt, self.loss_of, self.bin_state_of = opt, loss_of, bin_state_of
         self.combine, self.probe_fn, self.budget = combine, probe_fn, float(drift_budget)
         self.rebin_every = rebin_every
         self.adaptive = rebin_every >= 1 and probe_fn is not None and drift_budget > 0
-        self.dof = dof.detach().clone()
-        self.leaves = [leaf.detach().clone() for leaf in opt.leaves(opt_state)]
-        self.losses = torch.zeros(length, dtype=torch.float32, device=dev)
-        self.history = torch.zeros((length,) + tuple(dof.shape), dtype=dof.dtype, device=dev)
-        self.idx = torch.zeros(1, dtype=torch.int64, device=dev)  # step within the chunk
-        self.inner = torch.ones((), dtype=torch.int64, device=dev)  # fixed cadence's window
-        self.ov = torch.zeros((), dtype=torch.bool, device=dev)
-        self.nrb = torch.zeros((), dtype=torch.int32, device=dev)
-        self.need = torch.zeros((), dtype=torch.bool, device=dev)  # rebin before the next step
-        self.state = self.pix = None  # written by _rebin
+        self.bufs = dict(
+            dof=dof.detach().clone(),
+            leaves=[leaf.detach().clone() for leaf in opt.leaves(opt_state)],
+            losses=torch.zeros(length, dtype=torch.float32, device=dev),
+            history=torch.zeros((length,) + tuple(dof.shape), dtype=dof.dtype, device=dev),
+            idx=torch.zeros(1, dtype=torch.int64, device=dev),  # step within the chunk
+            inner=torch.ones((), dtype=torch.int64, device=dev),  # fixed cadence's window
+            ov=torch.zeros((), dtype=torch.bool, device=dev),
+            nrb=torch.zeros((), dtype=torch.int32, device=dev),
+            need=torch.zeros((), dtype=torch.bool, device=dev),  # rebin before the next step
+        )
         self.device_spans = DeviceSpans(("calib.rebin",), dev)  # traced captures
-        self.graph = self._capture(pool) if graphed else None
+        self.graph = None
+
+    dof = property(lambda self: self.bufs["dof"])
+    leaves = property(lambda self: self.bufs["leaves"])
+
+    def _on(self, bufs):
+        """This scan over ``bufs`` (its own, or the capture's warm-up copies)."""
+        view = copy.copy(self)
+        view.bufs = bufs
+        return view
 
     def _rebin(self):
-        self.state = self.bin_state_of(self.dof)
+        b = self.bufs
+        b["state"] = self.bin_state_of(b["dof"])
         if self.adaptive:
-            self.pix = self.probe_fn(self.dof)
-        self.ov |= torch.any(self.state.overflow)
-        self.nrb += 1
+            b["pix"] = self.probe_fn(b["dof"])
+        b["ov"] |= torch.any(b["state"].overflow)
+        b["nrb"] += 1
 
     def _step(self):
-        d = self.dof.detach().requires_grad_(True)
+        b = self.bufs
+        d = b["dof"].detach().requires_grad_(True)
         if self.combine is None:
-            loss = self.loss_of(d, self.state)
+            loss = self.loss_of(d, b.get("state"))
             (g,) = torch.autograd.grad(loss, d)
         else:
-            obj, true_local = self.loss_of(d, self.state)
+            obj, true_local = self.loss_of(d, b.get("state"))
             (g,) = torch.autograd.grad(obj, d)
             loss, g = self.combine(true_local.detach(), g)
-        updates, opt_state = self.opt.update(g, self.opt.from_leaves(self.leaves), self.dof)
-        self.losses.index_copy_(0, self.idx, loss.detach().reshape(1))
-        self.history.index_copy_(0, self.idx, self.dof[None])  # the pose BEFORE the update
-        self.dof.copy_(self.dof + updates)
-        for buf, leaf in zip(self.leaves, self.opt.leaves(opt_state)):
+        updates, opt_state = self.opt.update(g, self.opt.from_leaves(b["leaves"]), b["dof"])
+        b["losses"].index_copy_(0, b["idx"], loss.detach().reshape(1))
+        b["history"].index_copy_(0, b["idx"], b["dof"][None])  # the pose BEFORE the update
+        b["dof"].copy_(b["dof"] + updates)
+        for buf, leaf in zip(b["leaves"], self.opt.leaves(opt_state)):
             buf.copy_(leaf)
-        self.idx += 1
+        b["idx"] += 1
         # the next step's rebin flag, on the device
         if self.adaptive:  # the probes' drift from the state's build pose
-            drift = torch.max(torch.abs(self.probe_fn(self.dof) - self.pix))
-            torch.gt(drift, self.budget, out=self.need)
+            drift = torch.max(torch.abs(self.probe_fn(b["dof"]) - b["pix"]))
+            torch.gt(drift, self.budget, out=b["need"])
         elif self.rebin_every >= 1:  # a window ends
-            torch.eq(torch.remainder(self.idx[0], self.inner), 0, out=self.need)
+            torch.eq(torch.remainder(b["idx"][0], b["inner"]), 0, out=b["need"])
 
     def _turn(self):
         """One turn eagerly: the host reads the rebin flag."""
-        if self.rebin_every >= 1 and bool(self.need):
+        if self.rebin_every >= 1 and bool(self.bufs["need"]):
             self._rebin()
         self._step()
 
-    def _capture(self, pool=None):
-        """Warm up the rebin and the step once on copies of the buffers, then
-        capture the turn: utils.cuda_graph.CondGraph(need, _rebin, _step),
-        or Graph(_step) in ``pool`` for a scan without bin states."""
-        from ..utils.cuda_graph import CondGraph, Counters, Graph, warm_up
+    def capture(self, pool=None) -> None:
+        """Capture the turn (utils.cuda_graph.capture: a warm-up on copies of
+        the buffers, then CondGraph(need, _rebin, _step), or Graph(_step) in
+        ``pool`` for a scan without bin states); ``queue`` then replays it."""
 
-        counters = Counters.kernels()
-        warm = copy.copy(self)
-        for name in ("dof", "losses", "history", "idx", "inner", "ov", "nrb", "need"):
-            setattr(warm, name, getattr(self, name).clone())
-        warm.leaves = [b.clone() for b in self.leaves]
-
-        def once():
-            if self.rebin_every >= 1:
-                warm._rebin()
-            warm._step()
-
-        def rebin():  # a device span of a traced capture
+        def rebin(b):  # a device span of a traced capture
             with self.device_spans.span("calib.rebin"):
-                self._rebin()
+                self._on(b)._rebin()
 
-        with torch.cuda.device(self.dof.device):
-            warm_up(once, counters, self.dof.device)
-            del warm
-            if self.rebin_every < 1:
-                return Graph(self._step, counters, pool)
-            return CondGraph(self.need, rebin, self._step, counters)
+        self.graph = cuda_graph.capture(lambda b: self._on(b)._step(), self.bufs, pool=pool,
+                                        cond=("need", rebin) if self.rebin_every >= 1 else None)
 
     def queue(self, chunk: int) -> None:
         """Queue ``chunk`` steps (a fixed cadence runs whole windows) from a
         fresh bin state, as the JAX package's chunk starts from state0.
-        Graphed, these are replays with no host read in between."""
+        Captured, these are replays with no host read in between."""
+        b = self.bufs
         inner = min(max(self.rebin_every, 1), chunk)
-        self.idx.zero_()
-        self.ov.zero_()
-        self.nrb.zero_()
-        self.need.fill_(True)
-        self.inner.fill_(inner)
+        for k in ("idx", "ov", "nrb"):
+            b[k].zero_()
+        b["need"].fill_(True)
+        b["inner"].fill_(inner)
         for _ in range(-(-chunk // inner) * inner):
             if self.graph is None:
                 self._turn()
@@ -340,15 +335,16 @@ class _Scan:
         rebins), copies of the buffers: opt_scan's result. The overflow
         flag and the rebin count are the chunk's one host read, after which
         the device spans of a traced capture are read."""
+        b = self.bufs
         with span("calib.chunk.queue"):
             self.queue(chunk)
         with span("calib.chunk.read"):
-            ov, nrb = torch.stack([self.ov.int(), self.nrb.int()]).tolist()
+            ov, nrb = torch.stack([b["ov"].int(), b["nrb"].int()]).tolist()
             self.device_spans.read()
         if self.graph is not None and nrb:  # only a CondGraph rebins
             self.graph.taken(nrb)
-        return (self.dof.clone(), self.opt.from_leaves([b.clone() for b in self.leaves]),
-                self.losses[:chunk].clone(), self.history[:chunk].clone(), bool(ov), nrb)
+        return (b["dof"].clone(), self.opt.from_leaves([t.clone() for t in b["leaves"]]),
+                b["losses"][:chunk].clone(), b["history"][:chunk].clone(), bool(ov), nrb)
 
 
 def opt_scan(dof, opt_state, opt, loss_of, bin_state_of, chunk: int,
@@ -377,20 +373,21 @@ def opt_scan(dof, opt_state, opt, loss_of, bin_state_of, chunk: int,
     over the mesh.
     """
     scan = _Scan(dof, opt_state, opt, loss_of, bin_state_of,
-                 _trace_len(chunk, rebin_every), rebin_every, combine, probe_fn,
-                 drift_budget, graphed=dof.device.type == "cuda" and combine is None)
+                 _trace_len(chunk, rebin_every), rebin_every, combine, probe_fn, drift_budget)
+    if cuda_graph.captures(dof.device) and combine is None:
+        scan.capture()
     return scan.run(chunk)
 
 
 def _scan_for(dof, opt_state, opt, loss_of, bin_state_of, chunk, renderer, link_poses, K,
-              sharpness, rebin_every, graphed, combine=None, states=True):
+              sharpness, rebin_every, combine=None, states=True):
     """The _Scan that ``calibrate`` (through _chunk_scan) and
     ``parallel.sharded_calibrate`` set up once per call and run in every
     chunk of up to ``chunk`` steps: the counterpart of the JAX package's
-    jitted chunk. ``graphed`` (on CUDA) captures it as a CUDA graph on the
-    routes with a reusable bin state (compact, dense and unfused); the
-    stateless routes (top-k binner, brute, use_pallas=False, and
-    states=False) run it eagerly."""
+    jitted chunk. Each caller captures it where it can be captured: only
+    on the routes with a reusable bin state (compact, dense and unfused),
+    not the stateless ones (top-k binner, brute, use_pallas=False, and
+    states=False)."""
     # Renderers with reusable bin states always go through an explicit state,
     # even at rebin_every=1, so every step's overflow flag is seen.
     # rebin_every == 0 selects adaptive rebinning; a non-positive drift
@@ -407,13 +404,13 @@ def _scan_for(dof, opt_state, opt, loss_of, bin_state_of, chunk, renderer, link_
             if budget > 0:
                 probe_fn = make_drift_probe_fn(drift_probe_points(renderer, link_poses), K)
     return _Scan(dof, opt_state, opt, loss_of, bin_state_of, _trace_len(chunk, eff), eff,
-                 combine, probe_fn, budget,
-                 graphed=graphed and dof.device.type == "cuda" and eff > 0)
+                 combine, probe_fn, budget)
 
 
 def _chunk_scan(dof, opt_state, opt, link_poses, K, masks_ref, ref_tiles, renderer,
-                chunk, sharpness, robust_delta, rebin_every, graphed):
-    """calibrate's _Scan (_scan_for) over the mask loss."""
+                chunk, sharpness, robust_delta, rebin_every):
+    """calibrate's _Scan (_scan_for) over the mask loss, captured on CUDA
+    where the renderer has reusable bin states."""
 
     def loss_of(d, bin_state):
         return mask_loss(d, renderer, link_poses, K, masks_ref, sharpness,
@@ -422,18 +419,20 @@ def _chunk_scan(dof, opt_state, opt, link_poses, K, masks_ref, ref_tiles, render
     def bin_state_of(d):
         return renderer.bin_state(se3.exp(d), link_poses, K, sharpness=sharpness)
 
-    return _scan_for(dof, opt_state, opt, loss_of, bin_state_of, chunk, renderer,
-                     link_poses, K, sharpness, rebin_every, graphed)
+    scan = _scan_for(dof, opt_state, opt, loss_of, bin_state_of, chunk, renderer,
+                     link_poses, K, sharpness, rebin_every)
+    if cuda_graph.captures(dof.device) and reuse_bins_ok(renderer):
+        scan.capture()
+    return scan
 
 
 def _calibrate_scan(
     init_dof, link_poses, K, masks_ref, renderer, num_steps, max_lr,
     optimizer_name, scheduler, grad_clip, sharpness, robust_delta=0.0,
     chunk=50, rebin_every=1, resume_state=None, step_hook=None,
-    on_overflow="raise", graphed=True,
+    on_overflow="raise",
 ):
-    """calibrate's loop over chunks. graphed=False runs the same step and
-    rebin eagerly on CUDA too (the card's comparison for the graph)."""
+    """calibrate's loop over chunks."""
     with span("calib.prepare"):
         opt = make_optimizer(optimizer_name, max_lr=max_lr, total_steps=num_steps,
                              scheduler=scheduler, grad_clip=grad_clip)
@@ -464,7 +463,7 @@ def _calibrate_scan(
         n = min(chunk, num_steps - done)
         if scan is None:  # captured once per call, replayed in every chunk
             scan = _chunk_scan(dof, opt_state, opt, link_poses, K, masks_ref, ref_tiles,
-                               renderer, n, sharpness, robust_delta, rebin_every, graphed)
+                               renderer, n, sharpness, robust_delta, rebin_every)
         dof, opt_state, l, h, ov, nrb = scan.run(n)
         losses.append(l)
         history.append(h)

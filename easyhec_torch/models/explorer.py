@@ -45,6 +45,7 @@ from ..render.fused import CompactState, silhouette_compact
 from ..render.renderer import RobotRenderer
 from ..robot import KinematicChain
 from ..robot.mesh import TriMesh
+from ..utils import cuda_graph
 from ..utils.profiling import DeviceSpans, span
 
 __all__ = [
@@ -269,12 +270,10 @@ class SpaceExplorer:
                                       device=r.device)
 
     @torch.no_grad()
-    def _score(self, qposes, hyp_dofs, K, shared: bool = False, graphed: bool = True):
+    def _score(self, qposes, hyp_dofs, K, shared: bool = False):
         """Variance score per candidate and feasibility, on the renderer's
         device: -> (var [C] with -inf where infeasible, feasible [C] bool,
-        overflow [] bool), all tensors on that device. graphed=False runs the
-        state-driven batches eagerly on CUDA too (the card's comparison for
-        the graph)."""
+        overflow [] bool), all tensors on that device."""
         r = self.renderer
         dev = r.device
         f32 = torch.float32
@@ -375,10 +374,7 @@ class SpaceExplorer:
             b["overflow"] |= ov
             b["bidx"] += 1
 
-        from ..utils.cuda_graph import Counters, repeat
-
-        repeat(batch, bufs, nb, Counters.kernels((self, "last_bin_states"))
-               if graphed and dev.type == "cuda" else None)
+        cuda_graph.repeat(batch, bufs, nb, cuda_graph.captures(dev), (self, "last_bin_states"))
         var = bufs["var"].reshape(-1)[:C]
         var = torch.where(feasible, var, torch.full_like(var, -torch.inf))
         return var, feasible, bufs["overflow"]

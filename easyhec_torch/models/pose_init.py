@@ -26,7 +26,7 @@ from .. import resolve_device
 from ..geometry import camera, se3
 from ..render.tiled import TileConfig
 from ..solver.optim import make_optimizer
-from ..utils.cuda_graph import Counters, repeat
+from ..utils import cuda_graph
 from ..utils.profiling import span
 
 __all__ = ["lookat_init", "global_search_init", "GlobalSearchResult", "ransac_pnp",
@@ -101,14 +101,6 @@ def _candidate_poses(target: np.ndarray, radii, n_dirs: int, n_roll: int,
     return se3.from_rt(Rz @ R, (Rz @ tr)[..., 0]).reshape(-1, 4, 4)
 
 
-def _capturable(renderer) -> bool:
-    """Whether the search's three stages run as CUDA graphs: on CUDA with
-    the scoring renderer on the kernel route. mode="brute" and
-    use_pallas=False render in plain PyTorch and run eagerly, as every
-    route does on the CPU."""
-    return renderer.device.type == "cuda" and renderer.kernel_route
-
-
 def global_search_init(
     renderer,
     link_poses: np.ndarray,  # [B, L, 4, 4] FK per frame (or [L, 4, 4])
@@ -145,7 +137,8 @@ def global_search_init(
     call, in one memory pool: the sweep's batch (replayed once per batch),
     the moment refine (replayed once) and the Adam step (calib._Scan,
     replayed refine_steps times). The host reads nothing until the final
-    IoUs; elsewhere the same functions run eagerly.
+    IoUs. mode="brute" and use_pallas=False render in plain PyTorch and run
+    the same functions eagerly, as every route does on the CPU.
 
     Spans (utils.profiling): ``search.call``, and ``search.sweep``,
     ``search.moment_refine`` and ``search.grad_refine`` around the three
@@ -175,8 +168,6 @@ def global_search_init(
         target = np.asarray(target, np.float32)
         poses = _candidate_poses(target, radii, n_dirs, n_roll, dev)
         score_renderer = _scoring_renderer(renderer, Hs, Ws)
-        graphed = _capturable(score_renderer)
-        counters = Counters.kernels() if graphed else None
 
         def iou(sil):  # [..., Bs, Hs, Ws] -> [...]
             inter = torch.minimum(sil, masks_lo).sum((-2, -1))
@@ -184,16 +175,16 @@ def global_search_init(
             return (inter / torch.clamp(union, min=1e-6)).mean(-1)
 
         with span("search.sweep"):
-            scores, at_cap, sweep = _sweep(score_renderer, poses, lp, Ks, iou, counters)
-        pool = sweep.graph.pool() if graphed else None  # the later stages share it
+            scores, at_cap, sweep = _sweep(score_renderer, poses, lp, Ks, iou)
+        pool = sweep.graph.pool() if sweep is not None else None  # the later stages share it
         order = torch.argsort(-scores, stable=True)[:topk]
         with span("search.moment_refine"):
             Tc = _moment_refine(score_renderer, poses[order], lp, Ks, masks_lo,
-                                torch.from_numpy(target).to(dev), moment_iters, counters, pool)
+                                torch.from_numpy(target).to(dev), moment_iters, pool)
         lpk = lp.expand((Tc.shape[0],) + lp.shape)
         with span("search.grad_refine"):
             dofs = _grad_refine(score_renderer, se3.log(Tc), lpk, Ks, masks_lo, refine_steps,
-                                refine_lr, graphed, pool)
+                                refine_lr, pool)
         with torch.no_grad():
             ious = iou(score_renderer.silhouette(se3.exp(dofs)[:, None], lpk, Ks))
         best = int(torch.argmax(ious))
@@ -207,13 +198,13 @@ def global_search_init(
         )
 
 
-def _sweep(score_renderer, poses, lp, Ks, iou, counters):
+def _sweep(score_renderer, poses, lp, Ks, iou):
     """Stage 1: every candidate's score, in batches of up to 64 (a ragged
     last batch padded with candidate 0, whose scores are dropped). One
     batch reads its poses through a device batch index and writes its
     scores, and on the kernel route (through a bin state) adds its real
-    candidates' tiles at capacity and tiles to two device counts. With
-    ``counters``, one CUDA graph replayed per batch
+    candidates' tiles at capacity and tiles to two device counts. On CUDA
+    and the kernel route, one CUDA graph replayed per batch
     (utils.cuda_graph.repeat). -> (scores [n], [tiles at capacity, tiles]
     (0 off the kernel route), the graph or None)."""
     dev = poses.device
@@ -246,15 +237,16 @@ def _sweep(score_renderer, poses, lp, Ks, iou, counters):
         b["scores"].index_copy_(0, b["bidx"], iou(sil)[None])
         b["bidx"] += 1
 
-    graph = repeat(batch, bufs, nb, counters)
+    graph = cuda_graph.repeat(batch, bufs, nb, cuda_graph.captures(dev) and stateful)
     return bufs["scores"].reshape(-1)[:n], torch.stack([bufs["full"], bufs["tiles"]]), graph
 
 
-def _moment_refine(score_renderer, Tc, lp, Ks, masks_lo, target, iters, counters, pool):
+def _moment_refine(score_renderer, Tc, lp, Ks, masks_lo, target, iters, pool):
     """Stage 2: ``iters`` closed-form translation updates of the candidates
     Tc [k, 4, 4] from mask moments on frame 0 (area ratio -> depth scale,
-    centroid -> image-plane shift). With ``counters``, one CUDA graph of
-    all iterations, captured in ``pool`` and replayed once. -> Tc [k, 4, 4]."""
+    centroid -> image-plane shift). On CUDA and the kernel route, one CUDA
+    graph of all iterations, captured in ``pool`` and replayed once. -> Tc
+    [k, 4, 4]."""
     fx, fy, cx, cy = Ks[0, 0], Ks[1, 1], Ks[0, 2], Ks[1, 2]
     a_o, cu_o, cv_o = _mask_moments(masks_lo[0])
 
@@ -271,16 +263,17 @@ def _moment_refine(score_renderer, Tc, lp, Ks, masks_lo, target, iters, counters
             Tc[:, :3, 3] += torch.stack([x_new, y_new, z_new], dim=-1) - c_c
 
     bufs = dict(Tc=Tc.clone())
-    repeat(moments, bufs, 1, counters, pool)
+    cuda_graph.repeat(moments, bufs, 1,
+                      cuda_graph.captures(Tc.device) and score_renderer.kernel_route, pool=pool)
     return bufs["Tc"]
 
 
-def _grad_refine(score_renderer, dofs, lpk, Ks, masks_lo, steps, lr, graphed, pool):
+def _grad_refine(score_renderer, dofs, lpk, Ks, masks_lo, steps, lr, pool):
     """Stage 3: ``steps`` Adam steps on all the se(3) poses dofs [k, 6] at
     once, on the sum of their mask losses: calib._Scan over the one step,
-    with no bin state (the silhouette bins afresh each step), captured as a
-    CUDA graph in ``pool`` and replayed ``steps`` times when ``graphed``.
-    -> dofs [k, 6]."""
+    with no bin state (the silhouette bins afresh each step); on CUDA and
+    the kernel route captured as a CUDA graph in ``pool`` and replayed
+    ``steps`` times. -> dofs [k, 6]."""
     from .calib import _Scan
 
     if steps <= 0:
@@ -291,8 +284,9 @@ def _grad_refine(score_renderer, dofs, lpk, Ks, masks_lo, steps, lr, graphed, po
         return ((sil - masks_lo) ** 2).sum((-2, -1)).mean(-1).sum()
 
     opt = make_optimizer("adam", max_lr=lr, total_steps=steps)
-    scan = _Scan(dofs, opt.init(dofs), opt, loss_of, None, steps, rebin_every=0,
-                 graphed=graphed, pool=pool)
+    scan = _Scan(dofs, opt.init(dofs), opt, loss_of, None, steps, rebin_every=0)
+    if cuda_graph.captures(dofs.device) and score_renderer.kernel_route:
+        scan.capture(pool)
     scan.queue(steps)
     return scan.dof
 

@@ -40,6 +40,7 @@ import torch.distributed as dist
 from ..geometry import se3
 from ..render.renderer import RobotRenderer
 from ..solver.optim import make_optimizer
+from ..utils import cuda_graph
 from ..utils.profiling import DeviceSpans, span
 from . import comm
 
@@ -113,14 +114,6 @@ def _layout(mesh) -> _Layout:
     n_data, n_tile = mesh.size(0), mesh.size(1)
     di, ti = mesh.get_coordinate()
     return _Layout(n_data, n_tile, di, ti, mesh.get_group("tile") if n_tile > 1 else None)
-
-
-def _capturable(n: int) -> bool:
-    """Whether a CUDA graph can capture the collectives of a mesh of n
-    ranks: a one-rank mesh issues none (_all_reduce), NCCL's can be
-    captured (tests/test_torch_cuda.py holds 4 NCCL ranks' graphed run
-    against the eager one bit for bit), gloo's cannot."""
-    return n == 1 or dist.get_backend() == "nccl"
 
 
 def _all_reduce(t: torch.Tensor, n: int, group=None, op=dist.ReduceOp.SUM):
@@ -297,9 +290,10 @@ def sharded_calibrate(
     On CUDA the chunk's step is one CUDA graph, captured once per call and
     replayed in every chunk (the JAX package's one compiled program), where
     every collective the step issues can be captured: on an NCCL group, or
-    on a one-rank mesh, which issues none (``_capturable``). A gloo group
-    and frame_chunk > 0 run eagerly. The flags' all-reduce stays outside the
-    graph, once per chunk.
+    on a one-rank mesh, which issues none. A gloo group of several ranks,
+    frame_chunk > 0 and, as in calibrate, a renderer without reusable bin
+    states run eagerly. The flags' all-reduce stays outside the graph, once
+    per chunk.
 
     The call's rebins and overflow are the counts of its ``shard.call``
     span (utils.profiling.spans()), identical on every rank but
@@ -308,7 +302,7 @@ def sharded_calibrate(
     from torch.utils.checkpoint import checkpoint
 
     from ..models.calib import (BinOverflowError, _scan_for, _trace_len, mask_loss_per_frame,
-                                tile_masks)
+                                reuse_bins_ok, tile_masks)
 
     with span("shard.call") as counts:
         lay = _layout(mesh)
@@ -396,8 +390,9 @@ def sharded_calibrate(
 
         # Bin states whenever the renderer supports them (rebin_every == 0:
         # adaptive, each rank gating on the drift of its own frames' probe
-        # points); the frame-chunked path rebuilds bins inside each block. Graphed
-        # where the step's collectives can be captured; one scan for every chunk.
+        # points); the frame-chunked path rebuilds bins inside each block. One
+        # scan for every chunk, captured as calibrate's where the step's
+        # collectives can be: a one-rank mesh issues none, NCCL's can, gloo's not.
         losses, history = [], []
         done = rebins = own_rebins = overflow = 0
         scan = None
@@ -405,8 +400,11 @@ def sharded_calibrate(
             n = min(chunk, num_steps - done)
             if scan is None:
                 scan = _scan_for(dof, opt.init(dof), opt, loss_of, bin_state_of, n, renderer, lp,
-                                 Kb, sharpness, rebin_every, _capturable(n_mesh), combine=combine,
+                                 Kb, sharpness, rebin_every, combine=combine,
                                  states=frame_chunk <= 0)
+                if (cuda_graph.captures(dev) and frame_chunk <= 0 and reuse_bins_ok(renderer)
+                        and (n_mesh == 1 or dist.get_backend() == "nccl")):
+                    scan.capture()
             dof, _, l, h, ov, nrb = scan.run(n)
             losses.append(l)
             history.append(h)

@@ -19,7 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..utils.cuda_graph import Counters, repeat
+from ..utils import cuda_graph
 from .optim import make_optimizer
 
 __all__ = ["LRFindResult", "find_lr"]
@@ -41,11 +41,6 @@ def _leaves(params):
         keys = list(params)
         return [params[k] for k in keys], lambda ls: dict(zip(keys, ls))
     return list(params), lambda ls: type(params)(ls)
-
-
-def _capturable(leaves) -> bool:
-    """Whether find_lr's step runs as a CUDA graph: on CUDA parameters."""
-    return leaves[0].device.type == "cuda"
 
 
 def find_lr(
@@ -110,7 +105,7 @@ def find_lr(
                 buf.copy_(t)
             b["idx"] += 1
 
-    repeat(step, bufs, num_steps, Counters.kernels() if _capturable(p) else None)
+    cuda_graph.repeat(step, bufs, num_steps, cuda_graph.captures(dev))
     losses = bufs["losses"].cpu().numpy()
     lrs_np = lrs.numpy()
 

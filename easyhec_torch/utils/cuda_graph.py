@@ -26,11 +26,12 @@ Each warm-up, capture and instantiation is a span of utils.profiling:
 gc.collect and empty_cache torch runs at its start and the instantiation at
 its end) and ``graph.instantiate`` (the conditional graph's assembly).
 
-Graphs are CUDA only: the same functions run eagerly on the CPU.
+Where graphs are made is ``captures(device)`` (yes on CUDA) and what each
+caller reads off its inputs (a renderer's route, a mesh's backend, a hook);
+``capture`` makes every graph. Elsewhere the same functions run eagerly.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import weakref
 
@@ -38,7 +39,7 @@ import torch
 
 from .profiling import span
 
-__all__ = ["CondGraph", "Counters", "Graph", "repeat", "warm_up"]
+__all__ = ["CondGraph", "Counters", "Graph", "capture", "captures", "repeat", "warm_up"]
 
 
 class Counters:
@@ -87,11 +88,11 @@ def warm_up(fn, counters: Counters, device) -> None:
         torch.cuda.current_stream(device).wait_stream(side)
 
 
-@contextlib.contextmanager
-def _capture(graph, pool=None):
-    """torch.cuda.graph(graph, pool=pool) inside a ``graph.capture`` span."""
+def _captured(fn, graph, pool=None) -> None:
+    """fn() captured into graph (torch.cuda.graph, in ``pool``) inside a
+    ``graph.capture`` span."""
     with span("graph.capture"), torch.cuda.graph(graph, pool=pool):
-        yield
+        fn()
 
 
 class Graph:
@@ -103,42 +104,58 @@ class Graph:
     def __init__(self, fn, counters: Counters, pool=None):
         self.graph = torch.cuda.CUDAGraph()
         self.counters = counters
-
-        def capture():
-            with _capture(self.graph, pool):
-                fn()
-
-        self.moved = counters.moved_by(capture)
+        self.moved = counters.moved_by(lambda: _captured(fn, self.graph, pool))
 
     def replay(self) -> None:
         self.graph.replay()
         self.counters.add(self.moved)
 
 
-def repeat(fn, bufs: dict, n: int, counters: Counters | None, pool=None) -> Graph | None:
-    """fn(bufs) n times, where fn reads and writes only the tensors of bufs
-    (a dict of tensors, or of lists of tensors) and what it closes over.
-    With ``counters`` (CUDA only): as one CUDA graph, warmed up once on
-    copies of bufs (so the warm-up moves no buffer), captured on bufs in
-    ``pool`` and replayed n times; returns the Graph, which the caller keeps
-    while it shares the pool. Without: eagerly; returns None."""
-    if counters is None:
+def captures(device) -> bool:
+    """Whether work on ``device`` runs as CUDA graphs: yes on CUDA. Callers
+    add the facts of their inputs that rule a graph out; the card's eager
+    comparisons patch this function alone."""
+    return torch.device(device).type == "cuda"
+
+
+def capture(fn, bufs: dict, *extra, pool=None, cond=None) -> Graph | CondGraph:
+    """fn(bufs) as a CUDA graph, fn reading and writing only bufs (a dict of
+    tensors, or of lists of tensors, to which fn may add) and what it
+    closes over: warmed up once on copies of bufs, then captured on bufs,
+    counting every kernel wrapper's launches and the ``extra`` (holder,
+    attribute) slots. -> a Graph in ``pool``; with ``cond=(flag, body)``,
+    CondGraph(bufs[flag], body(bufs), fn(bufs)), the body warmed up first."""
+    counters = Counters.kernels(*extra)
+    flag, body = cond or (None, None)
+    copies = {k: v.clone() if torch.is_tensor(v) else [t.clone() for t in v]
+              for k, v in bufs.items()}
+
+    def once():
+        if body is not None:
+            body(copies)
+        fn(copies)
+
+    dev = next(iter(bufs.values()))
+    dev = (dev if torch.is_tensor(dev) else dev[0]).device
+    with torch.cuda.device(dev):
+        warm_up(once, counters, dev)
+        del copies
+        if body is None:
+            return Graph(lambda: fn(bufs), counters, pool)
+        return CondGraph(bufs[flag], lambda: body(bufs), lambda: fn(bufs), counters)
+
+
+def repeat(fn, bufs: dict, n: int, captured: bool, *extra, pool=None) -> Graph | None:
+    """fn(bufs) n times: where ``captured`` (the caller's reading of
+    ``captures`` and of its inputs), one graph (``capture``) replayed n
+    times, returned while the caller shares its pool; else eagerly, None."""
+    if not captured:
         for _ in range(n):
             fn(bufs)
         return None
-
-    def clone(v):
-        return v.clone() if torch.is_tensor(v) else [t.clone() for t in v]
-
-    copies = {k: clone(v) for k, v in bufs.items()}
-    dev = next(iter(copies.values()))
-    dev = (dev if torch.is_tensor(dev) else dev[0]).device
-    with torch.cuda.device(dev):
-        warm_up(lambda: fn(copies), counters, dev)
-        del copies
-        graph = Graph(lambda: fn(bufs), counters, pool)
-        for _ in range(n):
-            graph.replay()
+    graph = capture(fn, bufs, *extra, pool=pool)
+    for _ in range(n):
+        graph.replay()
     return graph
 
 
@@ -221,10 +238,8 @@ class CondGraph:
     def __init__(self, flag: torch.Tensor, body, tail, counters: Counters):
         self.counters = counters
         body_graph, tail_graph = _raw_graph(), _raw_graph()
-        with _capture(body_graph):
-            self.body_moved = counters.moved_by(body)
-        with _capture(tail_graph, body_graph.pool()):
-            self.moved = counters.moved_by(tail)
+        self.body_moved = counters.moved_by(lambda: _captured(body, body_graph))
+        self.moved = counters.moved_by(lambda: _captured(tail, tail_graph, body_graph.pool()))
         self.exec = _CondExec(flag, body_graph, tail_graph)
         self.parts = (body_graph, tail_graph)  # the exec's children and their pool
 

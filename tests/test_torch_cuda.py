@@ -31,6 +31,7 @@ from easyhec_torch.render.fused import (
     loss_fused,
 )
 from easyhec_torch.robot import make_box, make_cylinder
+from easyhec_torch.utils import cuda_graph
 
 pytestmark = pytest.mark.cuda
 
@@ -1161,6 +1162,16 @@ def test_sharded_calibrate_one_nccl_rank_matches_calibrate(dev, tmp_path):
 # ---------------------------------------------------------------------------
 
 
+def _graphs(graphed: bool, monkeypatch) -> None:
+    """utils.cuda_graph.captures, the one place that says whether work on
+    the card runs as CUDA graphs, as it is (graphed) or refusing (eager)."""
+    monkeypatch.setattr(cuda_graph, "captures",
+                        CAPTURES if graphed else lambda device: False)
+
+
+CAPTURES = cuda_graph.captures
+
+
 def _count_replays(monkeypatch):
     """Count utils.cuda_graph.Graph and CondGraph replays into the returned
     list."""
@@ -1224,7 +1235,7 @@ def test_conditional_node_runs_its_body_only_when_set(dev):
 @pytest.mark.parametrize("rebin_every", [0, 3], ids=["adaptive", "every3"])
 @pytest.mark.parametrize("route", ["compact", "compact_k3", "dense", "unfused"])
 def test_graphed_calibrate_matches_eager(dev, route, rebin_every, monkeypatch):
-    """calibrate's loop (_calibrate_scan) graphed and eager on the card,
+    """calibrate's loop (_calibrate_scan) graphed and eager (_graphs) on the card,
     60 steps (chunks of 50 and 10), with adaptive rebinning or windows of 3
     (the last window of a chunk runs to its end: 51 and 12 steps): losses,
     history, pose, rebins and overflow equal bit for bit; the route's loss
@@ -1251,13 +1262,13 @@ def test_graphed_calibrate_matches_eager(dev, route, rebin_every, monkeypatch):
     builds = (tri_setup_cuda, compact_pack_cuda, bin_count_cuda)
     steps, out, launches, n_replays, n_builds = 60, {}, {}, {}, {}
     for graphed in (True, False):
+        _graphs(graphed, monkeypatch)
         for k in kernels + builds:
             k.launches = 0
         replays.clear()
         out[graphed] = calib._calibrate_scan(
             t["xi"] + 0.01, t["lp"], t["K"], t["target"], r, steps, 3e-3, "adam",
-            "constant", 0.0, 1.0, rebin_every=rebin_every, on_overflow="warn",
-            graphed=graphed)
+            "constant", 0.0, 1.0, rebin_every=rebin_every, on_overflow="warn")
         torch.cuda.synchronize()
         launches[graphed] = [k.launches for k in kernels]
         n_builds[graphed] = [k.launches for k in builds]
@@ -1275,21 +1286,22 @@ def test_graphed_calibrate_matches_eager(dev, route, rebin_every, monkeypatch):
     assert n_builds[True] == n_builds[False] == want
 
 
-def test_graphed_chunk_issues_no_sync(dev):
+def test_graphed_chunk_issues_no_sync(dev, monkeypatch):
     """A graphed chunk is queued with no host read: its replays run clean
     under torch.cuda.set_sync_debug_mode("error"), and only the read after
     the chunk (the overflow flag and the rebin count) synchronizes; two
-    chunks on one scan give the trace of the eager runner bit for bit."""
+    chunks on one scan give the trace of the eager runner (_graphs) bit for
+    bit."""
     from easyhec_torch.models import calib
 
     r, _, t = _scene(dev, True)
     out = {}
     for graphed in (True, False):
+        _graphs(graphed, monkeypatch)
         opt = calib.make_optimizer("adam", max_lr=3e-3, total_steps=100)
         d = t["xi"] + 0.01
         scan = calib._chunk_scan(d, opt.init(d), opt, t["lp"], t["K"], t["target"],
-                                 calib.tile_masks(t["target"], r), r, 50, 1.0, 0.0, 0,
-                                 graphed=graphed)
+                                 calib.tile_masks(t["target"], r), r, 50, 1.0, 0.0, 0)
         assert (scan.graph is not None) == graphed
         torch.cuda.synchronize()
         out[graphed] = []
@@ -1302,15 +1314,16 @@ def test_graphed_chunk_issues_no_sync(dev):
                     torch.cuda.set_sync_debug_mode("default")
             else:
                 scan.queue(50)
-            out[graphed].append((scan.losses.clone(), scan.history.clone(), int(scan.nrb)))
+            b = scan.bufs
+            out[graphed].append((b["losses"].clone(), b["history"].clone(), int(b["nrb"])))
     assert all(torch.equal(a, b) and torch.equal(h, i) and n == m >= 1
                for (a, h, n), (b, i, m) in zip(out[True], out[False]))
 
 
 def test_graphed_sharded_calibrate_matches_eager(dev, tmp_path, monkeypatch):
     """sharded_calibrate on one NCCL rank and the (1, 1) mesh, graphed (one
-    scan for the call, its step one CUDA graph) and eager (_capturable
-    patched to refuse): losses, history and pose equal bit for bit over 60
+    scan for the call, its step one CUDA graph) and eager (_graphs): losses,
+    history and pose equal bit for bit over 60
     steps in chunks of 50 and 10, one replay and one compact kernel pair per
     step. Then chip_smoke.nccl_capture_check: one NCCL all_reduce
     (premultiplied by 2, so a replay shows) captured in a graph and replayed
@@ -1318,7 +1331,6 @@ def test_graphed_sharded_calibrate_matches_eager(dev, tmp_path, monkeypatch):
     import torch.distributed as dist
 
     from easyhec_torch.parallel import init_distributed, make_mesh, sharded_calibrate
-    from easyhec_torch.parallel import sharding
 
     monkeypatch.syspath_prepend(str(ROOT))
     import chip_smoke
@@ -1327,13 +1339,11 @@ def test_graphed_sharded_calibrate_matches_eager(dev, tmp_path, monkeypatch):
     init_distributed(f"file://{tmp_path / 'rdv'}", num_processes=1, process_id=0,
                      backend="nccl")
     replays = _count_replays(monkeypatch)
-    capturable = sharding._capturable
     out, counts = {}, {}
     try:
         init = (t["xi"] + 0.01).cpu().numpy()
         for graphed in (True, False):
-            monkeypatch.setattr(sharding, "_capturable",
-                                capturable if graphed else lambda n: False)
+            _graphs(graphed, monkeypatch)
             prc.loss_fwd_compact_cuda.launches = prc.loss_bwd_compact_cuda.launches = 0
             replays.clear()
             out[graphed] = sharded_calibrate(init, r, make_mesh(1, 1), t["lp"], t["K"],
@@ -1358,7 +1368,7 @@ torch.cuda.set_device(rank)
 torch.backends.cuda.matmul.allow_tf32 = False
 import test_torch_cuda as T
 from easyhec_torch.ops import pose_raster_compact as prc
-from easyhec_torch.parallel import init_distributed, make_mesh, sharded_calibrate, sharding
+from easyhec_torch.parallel import init_distributed, make_mesh, sharded_calibrate
 from easyhec_torch.render import RobotRenderer
 from easyhec_torch.utils import cuda_graph
 init_distributed(rdv, num_processes=4, process_id=rank, backend="nccl")
@@ -1366,18 +1376,18 @@ dev = torch.device("cuda", rank)
 r, _, t = T._scene(dev, True, B=4)
 band = RobotRenderer(r.meshes, T.H // 2, T.W, tile=r.tile, device=dev)
 mesh = make_mesh(2, 2)
-capturable, replays = sharding._capturable, []
+captures, replays = cuda_graph.captures, []
 real_replay = cuda_graph.CondGraph.replay
 def replay(self):
     replays.append(1)
     real_replay(self)
 cuda_graph.CondGraph.replay = replay
 init = (t["xi"] + 0.01).cpu().numpy()
-out = dict(rank=rank, capturable=capturable(4))
+out = dict(rank=rank, backend=torch.distributed.get_backend())
 for name, kw in {{"adaptive": dict(rebin_every=0),
                  "robust": dict(rebin_every=5, robust_delta=0.2, grad_clip=1.0)}}.items():
     for graphed in (True, False):
-        sharding._capturable = capturable if graphed else (lambda n: False)
+        cuda_graph.captures = captures if graphed else (lambda device: False)
         prc.loss_fwd_compact_cuda.launches = prc.loss_bwd_compact_cuda.launches = 0
         replays.clear()
         res = sharded_calibrate(init, band, mesh, t["lp"], t["K"], t["target"], num_steps=60,
@@ -1396,7 +1406,7 @@ def test_graphed_sharded_calibrate_matches_eager_on_four_nccl_ranks(dev, tmp_pat
     tile) mesh of the 4-frame scene's two 32-row bands: graphed (the step's
     collectives captured: the gradient's all-reduce inside autograd and,
     with robust_delta > 0, the tile group's all-reduce of the per-frame
-    losses) against eager (_capturable patched to refuse), 60 steps,
+    losses) against eager (utils.cuda_graph.captures patched to refuse), 60 steps,
     adaptive and every 5 with robust_delta and grad_clip. On every rank the
     graphed losses, history and pose equal the eager ones bit for bit, and
     the ranks agree bit for bit; one step-graph replay and one backward
@@ -1428,7 +1438,7 @@ def test_graphed_sharded_calibrate_matches_eager_on_four_nccl_ranks(dev, tmp_pat
             f"rank {rank} failed:\n{log[-4000:]}"
     outs = [pickle.loads((tmp_path / f"out{rank}.pkl").read_bytes()) for rank in range(4)]
     for o in outs:
-        assert o["capturable"]
+        assert o["backend"] == "nccl"
         for name in ("adaptive", "robust"):
             for a, b, c in zip(o[name, True], o[name, False], outs[0][name, True]):
                 assert np.array_equal(a, b) and np.array_equal(a, c), (o["rank"], name)
@@ -1439,7 +1449,7 @@ def test_graphed_sharded_calibrate_matches_eager_on_four_nccl_ranks(dev, tmp_pat
 @pytest.mark.parametrize("shared", [False, True], ids=["exact", "shared"])
 def test_graphed_score_matches_eager(dev, shared, route, monkeypatch):
     """SpaceExplorer._score graphed (one graph per call, replayed per batch
-    of 5 candidates) and eager on the card, 12 candidates × 4 hypotheses:
+    of 5 candidates) and eager (_graphs) on the card, 12 candidates × 4 hypotheses:
     variance, feasibility and overflow equal bit for bit, the same K3 (or
     K5f) launches and bin states; the graphed call replays its graph once
     per batch."""
@@ -1468,9 +1478,10 @@ def test_graphed_score_matches_eager(dev, shared, route, monkeypatch):
     replays = _count_replays(monkeypatch)
     out, counts = {}, {}
     for graphed in (True, False):
+        _graphs(graphed, monkeypatch)
         kernel.launches = tri_setup_cuda.launches = compact_pack_cuda.launches = 0
         replays.clear()
-        out[graphed] = e._score(q, hyp, K, shared=shared, graphed=graphed)
+        out[graphed] = e._score(q, hyp, K, shared=shared)
         torch.cuda.synchronize()
         counts[graphed] = (kernel.launches, e.last_bin_states, len(replays),
                            int(e._max_load), tri_setup_cuda.launches,
@@ -1512,7 +1523,7 @@ def _mini_arm_search_scene(dev, H=192, W=256):
 def test_graphed_search_matches_eager(dev, kw, monkeypatch):
     """global_search_init graphed (the sweep one graph replayed per batch of
     64, the moment refine one graph, the Adam step one graph replayed per
-    step) and eager (pose_init._capturable patched to refuse) on the mini
+    step) and eager (_graphs) on the mini
     arm at 24x32 scoring renders: the scores, tiles_at_cap, Tc_c2b and
     score equal bit for bit, with equal K5 launch counts (one K5f per sweep
     batch, moment iteration and step, plus the final IoU; one counted K5b
@@ -1524,12 +1535,10 @@ def test_graphed_search_matches_eager(dev, kw, monkeypatch):
 
     r, lp, K, masks = _mini_arm_search_scene(dev)
     kernels = (tr_.tile_fwd_cuda, tr_.tile_bwd_counted_cuda, tr_.tile_bwd_cuda)
-    capturable = pose_init._capturable
     replays = _count_replays(monkeypatch)
     out, counts = {}, {}
     for graphed in (True, False):
-        monkeypatch.setattr(pose_init, "_capturable",
-                            capturable if graphed else lambda renderer: False)
+        _graphs(graphed, monkeypatch)
         for k in kernels:
             k.launches = 0
         replays.clear()
@@ -1552,21 +1561,18 @@ def test_graphed_search_matches_eager(dev, kw, monkeypatch):
 @pytest.mark.parametrize("optimizer", ["adam", "sgd"])
 def test_graphed_find_lr_matches_eager(dev, optimizer, monkeypatch):
     """find_lr over the compact mask loss on one bin state, graphed (one step
-    graph replayed per step) and eager (lr_finder._capturable patched to
-    refuse), 40 steps: the losses equal bit for bit, one K2f and one K2b per
-    step in both."""
+    graph replayed per step) and eager (_graphs), 40 steps: the losses
+    equal bit for bit, one K2f and one K2b per step in both."""
     from easyhec_torch.models.calib import mask_loss, tile_masks
     from easyhec_torch.solver import lr_finder
 
     r, st, t = _scene(dev, True)
     ref = tile_masks(t["target"], r)
     d0 = t["xi"] + 0.01
-    capturable = lr_finder._capturable
     replays = _count_replays(monkeypatch)
     out, counts = {}, {}
     for graphed in (True, False):
-        monkeypatch.setattr(lr_finder, "_capturable",
-                            capturable if graphed else lambda leaves: False)
+        _graphs(graphed, monkeypatch)
         prc.loss_fwd_compact_cuda.launches = prc.loss_bwd_compact_cuda.launches = 0
         replays.clear()
         out[graphed] = lr_finder.find_lr(

@@ -69,14 +69,15 @@ def rig():
 
 
 def _port_scan(rig, chunk, rebin_every):
-    """_chunk_scan as calibrate sets it up (graphed is ignored on the CPU)."""
+    """_chunk_scan as calibrate sets it up: no capture, since
+    utils.cuda_graph.captures says no on the CPU."""
     _, tr, lp, gt, target = rig
     opt = t_make_optimizer("adam", max_lr=LR, total_steps=chunk)
     d0 = torch.from_numpy(gt + OFFSET)
     scan = tc._chunk_scan(d0, opt.init(d0), opt, torch.from_numpy(lp), torch.from_numpy(K),
                           torch.from_numpy(target), tc.tile_masks(target, tr), tr, chunk,
-                          1.0, 0.0, rebin_every, graphed=True)
-    assert scan.graph is None  # no graph on the CPU
+                          1.0, 0.0, rebin_every)
+    assert not cuda_graph.captures(d0.device) and scan.graph is None
     return scan
 
 
@@ -109,7 +110,7 @@ def test_chunk_matches_jax_calibrate_chunk(rig, rebin_every):
     out = scan.run(chunk)
     _check_chunk(out, jout)
     steps = 12 if rebin_every == 3 else chunk
-    assert int(scan.idx) == steps and int(out[1][0]) == steps
+    assert int(scan.bufs["idx"]) == steps and int(out[1][0]) == steps
     if rebin_every == 3:
         assert out[5] == 4
     else:
@@ -154,13 +155,14 @@ def test_step_index_fills_traces_across_a_short_last_chunk(rig):
         jnp.asarray(gt + OFFSET), jnp.asarray(lp), jnp.asarray(K), jnp.asarray(target), jr,
         53, LR, "adam", "constant", 0.0, 1.0, chunk=50, rebin_every=0)
     scan = _port_scan(rig, 50, 0)
-    assert scan.losses.shape == (50,)
+    bufs = scan.bufs
+    assert bufs["losses"].shape == (50,)
     a = scan.run(50)
-    first = scan.losses.clone()
+    first = bufs["losses"].clone()
     b = scan.run(3)
-    assert int(scan.idx) == 3
-    assert torch.equal(scan.losses[:3], b[2]) and torch.equal(scan.history[:3], b[3])
-    assert torch.equal(scan.losses[3:], first[3:])
+    assert int(bufs["idx"]) == 3
+    assert torch.equal(bufs["losses"][:3], b[2]) and torch.equal(bufs["history"][:3], b[3])
+    assert torch.equal(bufs["losses"][3:], first[3:])
     # near the optimum the loss falls to ~1e-6 of its start, where rtol
     # 1e-3 is below its float noise: a floor of 1e-6 of the largest loss
     jl = np.asarray(jl)
@@ -283,11 +285,12 @@ def test_graph_replays_advance_the_launch_counters(monkeypatch):
 
 def test_repeat_warms_up_on_copies_then_replays(monkeypatch):
     """utils.cuda_graph.repeat (the search's stages, find_lr's step and the
-    explorer's batch): with counters, fn runs once on copies of the buffers
-    (the warm-up), once on the buffers themselves inside the capture (in
-    the given pool), and the graph replays n times, adding fn's counter
-    movement each time; without counters, fn runs n times on the
-    buffers, eagerly."""
+    explorer's batch): captured, fn runs once on copies of the buffers (the
+    warm-up, through the one routine utils.cuda_graph.capture), once on the
+    buffers themselves inside the capture (in the given pool), and the
+    graph replays n times, adding fn's counter movement each time (the
+    kernel wrappers' counters and the caller's extra slot); not captured,
+    fn runs n times on the buffers, eagerly."""
     pools, seen, warm = [], [], []
 
     @contextlib.contextmanager
@@ -312,16 +315,76 @@ def test_repeat_warms_up_on_copies_then_replays(monkeypatch):
         b["x"] += 1
         h.launches += 2
 
-    g = cuda_graph.repeat(fn, bufs, 4, cuda_graph.Counters([(h, "launches")]), pool="p")
-    assert warm == [[2]] and pools == ["p"] and g.graph.replays == 4
+    g = cuda_graph.repeat(fn, bufs, 4, True, (h, "launches"), pool="p")
+    assert g.counters.slots[-1] == (h, "launches")
+    assert (prc.loss_fwd_compact_cuda, "launches") in g.counters.slots
+    assert [w[-1] for w in warm] == [2] and sum(warm[0]) == 2
+    assert pools == ["p"] and g.graph.replays == 4
     (wx, wl), (cx, cl) = seen
     assert wx is not bufs["x"] and wl is not bufs["leaves"][0]
     assert cx is bufs["x"] and cl is bufs["leaves"][0]
-    assert h.launches == 8 and g.moved == [2]
+    assert h.launches == 8 and g.moved[-1] == 2 and sum(g.moved) == 2
     seen.clear()
-    assert cuda_graph.repeat(fn, bufs, 3, None) is None
+    assert cuda_graph.repeat(fn, bufs, 3, False) is None
     assert len(seen) == 3 and all(x is bufs["x"] for x, _ in seen)
     assert torch.equal(bufs["x"], torch.full((2,), 4.0)) and h.launches == 14
+
+
+@pytest.mark.parametrize("mode", ["every3", "stateless"])
+def test_scan_captures_through_the_one_routine(monkeypatch, mode):
+    """_Scan.capture goes through utils.cuda_graph.capture, as repeat does:
+    the rebin and the step run once on copies of the scan's buffers (the
+    warm-up, which leaves the buffers as they were: the pose, the step
+    index, the rebin count, no bin state), then are captured on the buffers
+    themselves, as CondGraph(need, _rebin, _step), the body first; a scan
+    without bin states captures Graph(_step) in the given pool."""
+    warm, builds = [], []
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(cuda_graph, "warm_up",
+                        lambda fn, counters, dev: warm.append(counters.moved_by(fn)))
+    made = []
+
+    class Graph:
+        def __init__(self, fn, counters, pool=None):
+            made.append(("graph", pool))
+            fn()  # a capture on the CPU: the Python runs once
+
+    class CondGraph:
+        def __init__(self, flag, body, tail, counters):
+            made.append(("cond", flag))
+            body()
+            tail()
+
+    monkeypatch.setattr(cuda_graph, "Graph", Graph)
+    monkeypatch.setattr(cuda_graph, "CondGraph", CondGraph)
+
+    class State:
+        overflow = torch.zeros((), dtype=torch.bool)
+
+    def bin_state_of(d):
+        builds.append(d)
+        return State()
+
+    def loss_of(d, state):
+        assert (state is None) == (mode == "stateless")
+        return torch.sum((d - 1.0) ** 2)
+
+    every = 3 if mode == "every3" else 0
+    opt = t_make_optimizer("adam", max_lr=0.1, total_steps=10)
+    d0 = torch.zeros(6)
+    scan = tc._Scan(d0, opt.init(d0), opt, loss_of, bin_state_of, 6, every)
+    bufs = scan.bufs
+    scan.capture(pool="p")
+    assert len(warm) == 1 and sum(warm[0]) == 0
+    if mode == "every3":
+        assert made == [("cond", bufs["need"])]
+        (w, c) = builds
+        assert w is not bufs["dof"] and c is bufs["dof"]  # the warm-up's copy, then the buffer
+        assert isinstance(bufs["state"], State) and int(bufs["nrb"]) == 1
+    else:
+        assert made == [("graph", "p")] and builds == [] and "state" not in bufs
+    assert int(bufs["idx"]) == 1  # one step: the capture's, not the warm-up's
+    assert not torch.equal(bufs["dof"], d0)
 
 
 class _StubRawGraph(_StubGraph):

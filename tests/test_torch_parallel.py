@@ -39,6 +39,7 @@ from easyhec_torch.parallel import sharding as tsh
 from easyhec_torch.render import RobotRenderer as TR
 from easyhec_torch.render import TileConfig as TTC
 from easyhec_torch.solver.optim import make_optimizer as t_make_optimizer
+from easyhec_torch.utils import cuda_graph
 from easyhec_tpu import parallel as jpar
 from easyhec_tpu.config import load_config as j_load
 from easyhec_tpu.data.synthetic import default_camera, generate_dataset
@@ -119,14 +120,18 @@ from easyhec_torch.parallel import comm, sharding as sh
 from easyhec_torch.models import calib
 from easyhec_torch.models.calib import BinOverflowError
 from easyhec_torch.render import RobotRenderer, TileConfig
+from easyhec_torch.utils import cuda_graph
 from easyhec_torch.geometry import se3
 from easyhec_torch.robot.mesh import TriMesh
 init_distributed(rdv, num_processes=4, process_id=rank, backend="gloo")
-scans = []  # the graphed flag of each scan sharded_calibrate builds
+scans = []  # each scan sharded_calibrate builds: whether it was captured
+cuda_graph.captures = lambda device: True  # the one predicate says CUDA
 class CountedScan(calib._Scan):
-    def __init__(self, *a, graphed=False, **kw):
-        scans.append(graphed)
-        super().__init__(*a, graphed=graphed, **kw)
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        scans.append(False)
+    def capture(self, pool=None):  # recorded; the scan runs eagerly
+        scans[-1] = True
 calib._Scan = CountedScan
 inp = pickle.loads(open(d + "/in.pkl", "rb").read())
 W, BAND_H = inp["W"], inp["BAND_H"]
@@ -165,7 +170,7 @@ for fc in (0, 1):
                                chunk=10, frame_chunk=fc)
     out[f"fc{{fc}}"] = [t.numpy() for t in res]
     out[f"scans_fc{{fc}}"] = list(scans)
-out["capturable"] = (sh._capturable(4), sh._capturable(1))
+out["backend"] = torch.distributed.get_backend()
 rov = band(dict(inp["RIG"], capacity=inp["OVERFLOW_CAP"]))
 di, ti = out["coords"]
 x0 = torch.tensor(inp["gt"] + 2 * inp["OFFSET"])
@@ -417,17 +422,21 @@ def test_one_rank_mesh_builds_one_scan_per_call(scene, monkeypatch):
     """sharded_calibrate sets its scan up once per call and runs it in every
     chunk, as calibrate does: 30 steps in 3 chunks of 10 build one scan, and
     their trace equals the same call's in one chunk of 30 bit for bit (fixed
-    windows of 10, so the two rebin at the same steps). Graphed where the
-    step's collectives can be captured: a one-rank mesh (none) or NCCL, not
-    gloo (an explicit backend test)."""
+    windows of 10, so the two rebin at the same steps). Captured where the
+    one predicate says CUDA: a one-rank mesh issues no collective (NCCL's
+    and gloo's 2x2 meshes are tests/test_torch_capture_rule.py's cases)."""
     built = []
 
     class CountedScan(tc._Scan):
         def __init__(self, *a, **kw):
-            built.append(kw["graphed"])
             super().__init__(*a, **kw)
+            built.append(False)
+
+        def capture(self, pool=None):  # recorded; the scan runs eagerly
+            built[-1] = True
 
     monkeypatch.setattr(tc, "_Scan", CountedScan)
+    monkeypatch.setattr(cuda_graph, "captures", lambda device: True)
     full = _port(scene, DENSE, H)
     init = scene["gt"] + OFFSET
     kw = dict(DENSE_KW, num_steps=30)
@@ -436,25 +445,22 @@ def test_one_rank_mesh_builds_one_scan_per_call(scene, monkeypatch):
         built.clear()
         out[chunk] = tpar.sharded_calibrate(init, full, tpar.make_mesh(1, 1), scene["lp"], K,
                                             scene["target_d"], chunk=chunk, **kw)
-        assert built == [False]  # one scan; no graph on the CPU
+        assert built == [True]  # one scan, captured
     for a, b in zip(out[10], out[30]):
         assert torch.equal(a, b)
     assert out[10][1].shape == (30,) and out[10][1][-1] < out[10][1][0]
-    monkeypatch.setattr(tsh.dist, "get_backend", lambda group=None: "gloo")
-    assert tsh._capturable(1) and not tsh._capturable(4)
-    monkeypatch.setattr(tsh.dist, "get_backend", lambda group=None: "nccl")
-    assert tsh._capturable(4)
 
 
 def test_sharded_calibrate_one_scan_per_call_on_gloo(ranks):
     """On the 2x2 gloo mesh every sharded_calibrate call builds one scan,
     whatever its chunks (dense: 60 steps in chunks of 25; the frame-chunked
-    and unchunked runs: 20 in chunks of 10), eager: gloo's collectives
-    cannot be captured, and _capturable says so by the backend."""
+    and unchunked runs: 20 in chunks of 10), eager even where the one
+    predicate (utils.cuda_graph.captures) says CUDA: gloo's collectives
+    cannot be captured."""
     for o in ranks.out():
         for key in ("dense", "compact", "fc0", "fc1"):
             assert o["scans_" + key] == [False], key
-        assert o["capturable"] == (False, True)
+        assert o["backend"] == "gloo"
 
 
 def test_dense_sharded_calibrate_matches_jax(scene, ranks, jmesh):

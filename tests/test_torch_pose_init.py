@@ -347,7 +347,7 @@ def _search_pair(tr, jr, lp, K, mask, search, monkeypatch):
     np.testing.assert_array_equal(np.asarray(jse3.exp(jnp.asarray(jdof[best]))), jres.Tc_c2b)
     assert float(jious[best]) == jres.score
     return dict(tres=tres, jres=jres, jx=jx, jdofs0=dofs0,
-                thist=scan.history.numpy().transpose(1, 0, 2), tdof=scan.dof.numpy(),
+                thist=scan.bufs["history"].numpy().transpose(1, 0, 2), tdof=scan.dof.numpy(),
                 jhist=jhist, jdof=jdof, tr=tr, lp=lp, K=K, mask=mask, search=search)
 
 
