@@ -94,7 +94,12 @@ Phases, in order (any failure exits non-zero):
    shapes against their plain versions, bit for bit (kernels-line rows),
    and the whole bin state's device time. The binner launches once per bin
    build on every route and in every explore round, the setup once per
-   fused bin build and the pack once per compact one.
+   fused bin build and the pack once per compact one. ``[step]``: the
+   calibration step's head, grad and update kernels (ops/step.py) at the
+   calib cell's and the rig band's shapes against their plain twins
+   (kernels-line rows); ``[main compact]``, ``[main dense]`` and
+   ``[parallel nccl]`` hold them to one grad and one update a step, one head
+   a step and a rebin, and ``kernel_steps`` to the steps.
 8. The remaining options and offline tools. ``[schedules]``: the compact
    route's calibrate under warmup_cosine (100 warmup steps), its lr at
    four steps against the closed form, one K2f/K2b pair per step.
@@ -1144,9 +1149,12 @@ def main_path(renderer, lp, K, xi, target, steps, kernels, label):
     {name: (forward wrapper, backward wrapper)} names the loss pair that must
     run once per step. The binner must launch once per bin build, the
     triangle setup once per bin build of a fused route and the compact pack
-    once per bin build of the compact route. Returns (launches by name, the
+    once per bin build of the compact route; on a fused route the step
+    kernels (_check_step_kernels) once a step, the head once more a rebin,
+    and calib.call's kernel_steps the steps. Returns (launches by name, the
     binner's under "bin_count", the setup's under "tri_setup", the pack's
-    under "compact_pack"; ms/step; rebins)."""
+    under "compact_pack", the step kernels' under their names; ms/step;
+    rebins)."""
     import numpy as np
     import torch
 
@@ -1154,12 +1162,14 @@ def main_path(renderer, lp, K, xi, target, steps, kernels, label):
     from easyhec_torch.models.calib import calibrate
     from easyhec_torch.ops.binning import bin_count_cuda
     from easyhec_torch.ops.rebin import compact_pack_cuda, tri_setup_cuda
+    from easyhec_torch.utils import profiling
     from easyhec_torch.utils.cuda_graph import _CondExec
 
     d0 = (xi + 0.01).cpu().numpy()
     gt = se3.exp(xi).cpu().numpy()
     torch.cuda.synchronize()
     _reset(kernels)
+    _reset(_step_kernels())
     _CondExec.launches = bin_count_cuda.launches = 0
     tri_setup_cuda.launches = compact_pack_cuda.launches = 0
     t0 = time.perf_counter()
@@ -1167,6 +1177,7 @@ def main_path(renderer, lp, K, xi, target, steps, kernels, label):
                     rebin_every=0, Tc_c2b_gt=gt)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    call = [sp for sp in profiling.spans() if sp.name == "calib.call"][-1]
     launches = {k: fn.launches for k, fn in kernels.items()}
     print(f"[{label}] {steps} steps in {dt:.3f} s: {dt / steps * 1e3:.3f} ms/step, "
           f"{steps * B * H * W / dt:.0f} px/s fwd+bwd, {res.rebins} rebins; "
@@ -1189,6 +1200,8 @@ def main_path(renderer, lp, K, xi, target, steps, kernels, label):
     if builds != want:
         raise AssertionError(f"[{label}] bin state launches {builds}, not {want}")
     launches.update(builds)
+    launches.update(_check_step_kernels(label, steps, res.rebins, call.counts["kernel_steps"],
+                                        fused))
     print(f"[{label}] loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}; launches "
           f"{json.dumps(launches)}; pose error {json.dumps(res.metrics)}")
     if res.overflow:
@@ -1845,8 +1858,34 @@ def _all_kernels():
     from easyhec_torch.ops import pose_raster as pr
     from easyhec_torch.ops import pose_raster_compact, tile_raster  # noqa: F401
 
-    skip = (binning.bin_count_cuda, rebin.tri_setup_cuda, rebin.compact_pack_cuda)
+    skip = (binning.bin_count_cuda, rebin.tri_setup_cuda, rebin.compact_pack_cuda,
+            *_step_kernels().values())
     return {fn.__name__.removesuffix("_cuda"): fn for fn in pr.COUNTED if fn not in skip}
+
+
+def _step_kernels():
+    """The kernel route's step kernels (ops/step.py), which every step of a
+    fused calibration launches: main_path and parallel_nccl_phase count them."""
+    from easyhec_torch.ops import step
+
+    return {"step_head": step.step_head_cuda, "step_grad": step.step_grad_cuda,
+            "step_update": step.step_update_cuda}
+
+
+def _check_step_kernels(label, steps, rebins, kernel_steps, fused):
+    """The step kernels' launches since their reset and the call's
+    kernel_steps: on a fused route one grad and one update a step and one
+    head a step and a rebin (the rebin takes its pose from the head), and
+    kernel_steps the steps; else none. -> the launches by name."""
+    got = {k: fn.launches for k, fn in _step_kernels().items()}
+    want = ({"step_head": steps + rebins, "step_grad": steps, "step_update": steps} if fused
+            else dict.fromkeys(got, 0))
+    print(f"[{label}] step kernel launches {json.dumps(got)}, kernel_steps {kernel_steps} "
+          f"({steps} steps, {rebins} rebins)")
+    if got != want or kernel_steps != (steps if fused else 0):
+        raise AssertionError(f"[{label}] step kernels {got} and kernel_steps {kernel_steps}, "
+                             f"not {want} and {steps if fused else 0}")
+    return got
 
 
 def _launched(kernels):
@@ -3492,6 +3531,150 @@ def rebin_phase(main_renderer, lp, K, xi, explore_in):
     return rows
 
 
+STEP_CASES = (("calib", lambda: _cell_bin_state("calib", "xarm7-720p.calib", 8100000777)),
+              ("rig", lambda: _rig_band_state(0)))
+
+
+def _step_inputs(r, T, lp_c, K_c):
+    """The step kernels' inputs on one real bin state at a cell's shapes: the
+    scan's buffers, a _KernelStep (weights 1/B; the reference the state's
+    own silhouette shifted 3 px right, so the loss and its gradient are
+    real), the probes and the pixels of the state's build pose."""
+    import torch
+
+    from easyhec_torch.geometry import se3
+    from easyhec_torch.models import calib
+    from easyhec_torch.ops import step
+    from easyhec_torch.render.fused import silhouette_compact
+    from easyhec_torch.solver.optim import make_optimizer
+
+    st = r.bin_state(T, lp_c, K_c)
+    target = torch.roll((silhouette_compact(r, T, K_c, st) > 0.5).float(), 3, dims=-1)
+    B = target.shape[0]
+    k = calib._KernelStep(r, lp_c, K_c, calib.tile_masks(target, r), 1.0,
+                          torch.full((B,), 1.0 / B, device=DEVICE))
+    k.probes = calib.drift_probe_points(r, lp_c).contiguous()
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    dof = se3.log(T).contiguous()
+    b = dict(Tc=torch.zeros(4, 4, **f32), cam=torch.zeros(B, 16, **f32),
+             jac=torch.zeros(12, 6, **f32), pix=torch.zeros(k.probes.shape[0], 2, **f32))
+    step.step_head_plain(dof, k.K, b["Tc"], b["cam"], b["jac"], k.probes, b["pix"])
+    opt = make_optimizer("adam", max_lr=3e-3, total_steps=1000)
+    return k, st, dof, b, opt
+
+
+def step_phase():
+    """[step]: the calibration step's three kernels (ops/step.py: the head,
+    the grad, the update) at the benchmark's calib cell's shape (10 frames of
+    1280x720, 1800 tiles of 16x32, 384 chunks) and at the rig cell's band
+    (data rank 0's 40 frame-views of 1920x540, 510 tiles of 16x64, 400
+    chunks), on a real bin state and K2f/K2b's real partials, each against
+    its plain twin on the same card tensors: the head's pose, camera rows,
+    Jacobian and probe pixels, the grad's [loss, g] (and a second launch bit
+    for bit, its ticket left at zero), five Adam updates with the drift test
+    (pose, leaves, traces, step index and flag). Each kernel's CUDA-event
+    time, its twin's, its bytes bound and ptxas report: six kernels-line
+    rows, "step_head|step_grad|step_update calib|rig". Launch latency, not
+    bytes, bounds them."""
+    import torch
+
+    from easyhec_torch.ops import step
+    from easyhec_torch.render.fused import loss_parts
+
+    def rel(a, c):
+        return float((a - c).abs().max() / c.abs().max().clamp(min=1e-30))
+
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    rows = []
+    for kind, make in STEP_CASES:
+        r, T, lp_c, K_c = make()
+        k, st, dof, b, opt = _step_inputs(r, T, lp_c, K_c)
+        B = b["cam"].shape[0]
+        # the head, at a pose off the build pose, against its twin
+        d = (dof + 0.002).contiguous()
+        got = {n: torch.zeros_like(b[n]) for n in ("Tc", "cam", "jac", "pix")}
+        want = {n: torch.zeros_like(b[n]) for n in got}
+        step.step_head_cuda(d, k.K, got["Tc"], got["cam"], got["jac"], k.probes, got["pix"])
+        step.step_head_plain(d, k.K, want["Tc"], want["cam"], want["jac"], k.probes, want["pix"])
+        torch.cuda.synchronize()
+        errs = {n: rel(got[n], want[n]) for n in got}
+        print(f"[step] {kind} head: {B} frames, {k.probes.shape[0]} probes; largest gap to "
+              f"the twin over the largest magnitude {json.dumps(errs)}")
+        if max(errs["Tc"], errs["cam"]) > 1e-6 or errs["jac"] > 1e-5 or errs["pix"] > 1e-6:
+            raise AssertionError(f"[step] {kind} head differs from its twin: {errs}")
+        # the grad on K2f's and K2b's partials at the head's camera rows
+        b["cam"].copy_(got["cam"])
+        lparts, parts, counts = loss_parts(r, b["cam"], st, k.ref_tiles, k.w)
+        gl_k, gl_p, gl_2 = (torch.zeros(7, device=DEVICE) for _ in range(3))
+        gargs = (parts, lparts, counts, k.ref_sq, k.w, got["jac"])
+        step.step_grad_cuda(*gargs, gl_k, k.work)
+        step.step_grad_cuda(*gargs, gl_2, k.work)
+        step.step_grad_plain(*gargs, gl_p)
+        torch.cuda.synchronize()
+        g_err = rel(gl_k[1:], gl_p[1:])
+        l_err = abs(float(gl_k[0] - gl_p[0])) / abs(float(gl_p[0]))
+        print(f"[step] {kind} grad: parts {tuple(parts.shape)}, loss partials "
+              f"{tuple(lparts.shape)}; loss {float(gl_k[0]):.6g} (twin {float(gl_p[0]):.6g}, "
+              f"rel {l_err:.2e}), gradient rel gap {g_err:.2e}; a second launch bit-identical "
+              f"{torch.equal(gl_k, gl_2)}; ticket {int(k.work[1])}")
+        if l_err > 1e-5 or g_err > 1e-4 or not torch.equal(gl_k, gl_2) or int(k.work[1]):
+            raise AssertionError(f"[step] {kind} grad differs from its twin or itself")
+        # five updates with the drift test, kernel and twin from the same state
+        n = 1000
+        runs = {}
+        for name, fn in (("kernel", step.step_update_cuda), ("twin", step.step_update_plain)):
+            u = dict(dof=d.clone(), leaves=[t.clone().to(DEVICE) for t in opt.leaves(opt.init(d))],
+                     losses=torch.zeros(n, device=DEVICE), history=torch.zeros(n, 6, device=DEVICE),
+                     idx=torch.zeros(1, dtype=torch.int64, device=DEVICE),
+                     need=torch.zeros((), dtype=torch.bool, device=DEVICE),
+                     inner=torch.ones((), dtype=torch.int64, device=DEVICE))
+            flags = []
+            for i in range(5):
+                fn(gl_p * (1.0 + 0.1 * i), 1.0, opt, u["leaves"], u["dof"], u["losses"],
+                   u["history"], u["idx"], u["need"], u["inner"],
+                   (k.probes, k.K, b["pix"], 2.0))
+                flags.append(bool(u["need"]))
+            runs[name] = (u, flags)
+        (uk, fk), (up, fp) = runs["kernel"], runs["twin"]
+        u_err = max(rel(uk["dof"], up["dof"]), rel(uk["history"][:5], up["history"][:5]),
+                    *(rel(a.float(), c.float()) for a, c in zip(uk["leaves"], up["leaves"])))
+        print(f"[step] {kind} update: five Adam steps with the drift test (budget 2 px): "
+              f"largest rel gap {u_err:.2e}; flags {fk} (twin {fp}); step index "
+              f"{int(uk['idx'])}")
+        if u_err > 1e-6 or fk != fp or int(uk["idx"]) != 5 or not torch.equal(
+                uk["losses"][:5], up["losses"][:5]):
+            raise AssertionError(f"[step] {kind} update differs from its twin")
+        # timings, with the bytes each kernel must move
+        P = k.probes.shape[0]
+        hb = nb(d, k.K, got["Tc"], got["cam"], got["jac"])
+        gb = nb(*[t for t in gargs if t is not None], gl_k)
+        ub = nb(gl_k, d, *uk["leaves"]) * 2 + 4 + 24 + nb(k.probes, b["pix"], k.K)
+
+        def update(fn, u=uk):  # the traces hold n = 1000 steps, more than the timing runs
+            fn(gl_p, 1.0, opt, u["leaves"], u["dof"], u["losses"], u["history"], u["idx"],
+               u["need"], u["inner"], (k.probes, k.K, b["pix"], 2.0))
+
+        src = "easyhec_torch/ops/csrc/step.cu"
+        rep = "none (XLA fuses easyhec_tpu/models/calib.py's scan body)"
+        rows.append(_row(f"step_head {kind}", f"step_head {kind}", src, rep, errs["jac"],
+                         lambda: step.step_head_cuda(d, k.K, got["Tc"], got["cam"], got["jac"]),
+                         lambda: step.step_head_plain(d, k.K, want["Tc"], want["cam"],
+                                                      want["jac"]),
+                         hb, 0, "step_head_kernel"))
+        rows.append(_row(f"step_grad {kind}", f"step_grad {kind}", src, rep, g_err,
+                         lambda: step.step_grad_cuda(*gargs, gl_k, k.work),
+                         lambda: step.step_grad_plain(*gargs, gl_p), gb, 0, "step_grad_kernel"))
+        rows.append(_row(f"step_update {kind}", f"step_update {kind}", src, rep, u_err,
+                         lambda: update(step.step_update_cuda),
+                         lambda: update(step.step_update_plain, up), ub, 0,
+                         "step_update_kernel"))
+        print(f"[step] {kind}: a step's K2f + K2b (with their output fills) for scale: "
+              f"{_time_ms(lambda: loss_parts(r, b['cam'], st, k.ref_tiles, k.w), 20):.4f} ms ({GPU})")
+    return rows
+
+
 def binner_phase(main_renderer, lp, K, xi, explore_in):
     """The binner's counting sort (ops/binning.py::bin_count_cuda, four
     kernels) against its plain version (render/binning.py::_bin_count_flat)
@@ -3787,13 +3970,16 @@ def parallel_nccl_phase(renderer, lp, K, xi, target, steps):
     DeviceMesh; sharded_calibrate (graphed: one scan a call, its step a
     CUDA graph) against calibrate on the bench scene's compact route, and
     against itself eager (_graphs) bit for
-    bit, all in this phase; then nccl_capture_check. Returns the graphed sharded run's launches."""
+    bit, all in this phase, each on the kernel route (_check_step_kernels,
+    shard.call's kernel_steps); then nccl_capture_check. Returns the graphed
+    sharded run's launches, the step kernels' among them."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from easyhec_torch.models.calib import calibrate
     from easyhec_torch.parallel import comm, init_distributed, make_mesh, sharded_calibrate
+    from easyhec_torch.utils import profiling
 
     init_distributed(f"127.0.0.1:{_free_port()}", num_processes=1, process_id=0,
                      backend="nccl")
@@ -3818,14 +4004,20 @@ def parallel_nccl_phase(renderer, lp, K, xi, target, steps):
         runs, ms = {}, {}
         for graphed in (True, False):
             _reset(kern)
+            _reset(_step_kernels())
             t0 = time.perf_counter()
             with _graphs(graphed):
                 runs[graphed] = sharded_calibrate(d0, renderer, mesh, lp, K, target,
                                                   num_steps=steps, max_lr=3e-3, rebin_every=0)
             torch.cuda.synchronize()
             ms[graphed] = (time.perf_counter() - t0) / steps * 1e3
+            call = [sp for sp in profiling.spans() if sp.name == "shard.call"][-1]
+            step_launches = _check_step_kernels("parallel nccl", steps,
+                                                call.counts["own_rebins"],
+                                                call.counts["kernel_steps"], True)
             if graphed:
                 launches = {k: fn.launches for k, fn in kern.items()}
+                graphed_steps = step_launches
         nccl_capture_check()
     finally:
         dist.destroy_process_group()
@@ -3844,7 +4036,7 @@ def parallel_nccl_phase(renderer, lp, K, xi, target, steps):
     _held("parallel nccl", losses, dof, history.cpu().numpy(), ref)
     if list(launches.values()) != [steps, steps]:
         raise AssertionError(f"[parallel nccl] launches {launches} for {steps} steps")
-    return launches
+    return {**launches, **graphed_steps}
 
 
 def config5_scene():
@@ -4532,7 +4724,7 @@ def main() -> int:
                                       {"tile_fwd": tr.tile_fwd_cuda,
                                        "tile_bwd_counted": tr.tile_bwd_counted_cuda},
                                       "main unfused")
-    for k in ("bin_count", "tri_setup", "compact_pack"):
+    for k in ("bin_count", "tri_setup", "compact_pack", *_step_kernels()):
         launches[f"{k} calib"] = launches.pop(k)
         unf_launches.pop(k)
     if unf_launches != {"tile_fwd": args.steps, "tile_bwd_counted": args.steps}:
@@ -4581,6 +4773,7 @@ def main() -> int:
     kernels.append(explore_kernel_phase(explore_in, iter_launches["K3"], n_explored))
     kernels += binner_phase(renderer, lp, K, xi, explore_in)
     kernels += rebin_phase(renderer, lp, K, xi, explore_in)
+    kernels += step_phase()
     launches["compact_tile_acc"] = iter_launches["K3"]
     for k in ("bin_count", "tri_setup", "compact_pack"):
         launches[f"{k} explore"] = iter_launches[f"{k} explore"]
@@ -4601,7 +4794,9 @@ def main() -> int:
     lr_finder_phase(renderer, lp, K, xi, target)
     profiling_phase(renderer, lp, K, xi, target)
     watch_phase(trainer_cfg.output_dir, args.steps, trainer_cfg.solver.log_interval)
-    parallel_nccl_phase(renderer, lp, K, xi, target, args.steps)
+    nccl_launches = parallel_nccl_phase(renderer, lp, K, xi, target, args.steps)
+    for k in _step_kernels():
+        launches[f"{k} rig"] = nccl_launches[k]
     (work / "parallel").mkdir()
     band_rows, band_launches = parallel_2x2_phase(C5_STEPS, work / "parallel")
     kernels += band_rows

@@ -10,6 +10,16 @@ gradient through the record pack and the triangle setup to the pose. Bin
 states are rebuilt only when the projected drift of the probe points
 exceeds the margin budget (adaptive rebinning, ``opt_scan``).
 
+On the fused route, with no Huber loss and make_optimizer's adam or sgd
+over the pose (``_kernel_route``), a step runs no autograd: ops/step.py's
+head kernel (the pose, the camera rows, the Jacobian of Tc[:3,:4] in the
+twist), render/fused.py::loss_fused on its kernel route (the fused loss
+kernels, then the grad kernel: [loss, g] under the frames' weights, which
+are the gradient of the loss's reduction over frames, the empty tiles'
+Σ ref² read from a per-call table) and the update kernel (the optimizer,
+the traces, the pose and the next rebin flag); on the CPU their plain twins
+run. Every other step differentiates the loss with autograd.
+
 Where the JAX package compiles a chunk of steps into one program
 (``lax.scan``, the rebin a ``lax.cond`` inside it), this captures one step
 as a CUDA graph (``_Scan``, once per ``calibrate`` call) over static
@@ -25,7 +35,8 @@ is checked and ``step_hook`` fires once per chunk, exactly as in the JAX
 package, so states and traces line up across the two.
 
 Spans (utils.profiling): ``calib.call`` around ``calibrate`` (counts
-``rebins`` and, while a torch profiler records, ``device_allocs``),
+``rebins``, ``kernel_steps``, the steps run on the kernel route, and, while a
+torch profiler records, ``device_allocs``),
 ``calib.prepare`` (the optimizer and the tiled masks), per chunk
 ``calib.chunk.queue`` (queueing its steps) and ``calib.chunk.read`` (the host
 read that waits for them), then ``calib.finish`` (the copies out). When a
@@ -43,9 +54,11 @@ import numpy as np
 import torch
 
 from ..geometry import se3
+from ..ops import step
 from ..ops.pose_raster import tile_image
+from ..render import fused
 from ..render.renderer import RobotRenderer
-from ..solver.optim import make_optimizer
+from ..solver.optim import Optimizer, make_optimizer
 from ..utils import cuda_graph
 from ..utils.profiling import DeviceSpans, device_allocs, span
 
@@ -198,17 +211,66 @@ def drift_probe_points(renderer: RobotRenderer, link_poses) -> torch.Tensor:
 
 def make_drift_probe_fn(probes: torch.Tensor, K: torch.Tensor):
     """probe_fn(dof) -> [P, 2] pixel positions of base-frame ``probes``
-    under the pose se3.exp(dof) and intrinsics K (depth clamped at 0.05)."""
-    fx, fy = K[0, 0], K[1, 1]
-    cx, cy = K[0, 2], K[1, 2]
+    under the pose se3.exp(dof) and intrinsics K (depth clamped at 0.05;
+    ops.step.project_probes)."""
 
     def probe_fn(d):
-        T = se3.exp(d)
-        pc = probes @ T[:3, :3].T + T[:3, 3]
-        z = torch.clamp(pc[:, 2], min=0.05)
-        return torch.stack([fx * pc[:, 0] / z + cx, fy * pc[:, 1] / z + cy], dim=-1)
+        return step.project_probes(probes, se3.exp(d), K)
 
     return probe_fn
+
+
+def _kernel_route(renderer: RobotRenderer, opt, robust_delta: float) -> bool:
+    """Whether _Scan's step runs on ops/step.py's kernels around the fused
+    loss kernels: the fused loss with its bin states (compact or dense), no
+    Huber weights, and make_optimizer's own adam or sgd over the bare pose
+    (an Optimizer with a ``spec``; the update kernel applies the spec, so
+    any other object keeps its own ``update``). Elsewhere the step
+    differentiates the loss with autograd."""
+    return (_use_fused_loss(renderer) and robust_delta == 0
+            and isinstance(opt, Optimizer) and opt.spec is not None)
+
+
+def _frame_weights(batch, masks_ref, robust_delta: float, device) -> torch.Tensor:
+    """[B] calibrate's frame weights on the kernel route: the gradient of its
+    reduction over the frames' losses [*batch] (_robust_mean), linear where
+    robust_delta == 0 (the mean, 1/B each), so its loss is Σ_b w_b loss_b."""
+    x = torch.zeros(batch, dtype=torch.float32, device=device, requires_grad=True)
+    (w,) = torch.autograd.grad(_robust_mean(x, masks_ref, robust_delta), x)
+    return w.reshape(-1)
+
+
+class _KernelStep:
+    """The constants of _Scan's kernel route for one call: the renderer, the
+    link poses, K and the sharpness; the tiled reference (float32) and, for
+    compact states, its Σ ref² per tile (render/fused.py::tile_sq, made here
+    once a call); the frames' weights w (the backward's cotangent, and the
+    loss's weights); ``den`` (what loss and gradient are divided by after
+    ``reduce``); ``reduce`` (None, or the mesh's in-place all-reduce of
+    [loss, g]); the drift probes (_scan_for's, where adaptive); and the grad
+    kernel's workspace on the card."""
+
+    def __init__(self, renderer: RobotRenderer, link_poses, K, ref_tiles, sharpness, weights,
+                 den: float = 1.0, reduce=None):
+        B = weights.shape[0]
+        f32 = torch.float32
+        self.renderer, self.link_poses, self.sharpness = renderer, link_poses, float(sharpness)
+        self.K = K.to(f32).contiguous()
+        self.ref_tiles = ref_tiles.reshape((B,) + ref_tiles.shape[-3:]).to(f32).contiguous()
+        self.ref_sq = fused.tile_sq(self.ref_tiles) if renderer.tile.compact_chunks > 0 else None
+        self.w = weights.to(f32).contiguous()
+        self.den, self.reduce = float(den), reduce
+        self.probes = None
+        self.work = step.grad_workspace(B, weights.device) if weights.is_cuda else None
+        self.state_at = lambda Tc: renderer.bin_state(Tc, link_poses, K, sharpness=sharpness)
+
+    def loss(self, b):
+        """[loss, g] at the head's pose, camera rows and Jacobian in the
+        buffers ``b``, written into b["gl"]: fused.loss_fused's kernel route."""
+        g = fused.PoseGrad(self.w, self.ref_sq, b["cam"], b["jac"], b["gl"], self.work)
+        return fused.loss_fused(self.renderer, b["Tc"], self.link_poses, self.K,
+                                sharpness=self.sharpness, state=b["state"],
+                                ref_tiles=self.ref_tiles, grad=g)
 
 
 def _trace_len(chunk: int, rebin_every: int) -> int:
@@ -230,11 +292,17 @@ class _Scan:
     ``capture``d, as one CUDA graph with the rebin its conditional node:
     the counterpart of the ``lax.cond`` inside the JAX package's scan. A
     chunk is then ``length`` replays and one host read. The buffers carry
-    over from chunk to chunk."""
+    over from chunk to chunk.
+
+    With ``kernel`` (a _KernelStep; the route _kernel_route picks) the step
+    is ops/step.py's three kernels around the fused loss kernels, called
+    directly (no autograd), over four more buffers: the pose Tc, the camera
+    rows, the Jacobian and [loss, g]; the rebin takes its pose and probe
+    pixels from the head kernel. ``kernel_steps`` counts the steps run so."""
 
     def __init__(self, dof, opt_state, opt, loss_of, bin_state_of, length: int,
                  rebin_every: int = 1, combine=None, probe_fn=None,
-                 drift_budget: float = 0.0):
+                 drift_budget: float = 0.0, kernel: _KernelStep | None = None):
         dev = dof.device
         self.opt, self.loss_of, self.bin_state_of = opt, loss_of, bin_state_of
         self.combine, self.probe_fn, self.budget = combine, probe_fn, float(drift_budget)
@@ -251,6 +319,14 @@ class _Scan:
             nrb=torch.zeros((), dtype=torch.int32, device=dev),
             need=torch.zeros((), dtype=torch.bool, device=dev),  # rebin before the next step
         )
+        self.kernel, self.kernel_steps = kernel, 0
+        if kernel is not None:
+            f32 = dict(dtype=torch.float32, device=dev)
+            self.bufs.update(Tc=torch.zeros((4, 4), **f32),
+                             cam=torch.zeros((kernel.w.shape[0], 16), **f32),
+                             jac=torch.zeros((12, 6), **f32), gl=torch.zeros(7, **f32))
+            if self.adaptive:
+                self.bufs["pix"] = torch.zeros((kernel.probes.shape[0], 2), **f32)
         self.device_spans = DeviceSpans(("calib.rebin",), dev)  # traced captures
         self.graph = None
 
@@ -264,14 +340,35 @@ class _Scan:
         return view
 
     def _rebin(self):
-        b = self.bufs
-        b["state"] = self.bin_state_of(b["dof"])
-        if self.adaptive:
-            b["pix"] = self.probe_fn(b["dof"])
+        b, k = self.bufs, self.kernel
+        if k is None:
+            b["state"] = self.bin_state_of(b["dof"])
+            if self.adaptive:
+                b["pix"] = self.probe_fn(b["dof"])
+        else:  # the head kernel's pose and probe pixels, as the step's drift test reads them
+            probes = (k.probes, b["pix"]) if self.adaptive else ()
+            step.step_head(b["dof"], k.K, b["Tc"], b["cam"], b["jac"], *probes)
+            b["state"] = k.state_at(b["Tc"])
         b["ov"] |= torch.any(b["state"].overflow)
         b["nrb"] += 1
 
+    def _kernel_step(self):
+        """The step on ops/step.py's kernels: the head (pose, camera rows,
+        Jacobian), the fused loss kernels and the grad kernel ([loss, g];
+        ``kernel.loss``), ``reduce`` on a mesh, then the update kernel
+        (optimizer, traces, pose, step index, the next rebin flag)."""
+        b, k = self.bufs, self.kernel
+        step.step_head(b["dof"], k.K, b["Tc"], b["cam"], b["jac"])
+        b["gl"] = k.loss(b)
+        if k.reduce is not None:
+            k.reduce(b["gl"])
+        drift = (k.probes, k.K, b["pix"], self.budget) if self.adaptive else None
+        step.step_update(b["gl"], k.den, self.opt, b["leaves"], b["dof"], b["losses"],
+                         b["history"], b["idx"], b["need"], b["inner"], drift)
+
     def _step(self):
+        if self.kernel is not None:
+            return self._kernel_step()
         b = self.bufs
         d = b["dof"].detach().requires_grad_(True)
         if self.combine is None:
@@ -323,11 +420,14 @@ class _Scan:
             b[k].zero_()
         b["need"].fill_(True)
         b["inner"].fill_(inner)
-        for _ in range(-(-chunk // inner) * inner):
+        steps = -(-chunk // inner) * inner
+        for _ in range(steps):
             if self.graph is None:
                 self._turn()
             else:
                 self.graph.replay()
+        if self.kernel is not None:
+            self.kernel_steps += steps
 
     def run(self, chunk: int):
         """``chunk`` steps on from the buffers' pose and optimizer state ->
@@ -380,14 +480,15 @@ def opt_scan(dof, opt_state, opt, loss_of, bin_state_of, chunk: int,
 
 
 def _scan_for(dof, opt_state, opt, loss_of, bin_state_of, chunk, renderer, link_poses, K,
-              sharpness, rebin_every, combine=None, states=True):
+              sharpness, rebin_every, combine=None, states=True, kernel=None):
     """The _Scan that ``calibrate`` (through _chunk_scan) and
     ``parallel.sharded_calibrate`` set up once per call and run in every
     chunk of up to ``chunk`` steps: the counterpart of the JAX package's
     jitted chunk. Each caller captures it where it can be captured: only
     on the routes with a reusable bin state (compact, dense and unfused),
     not the stateless ones (top-k binner, brute, use_pallas=False, and
-    states=False)."""
+    states=False). ``kernel``: the caller's _KernelStep where _kernel_route
+    holds (with states), which gets the drift probes here."""
     # Renderers with reusable bin states always go through an explicit state,
     # even at rebin_every=1, so every step's overflow flag is seen.
     # rebin_every == 0 selects adaptive rebinning; a non-positive drift
@@ -402,15 +503,19 @@ def _scan_for(dof, opt_state, opt, loss_of, bin_state_of, chunk, renderer, link_
         if rebin_every == 0:
             budget = max(adaptive_drift_budget(renderer.tile, sharpness), 0.0)
             if budget > 0:
-                probe_fn = make_drift_probe_fn(drift_probe_points(renderer, link_poses), K)
+                probes = drift_probe_points(renderer, link_poses)
+                probe_fn = make_drift_probe_fn(probes, K)
+                if kernel is not None:
+                    kernel.probes = probes.to(torch.float32).contiguous()
     return _Scan(dof, opt_state, opt, loss_of, bin_state_of, _trace_len(chunk, eff), eff,
-                 combine, probe_fn, budget)
+                 combine, probe_fn, budget, kernel if eff else None)
 
 
 def _chunk_scan(dof, opt_state, opt, link_poses, K, masks_ref, ref_tiles, renderer,
                 chunk, sharpness, robust_delta, rebin_every):
-    """calibrate's _Scan (_scan_for) over the mask loss, captured on CUDA
-    where the renderer has reusable bin states."""
+    """calibrate's _Scan (_scan_for) over the mask loss, on the kernel route
+    where _kernel_route holds (the frames weighted by _frame_weights),
+    captured on CUDA where the renderer has reusable bin states."""
 
     def loss_of(d, bin_state):
         return mask_loss(d, renderer, link_poses, K, masks_ref, sharpness,
@@ -419,8 +524,13 @@ def _chunk_scan(dof, opt_state, opt, link_poses, K, masks_ref, ref_tiles, render
     def bin_state_of(d):
         return renderer.bin_state(se3.exp(d), link_poses, K, sharpness=sharpness)
 
+    kernel = None
+    if _kernel_route(renderer, opt, robust_delta):
+        kernel = _KernelStep(renderer, link_poses, K, ref_tiles, sharpness,
+                             _frame_weights(link_poses.shape[:-3], masks_ref, robust_delta,
+                                            dof.device))
     scan = _scan_for(dof, opt_state, opt, loss_of, bin_state_of, chunk, renderer,
-                     link_poses, K, sharpness, rebin_every)
+                     link_poses, K, sharpness, rebin_every, kernel=kernel)
     if cuda_graph.captures(dof.device) and reuse_bins_ok(renderer):
         scan.capture()
     return scan
@@ -430,9 +540,10 @@ def _calibrate_scan(
     init_dof, link_poses, K, masks_ref, renderer, num_steps, max_lr,
     optimizer_name, scheduler, grad_clip, sharpness, robust_delta=0.0,
     chunk=50, rebin_every=1, resume_state=None, step_hook=None,
-    on_overflow="raise",
+    on_overflow="raise", counts=None,
 ):
-    """calibrate's loop over chunks."""
+    """calibrate's loop over chunks; ``counts`` (its span's) gets
+    ``kernel_steps``."""
     with span("calib.prepare"):
         opt = make_optimizer(optimizer_name, max_lr=max_lr, total_steps=num_steps,
                              scheduler=scheduler, grad_clip=grad_clip)
@@ -487,6 +598,8 @@ def _calibrate_scan(
             state["losses"] = torch.cat(losses).cpu().numpy()
             state["history"] = torch.cat(history).cpu().numpy()
             step_hook(done, state)
+    if counts is not None:
+        counts["kernel_steps"] = scan.kernel_steps if scan is not None else 0
     return dof, torch.cat(losses), torch.cat(history), overflowed, rebins
 
 
@@ -536,6 +649,7 @@ def calibrate(
             int(num_steps), float(max_lr), optimizer, scheduler, float(grad_clip),
             float(sharpness), float(robust_delta), rebin_every=int(rebin_every),
             resume_state=resume_state, step_hook=step_hook, on_overflow=on_overflow,
+            counts=counts,
         )
         with span("calib.finish"):
             dof_np = dof.cpu().numpy()

@@ -385,14 +385,16 @@ def _dense_bwd(cam, rec, counts, gp, meta: Meta):
     return parts
 
 
-def loss_fwd_plain(cam, rec, counts, ref_tiles, meta: Meta):
-    """Plain K1f: -> (loss_tiles [B, T], acc [B, T, th, tw])."""
+def loss_fwd_plain(cam, rec, counts, ref_tiles, meta: Meta, partials: bool = False):
+    """Plain K1f: -> (loss_tiles [B, T] (with ``partials``, [B, T, 1]), acc
+    [B, T, th, tw])."""
     B, T = counts.shape
     acc = _dense_acc(cam, rec, counts, meta)
     crop = crop_mask(torch.arange(T, device=rec.device), meta.n_tx, meta.th,
                      meta.tw, meta.H, meta.W)
     e = (torch.clamp(acc, 0.0, 1.0) - ref_tiles.reshape(B, T, -1)) * crop
-    return (e * e).sum(dim=-1), acc.reshape(ref_tiles.shape)
+    loss = (e * e).sum(dim=-1)
+    return (loss[..., None] if partials else loss), acc.reshape(ref_tiles.shape)
 
 
 def loss_bwd_plain(cam, rec, counts, ref_tiles, acc, gb, meta: Meta):
@@ -493,7 +495,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _fwd_launch(loss_mode, cam, rec, counts, ref_tiles, meta: Meta):
+def _fwd_launch(loss_mode, cam, rec, counts, ref_tiles, meta: Meta, partials=False):
     B, T, cap, dev = _check_dense(cam, rec, counts, meta)
     shape = (B, T, meta.th, meta.tw)
     acc = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -511,8 +513,10 @@ def _fwd_launch(loss_mode, cam, rec, counts, ref_tiles, meta: Meta):
         meta.sharpness, meta.near, meta.far, _stream(dev),
     )
     raise_on(err, "pose_fwd kernel")
+    if not loss_mode:
+        return sil, acc
     # per-region partials, summed in a fixed order
-    return (loss_tiles.sum(dim=-1) if loss_mode else sil), acc
+    return (loss_tiles if partials else loss_tiles.sum(dim=-1)), acc
 
 
 def _bwd_launch(loss_mode, cam, rec, counts, acc, ref_tiles, gb, g, meta: Meta):
@@ -535,10 +539,11 @@ def _bwd_launch(loss_mode, cam, rec, counts, acc, ref_tiles, gb, g, meta: Meta):
     return parts
 
 
-def loss_fwd_cuda(cam, rec, counts, ref_tiles, meta: Meta):
+def loss_fwd_cuda(cam, rec, counts, ref_tiles, meta: Meta, partials: bool = False):
     """K1f (one block per 8×32 region of a tile, one thread per pixel):
-    -> (loss_tiles [B, T], acc [B, T, th, tw])."""
-    out = _fwd_launch(True, cam, rec, counts, ref_tiles, meta)
+    -> (loss_tiles [B, T], acc [B, T, th, tw]); with ``partials`` the
+    regions' loss partials [B, T, n_sub] unsummed."""
+    out = _fwd_launch(True, cam, rec, counts, ref_tiles, meta, partials)
     loss_fwd_cuda.launches += 1
     return out
 
@@ -581,13 +586,13 @@ def count_launches(*wrappers):
 count_launches(loss_fwd_cuda, loss_bwd_cuda, sil_fwd_cuda, sil_bwd_cuda)
 
 
-def dispatch(cuda_fn, plain_fn, *args):
+def dispatch(cuda_fn, plain_fn, *args, **kw):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
     dev = args[0].device
     if dev.type == "cuda":
-        return cuda_fn(*args)
+        return cuda_fn(*args, **kw)
     if dev.type == "cpu":
-        return plain_fn(*args)
+        return plain_fn(*args, **kw)
     raise ValueError(f"no pose-raster kernel for device {dev}")
 
 

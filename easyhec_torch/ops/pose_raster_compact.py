@@ -74,8 +74,10 @@ def _chunks_of(rec_b):
     return rec_b.reshape(POSE_RECORD, -1, CHUNK).transpose(0, 1)
 
 
-def loss_fwd_compact_plain(cam, rec, nlive, ctmap, ncu, ref_tiles, meta: Meta):
-    """Plain forward: -> (loss_tiles [B, T], acc [B, T, th, tw]).
+def loss_fwd_compact_plain(cam, rec, nlive, ctmap, ncu, ref_tiles, meta: Meta,
+                           partials: bool = False):
+    """Plain forward: -> (loss_tiles [B, T] (with ``partials``, [B, T, 1]),
+    acc [B, T, th, tw]).
 
     Loops over frames so the [nc, 128, th*tw] coverage temporaries stay one
     frame large."""
@@ -101,7 +103,7 @@ def loss_fwd_compact_plain(cam, rec, nlive, ctmap, ncu, ref_tiles, meta: Meta):
         e = (torch.clamp(acc[b], 0.0, 1.0) - ref_tiles[b].reshape(T, P)) * crop
         emit = visited & (ncu[b] > 0)
         loss[b] = torch.where(emit, (e * e).sum(dim=-1), torch.zeros_like(loss[b]))
-    return loss, acc.reshape(B, T, meta.th, meta.tw)
+    return (loss[..., None] if partials else loss), acc.reshape(B, T, meta.th, meta.tw)
 
 
 def loss_bwd_compact_plain(cam, rec, bnl, bct, bcp, ref_tiles, acc, gb, meta: Meta):
@@ -147,10 +149,12 @@ def _lib():
     return lib
 
 
-def loss_fwd_compact_cuda(cam, rec, nlive, ctmap, ncu, ref_tiles, meta: Meta):
+def loss_fwd_compact_cuda(cam, rec, nlive, ctmap, ncu, ref_tiles, meta: Meta,
+                          partials: bool = False):
     """CUDA forward (one block per 8×32 region of a visited tile, one thread
     per pixel):
-    -> (loss_tiles [B, T], acc [B, T, th, tw])."""
+    -> (loss_tiles [B, T], acc [B, T, th, tw]); with ``partials`` the
+    regions' loss partials [B, T, n_sub] unsummed."""
     dev = cam.device
     B, nc = nlive.shape
     T = ref_tiles.shape[1]
@@ -174,7 +178,7 @@ def loss_fwd_compact_cuda(cam, rec, nlive, ctmap, ncu, ref_tiles, meta: Meta):
     raise_on(err, "loss_fwd_compact kernel")
     loss_fwd_compact_cuda.launches += 1
     # per-region partials, summed in a fixed order
-    return loss_tiles.sum(dim=-1), acc
+    return (loss_tiles if partials else loss_tiles.sum(dim=-1)), acc
 
 
 def loss_bwd_compact_cuda(cam, rec, bnl, bct, bcp, ref_tiles, acc, gb, meta: Meta):

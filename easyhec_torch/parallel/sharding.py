@@ -19,8 +19,8 @@ and the "tile" axis has its own group.
 Spans (utils.profiling): ``shard.call`` around ``sharded_calibrate``, with
 counts ``rebins`` (the mesh's: each chunk's largest rank count, summed),
 ``own_rebins`` (this rank's), ``collectives`` (those this rank issued on
-the mesh: the step's, once a step, and each chunk's flags) and
-``overflow``; below it ``shard.prepare`` (this rank's slice of the host
+the mesh: the step's, once a step, and each chunk's flags), ``overflow``
+and ``kernel_steps`` (the steps run on models/calib.py's kernel route); below it ``shard.prepare`` (this rank's slice of the host
 arrays on the device, the optimizer, the tiled masks) and, per chunk, the
 scan's ``calib.chunk.*`` spans, then ``shard.flags`` (the flags' max-reduce
 over the mesh and its host read). When a torch profiler records the
@@ -272,7 +272,10 @@ def sharded_calibrate(
 
     Each rank differentiates its LOCAL objective (its frames × its band);
     the scan's combine sums [loss, gradient] in one all-reduce over the mesh
-    and divides by the real frame count. That is exact because the full
+    and divides by the real frame count. On the kernel route (calibrate's
+    rule; no Huber loss, no frame chunks) the grad kernel writes the local
+    [loss, g] under the frames' weights, the all-reduce sums that buffer in
+    place and the update kernel divides by the frame count. That is exact because the full
     loss is a sum of local terms with detached robust weights (the Huber
     slope). Per step the collectives are fixed: with robust_delta > 0 one
     all-reduce over "tile" of the detached per-frame losses, then the
@@ -301,8 +304,8 @@ def sharded_calibrate(
     """
     from torch.utils.checkpoint import checkpoint
 
-    from ..models.calib import (BinOverflowError, _scan_for, _trace_len, mask_loss_per_frame,
-                                reuse_bins_ok, tile_masks)
+    from ..models.calib import (BinOverflowError, _kernel_route, _KernelStep, _scan_for,
+                                _trace_len, mask_loss_per_frame, reuse_bins_ok, tile_masks)
 
     with span("shard.call") as counts:
         lay = _layout(mesh)
@@ -334,6 +337,7 @@ def sharded_calibrate(
                 scheduler=scheduler, grad_clip=grad_clip,
             )
             ref_tiles = tile_masks(m_local, renderer) if frame_chunk <= 0 else None
+            kernels = frame_chunk <= 0 and _kernel_route(renderer, opt, robust_delta)
             if robust_delta > 0:
                 # full-image mask area per frame (robust normalization), forward only
                 area = torch.clamp(_all_reduce(torch.sum(m_local, dim=(-2, -1)), n_tile,
@@ -377,11 +381,15 @@ def sharded_calibrate(
                 true_local = obj
             return obj, true_local
 
-        def combine(true_local, g):
-            # one all-reduce of [loss, g0..g5] over the mesh
-            buf = torch.cat([true_local.detach().reshape(1), g])
+        def reduce(buf):
+            # [loss, g0..g5] summed over the mesh in place (the kernel route's
+            # update kernel divides by den)
             with device_spans.span("shard.combine"):
-                buf = _all_reduce(buf, n_mesh)
+                _all_reduce(buf, n_mesh)
+
+        def combine(true_local, g):
+            buf = torch.cat([true_local.detach().reshape(1), g])
+            reduce(buf)
             buf = buf / den
             return buf[0], buf[1:]
 
@@ -399,9 +407,11 @@ def sharded_calibrate(
         while done < num_steps:
             n = min(chunk, num_steps - done)
             if scan is None:
+                kernel = (_KernelStep(renderer, lp, Kb, ref_tiles, sharpness, wl, den, reduce)
+                          if kernels else None)
                 scan = _scan_for(dof, opt.init(dof), opt, loss_of, bin_state_of, n, renderer, lp,
                                  Kb, sharpness, rebin_every, combine=combine,
-                                 states=frame_chunk <= 0)
+                                 states=frame_chunk <= 0, kernel=kernel)
                 if (cuda_graph.captures(dev) and frame_chunk <= 0 and reuse_bins_ok(renderer)
                         and (n_mesh == 1 or dist.get_backend() == "nccl")):
                     scan.capture()
@@ -420,7 +430,7 @@ def sharded_calibrate(
             rebins += int(flags[1])
             overflow |= flags[0] > 0
             counts.update(rebins=rebins, own_rebins=own_rebins, collectives=collectives,
-                          overflow=int(overflow))
+                          overflow=int(overflow), kernel_steps=scan.kernel_steps)
             if on_overflow != "ignore" and flags[0] > 0:
                 msg = (
                     f"sharded calibrate: bin overflow at step ~{done} on some "

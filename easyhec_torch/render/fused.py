@@ -14,6 +14,9 @@ Torch counterpart of easyhec_tpu/render/fused.py:
   differentiable input is the 16-scalar camera row per frame
   [Tc[:3,:4] | fx fy cx cy]: ops/pose_raster.py (dense: the loss K1 and the
   silhouette K4) or ops/pose_raster_compact.py (compact loss K2).
+  ``loss_fused`` differentiates them with autograd, or, given a PoseGrad
+  (models/calib.py's kernel route), calls them directly (``loss_parts``)
+  and reduces their partials with ops/step.py's grad kernel.
 """
 from __future__ import annotations
 
@@ -24,9 +27,13 @@ import torch
 import torch.nn.functional as F
 
 from ..geometry import camera
-from ..ops.pose_raster import CHUNK, dispatch, pose_tile_loss, pose_tile_silhouette, tile_image
+from ..ops import pose_raster as pr
+from ..ops import pose_raster_compact as prc
+from ..ops.pose_raster import (CHUNK, Meta, dispatch, pose_tile_loss, pose_tile_silhouette,
+                               tile_image)
 from ..ops.pose_raster_compact import compact_tile_acc, pose_tile_loss_compact
 from ..ops.rebin import compact_pack_cuda, tri_setup_cuda
+from ..ops.step import step_grad
 from .binning import BinState, _rect_window, bin_count
 from .projection import setup_triangles_corners
 from .tiled import _cdiv, _untile
@@ -39,6 +46,9 @@ __all__ = [
     "silhouette_fused",
     "silhouette_compact",
     "loss_fused",
+    "loss_parts",
+    "PoseGrad",
+    "tile_sq",
     "cam_rows",
     "tile_image",
 ]
@@ -380,6 +390,53 @@ def silhouette_compact(
     return torch.clamp(_untile(acc, H, W, cfg), 0.0, 1.0)
 
 
+class PoseGrad(NamedTuple):
+    """loss_fused's route with no autograd (models/calib.py's kernel route):
+    the frames' weights w [B], the empty tiles' Σ ref² per tile ref_sq
+    [B, T] (tile_sq; compact states, else None), the camera rows cam
+    [B, 16] of the pose and the Jacobian jac [12, 6] of its Tc[:3,:4] in
+    the twist (both ops/step.py::step_head's), the result out [7] and
+    step_grad's workspace (None on the CPU)."""
+
+    w: torch.Tensor
+    ref_sq: torch.Tensor | None
+    cam: torch.Tensor
+    jac: torch.Tensor
+    out: torch.Tensor
+    work: tuple | None
+
+
+def tile_sq(ref_tiles: torch.Tensor) -> torch.Tensor:
+    """[B, T] Σ ref² per tile: the loss of a tile the compact state never
+    visits, constant while the reference is."""
+    return torch.sum(ref_tiles * ref_tiles, dim=(-2, -1))
+
+
+def loss_parts(renderer, cam: torch.Tensor, state: FusedState | CompactState,
+               ref_tiles: torch.Tensor, w: torch.Tensor, sharpness: float = 1.0):
+    """The fused loss kernels at the camera rows cam [B, 16], called directly
+    (no autograd), ref_tiles [B, T, th, tw] float32 -> (the forward's loss
+    partials [B, ...], the backward's pose partials [B, nb, 12] under the
+    cotangent w [B], the compact state's counts or None). A compact
+    state's frame loss adds Σ ref² over its tiles of count 0; the dense
+    forward sums those itself."""
+    cfg = renderer.tile
+    m = Meta(cfg.tile_h, cfg.tile_w, _cdiv(renderer.W, cfg.tile_w), renderer.H, renderer.W,
+             float(sharpness), camera.NEAR_DEFAULT, camera.FAR_DEFAULT, bool(cfg.bwd_band_only))
+    st = state
+    if isinstance(st, CompactState):
+        lp, acc = dispatch(prc.loss_fwd_compact_cuda, prc.loss_fwd_compact_plain, cam, st.rec,
+                           st.nlive, st.ctmap, st.ncu, ref_tiles, m, partials=True)
+        parts = dispatch(prc.loss_bwd_compact_cuda, prc.loss_bwd_compact_plain, cam, st.rec,
+                         st.bwd_nlive, st.bwd_ctmap, st.bwd_cpos, ref_tiles, acc, w, m)
+        return lp, parts, st.counts
+    rec, counts = pr._pad_records(st.rec, st.counts), pr.i32(st.counts)
+    lp, acc = dispatch(pr.loss_fwd_cuda, pr.loss_fwd_plain, cam, rec, counts, ref_tiles, m,
+                       partials=True)
+    parts = dispatch(pr.loss_bwd_cuda, pr.loss_bwd_plain, cam, rec, counts, ref_tiles, acc, w, m)
+    return lp, parts, None
+
+
 def loss_fused(
     renderer,
     Tc_c2b: torch.Tensor,
@@ -389,6 +446,7 @@ def loss_fused(
     sharpness: float = 1.0,
     state: FusedState | CompactState | None = None,
     ref_tiles: torch.Tensor | None = None,
+    grad: PoseGrad | None = None,
 ) -> torch.Tensor:
     """Per-frame mask loss Σ_pixels (silhouette − ref)² through the fused
     loss kernels (dense K1 for a FusedState, compact K2 for a CompactState;
@@ -398,6 +456,11 @@ def loss_fused(
     Pass either masks_ref [..., H, W] or pre-tiled ref_tiles
     [..., n_tiles, th, tw] (tile_image; hoist the tiling out of optimizer
     loops). -> per-frame loss [...] matching the link_poses batch.
+
+    With ``grad`` nothing is differentiated: the kernels run at grad.cam,
+    Tc_c2b's camera rows (``loss_parts``), and ops/step.py's step_grad
+    reduces their partials -> grad.out [7], the weighted loss Σ_b w_b
+    loss_b and its gradient in the twist (grad.jac).
     """
     cfg = renderer.tile
     H, W = renderer.H, renderer.W
@@ -409,13 +472,17 @@ def loss_fused(
                                         sharpness=sharpness)
         else:
             state = build_fused_state(renderer, Tc_c2b, link_poses, K)
-    cam = cam_rows(Tc_c2b, K, B)
     if ref_tiles is None:
         if masks_ref is None:
             raise ValueError("need masks_ref or ref_tiles")
         ref_tiles = tile_image(masks_ref.reshape((-1, H, W)), cfg.tile_h, cfg.tile_w)
     else:
         ref_tiles = ref_tiles.reshape((B,) + ref_tiles.shape[-3:])
+    if grad is not None:
+        lp, parts, counts = loss_parts(renderer, grad.cam, state, ref_tiles, grad.w, sharpness)
+        step_grad(parts, lp, counts, grad.ref_sq, grad.w, grad.jac, grad.out, grad.work)
+        return grad.out
+    cam = cam_rows(Tc_c2b, K, B)
     if isinstance(state, FusedState):
         # K1f sums Σ(0 − ref)² over unvisited tiles itself: no separate term.
         return pose_tile_loss(
@@ -432,7 +499,7 @@ def loss_fused(
     # Tiles the compact map never visits (count == 0) render empty for any
     # pose within the binning-margin contract: their loss is the constant
     # Σ ref² per tile, added with no gradient.
-    ref_sq = torch.sum(ref_tiles * ref_tiles, dim=(-2, -1))  # [B, T]
+    ref_sq = tile_sq(ref_tiles)  # [B, T]
     empty = torch.sum(torch.where(state.counts == 0, ref_sq, torch.zeros_like(ref_sq)),
                       dim=-1)
     return (loss_b + empty.detach()).reshape(batch)

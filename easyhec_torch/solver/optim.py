@@ -38,9 +38,26 @@ import math
 
 import torch
 
-__all__ = ["make_optimizer", "make_schedule", "Optimizer"]
+__all__ = ["make_optimizer", "make_schedule", "Optimizer", "OptSpec"]
 
 _INT32_MAX = 2**31 - 1
+
+
+class OptSpec(NamedTuple):
+    """The constants of a make_optimizer with one parameter group, which
+    ops/step.py's update kernel applies to a bare tensor in ``update``'s
+    order."""
+
+    adam: bool
+    b1: float
+    b2: float
+    eps: float
+    momentum: float
+    grad_clip: float
+    grad_clip_value: float
+    weight_decay: float  # adam's (sgd ignores it)
+    lr: float | None  # the constant schedule's lr, else None
+    sched: object  # the schedule: count -> lr
 
 
 class Optimizer(NamedTuple):
@@ -48,6 +65,7 @@ class Optimizer(NamedTuple):
     update: object
     leaves: object  # state -> list of tensors in optax leaf order
     from_leaves: object  # list of tensors -> state
+    spec: OptSpec | None = None  # one parameter group: the update's constants
 
 
 def _inc(count: torch.Tensor) -> torch.Tensor:
@@ -375,4 +393,8 @@ def make_optimizer(
         out = us[0] if torch.is_tensor(grads) else _unflatten(grads, us)
         return out, tuple(new_state)
 
-    return Optimizer(init=init, update=update, leaves=list, from_leaves=tuple)
+    spec = None
+    if len(groups) == 1:
+        spec = OptSpec(adam, b1, b2, eps, momentum, grad_clip, grad_clip_value, weight_decay,
+                       max_lr if scheduler.lower() == "constant" else None, sched)
+    return Optimizer(init=init, update=update, leaves=list, from_leaves=tuple, spec=spec)

@@ -53,7 +53,7 @@ class Counters:
     def kernels(cls, *extra):
         """Every kernel wrapper's launch counter (ops.pose_raster.COUNTED),
         and the ``extra`` (holder, attribute) slots."""
-        from ..ops import binning, pose_raster, pose_raster_compact, tile_raster  # noqa: F401
+        from ..ops import binning, pose_raster, pose_raster_compact, step, tile_raster  # noqa: F401
 
         return cls([(fn, "launches") for fn in pose_raster.COUNTED] + list(extra))
 

@@ -1025,6 +1025,136 @@ def test_bin_state_on_the_card_runs_seven_kernels(dev):
     assert (tri_setup_cuda.launches, compact_pack_cuda.launches) == (n0[0] + 1, n0[1] + 1)
 
 
+# ---------------------------------------------------------------------------
+# The calibration step's kernels (ops/step.py) against their plain twins
+# ---------------------------------------------------------------------------
+
+
+def _step_case(dev, case):
+    """(renderer, bin state, _KernelStep with the drift probes, pose twist) of
+    a COMPACT_CASES case: the reference its own silhouette shifted 3 px right,
+    so loss and gradient are real; the frames weighted 1/B."""
+    from easyhec_torch.models import calib
+    from easyhec_torch.render.fused import silhouette_compact
+
+    r, Tc, lp, K, _ = _compact_case(dev, case)
+    st = r.bin_state(Tc, lp, K)
+    target = torch.roll((silhouette_compact(r, Tc, K, st) > 0.5).float(), 3, dims=-1)
+    B = lp.shape[0]
+    k = calib._KernelStep(r, lp, K, calib.tile_masks(target, r), 1.0,
+                          torch.full((B,), 1.0 / B, device=dev))
+    k.probes = calib.drift_probe_points(r, lp).contiguous()
+    return r, st, k, se3.log(Tc)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+STEP_OPTIONS = {"adam": dict(name="adam"), "sgd": dict(name="sgd"),
+                "clip": dict(name="adam", grad_clip=1e-3, grad_clip_value=5e-4),
+                "warmup_cosine": dict(name="adam", scheduler="warmup_cosine", warmup_steps=3)}
+
+
+@pytest.mark.parametrize("case", ["calib", "rig_band"])
+def test_step_kernels_match_twins(dev, case):
+    """The three step kernels against their plain twins on the same card
+    tensors, at the calib cell's shape (10 frames of 1280x720, 16x32 tiles)
+    and a rig band's (40 frame-views of 1920x540, 16x64): the head's pose
+    and camera rows to 1e-6 of their largest magnitude, its Jacobian to
+    1e-5, its probe pixels to 1e-6; the grad on K2f's and K2b's real
+    partials, its loss to rtol 1e-5 and its gradient to 1e-4 of the largest
+    component (another summation order), a second launch bit for bit and
+    the ticket back at 0; five updates under adam, sgd, both clips and
+    warmup_cosine with the drift test: pose, leaves and history to 1e-6,
+    losses, step index and flags equal. One launch of each wrapper a call."""
+    from easyhec_torch.ops import step
+    from easyhec_torch.render.fused import loss_parts
+    from easyhec_torch.solver.optim import make_optimizer
+
+    r, st, k, dof = _step_case(dev, case)
+    B, P = k.w.shape[0], k.probes.shape[0]
+    d = (dof + 0.002).contiguous()
+    bufs = {}
+    for side, fn in (("kernel", step.step_head_cuda), ("twin", step.step_head_plain)):
+        b = dict(Tc=torch.zeros(4, 4, device=dev), cam=torch.zeros(B, 16, device=dev),
+                 jac=torch.zeros(12, 6, device=dev), pix=torch.zeros(P, 2, device=dev))
+        n0 = step.step_head_cuda.launches
+        fn(d, k.K, b["Tc"], b["cam"], b["jac"], k.probes, b["pix"])
+        assert step.step_head_cuda.launches == n0 + (side == "kernel")
+        bufs[side] = b
+    torch.cuda.synchronize()
+    got, want = bufs["kernel"], bufs["twin"]
+    assert _rel(got["Tc"], want["Tc"]) < 1e-6 and _rel(got["cam"], want["cam"]) < 1e-6
+    assert _rel(got["jac"], want["jac"]) < 1e-5 and _rel(got["pix"], want["pix"]) < 1e-6
+
+    lparts, parts, counts = loss_parts(r, want["cam"], st, k.ref_tiles, k.w)
+    args = (parts, lparts, counts, k.ref_sq, k.w, want["jac"])
+    gl, gl2, glp = (torch.zeros(7, device=dev) for _ in range(3))
+    n0 = step.step_grad_cuda.launches
+    step.step_grad_cuda(*args, gl, k.work)
+    step.step_grad_cuda(*args, gl2, k.work)
+    step.step_grad_plain(*args, glp)
+    torch.cuda.synchronize()
+    assert step.step_grad_cuda.launches == n0 + 2
+    assert torch.equal(gl, gl2) and int(k.work[1]) == 0
+    assert abs(float(gl[0] - glp[0])) <= 1e-5 * abs(float(glp[0])) and float(glp[0]) > 0
+    assert _rel(gl[1:], glp[1:]) < 1e-4 and float(glp[1:].abs().max()) > 0
+
+    for option, kw in STEP_OPTIONS.items():
+        kw = dict(kw)
+        opt = make_optimizer(kw.pop("name"), max_lr=3e-3, total_steps=100, **kw)
+        runs = {}
+        for side, fn in (("kernel", step.step_update_cuda), ("twin", step.step_update_plain)):
+            u = dict(dof=d.clone(), leaves=[t.clone() for t in opt.leaves(opt.init(d))],
+                     losses=torch.zeros(8, device=dev), history=torch.zeros(8, 6, device=dev),
+                     idx=torch.zeros(1, dtype=torch.int64, device=dev),
+                     need=torch.zeros((), dtype=torch.bool, device=dev),
+                     inner=torch.ones((), dtype=torch.int64, device=dev))
+            flags = []
+            for i in range(5):
+                fn(glp * (1.0 + 0.2 * i), 2.0, opt, u["leaves"], u["dof"], u["losses"],
+                   u["history"], u["idx"], u["need"], u["inner"],
+                   (k.probes, k.K, got["pix"], 1.0))
+                flags.append(bool(u["need"]))
+            runs[side] = u, flags
+        (uk, fk), (up, fp) = runs["kernel"], runs["twin"]
+        assert fk == fp and int(uk["idx"]) == int(up["idx"]) == 5, option
+        assert torch.equal(uk["losses"], up["losses"]), option
+        assert _rel(uk["dof"], up["dof"]) < 1e-6 and _rel(uk["history"], up["history"]) < 1e-6
+        for a, b in zip(uk["leaves"], up["leaves"]):
+            assert a.dtype == b.dtype and _rel(a.double(), b.double()) < 1e-6, option
+
+
+def test_graphed_step_runs_few_kernels(dev, monkeypatch):
+    """One replay of calibrate's step graph on the kernel route with the
+    rebin flag clear (the conditional body skipped), under the profiler: at
+    most 10 kernels and memsets on the card (the flag's kernel, the head,
+    the fused forward's two output fills, K2f, K2b, the grad and the
+    update), against ~340 small kernels of the autograd step."""
+    from easyhec_torch.models import calib
+
+    _graphs(True, monkeypatch)
+    r, _, t = _scene(dev, True)
+    opt = calib.make_optimizer("adam", max_lr=3e-3, total_steps=100)
+    d = t["xi"] + 0.01
+    scan = calib._chunk_scan(d, opt.init(d), opt, t["lp"], t["K"], t["target"],
+                             calib.tile_masks(t["target"], r), r, 50, 1.0, 0.0, 0)
+    assert scan.graph is not None and scan.kernel is not None
+    scan.run(50)
+    scan.bufs["need"].fill_(False)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        scan.graph.replay()
+        torch.cuda.synchronize()
+    ops = [e.name() for e in prof.profiler.kineto_results.events()
+           if e.device_type().name == "CUDA" and not e.is_user_annotation()]
+    for name in ("step_head_kernel", "step_grad_kernel", "step_update_kernel",
+                 "loss_fwd_compact_kernel", "loss_bwd_compact_kernel"):
+        assert sum(name in o for o in ops) == 1, (name, ops)
+    assert len(ops) <= 10, ops
+
+
 @pytest.mark.parametrize("shared", [False, True], ids=["exact", "shared"])
 def test_explorer_score_cuda_matches_cpu_and_counts_launches(dev, shared):
     """SpaceExplorer._score (one K3 launch per batch and hypothesis, one
@@ -1241,8 +1371,12 @@ def test_graphed_calibrate_matches_eager(dev, route, rebin_every, monkeypatch):
     history, pose, rebins and overflow equal bit for bit; the route's loss
     kernels launch once per step run in both, and on compact_k3 (bwd_chunks
     > 0) K3 once more per rebin, inside the conditional rebin; the graphed
-    run replays its one step graph once per step, the eager run none."""
+    run replays its one step graph once per step, the eager run none. On the
+    fused routes the step runs on ops/step.py's kernels (one grad and one
+    update a step, the head once more a rebin) and kernel_steps counts the
+    steps; the unfused route launches none of them."""
     from easyhec_torch.models import calib
+    from easyhec_torch.ops import step
     from easyhec_torch.ops import tile_raster as tr_
     from easyhec_torch.ops.binning import bin_count_cuda
     from easyhec_torch.ops.rebin import compact_pack_cuda, tri_setup_cuda
@@ -1260,18 +1394,21 @@ def test_graphed_calibrate_matches_eager(dev, route, rebin_every, monkeypatch):
             kernels = (tr_.tile_fwd_cuda, tr_.tile_bwd_counted_cuda)
     replays = _count_replays(monkeypatch)
     builds = (tri_setup_cuda, compact_pack_cuda, bin_count_cuda)
-    steps, out, launches, n_replays, n_builds = 60, {}, {}, {}, {}
+    stepk = (step.step_head_cuda, step.step_grad_cuda, step.step_update_cuda)
+    steps, out, launches, n_replays, n_builds, n_step = 60, {}, {}, {}, {}, {}
     for graphed in (True, False):
         _graphs(graphed, monkeypatch)
-        for k in kernels + builds:
+        for k in kernels + builds + stepk:
             k.launches = 0
         replays.clear()
+        counts = {}
         out[graphed] = calib._calibrate_scan(
             t["xi"] + 0.01, t["lp"], t["K"], t["target"], r, steps, 3e-3, "adam",
-            "constant", 0.0, 1.0, rebin_every=rebin_every, on_overflow="warn")
+            "constant", 0.0, 1.0, rebin_every=rebin_every, on_overflow="warn", counts=counts)
         torch.cuda.synchronize()
         launches[graphed] = [k.launches for k in kernels]
         n_builds[graphed] = [k.launches for k in builds]
+        n_step[graphed] = [k.launches for k in stepk] + [counts["kernel_steps"]]
         n_replays[graphed] = len(replays)
     (dg, lg, hg, ovg, rbg), (de, le, he, ove, rbe) = out[True], out[False]
     assert torch.equal(lg, le) and torch.equal(hg, he) and torch.equal(dg, de)
@@ -1284,6 +1421,11 @@ def test_graphed_calibrate_matches_eager(dev, route, rebin_every, monkeypatch):
     # one setup a bin state on the fused routes, one pack on the compact ones
     want = [rbg if route != "unfused" else 0, rbg if route.startswith("compact") else 0, rbg]
     assert n_builds[True] == n_builds[False] == want
+    # the fused routes' step kernels: the head once a step and once a rebin
+    # (the rebin's pose), the grad and the update once a step; kernel_steps
+    # the steps run; the unfused route keeps the autograd step
+    want = [run + rbg, run, run, run] if route != "unfused" else [0, 0, 0, 0]
+    assert n_step[True] == n_step[False] == want
 
 
 def test_graphed_chunk_issues_no_sync(dev, monkeypatch):
@@ -1325,7 +1467,9 @@ def test_graphed_sharded_calibrate_matches_eager(dev, tmp_path, monkeypatch):
     scan for the call, its step one CUDA graph) and eager (_graphs): losses,
     history and pose equal bit for bit over 60
     steps in chunks of 50 and 10, one replay and one compact kernel pair per
-    step. Then chip_smoke.nccl_capture_check: one NCCL all_reduce
+    step, and the kernel route's step kernels (one grad and one update a
+    step, the head once more a rebin; shard.call's kernel_steps 60). Then
+    chip_smoke.nccl_capture_check: one NCCL all_reduce
     (premultiplied by 2, so a replay shows) captured in a graph and replayed
     three times, since at world 1 _all_reduce issues no collective."""
     import torch.distributed as dist
@@ -1335,28 +1479,38 @@ def test_graphed_sharded_calibrate_matches_eager(dev, tmp_path, monkeypatch):
     monkeypatch.syspath_prepend(str(ROOT))
     import chip_smoke
 
+    from easyhec_torch.ops import step
+    from easyhec_torch.utils import profiling
+
     r, _, t = _scene(dev, True)
     init_distributed(f"file://{tmp_path / 'rdv'}", num_processes=1, process_id=0,
                      backend="nccl")
     replays = _count_replays(monkeypatch)
-    out, counts = {}, {}
+    stepk = (step.step_head_cuda, step.step_grad_cuda, step.step_update_cuda)
+    out, counts, n_step = {}, {}, {}
     try:
         init = (t["xi"] + 0.01).cpu().numpy()
         for graphed in (True, False):
             _graphs(graphed, monkeypatch)
-            prc.loss_fwd_compact_cuda.launches = prc.loss_bwd_compact_cuda.launches = 0
+            for k in (prc.loss_fwd_compact_cuda, prc.loss_bwd_compact_cuda) + stepk:
+                k.launches = 0
             replays.clear()
             out[graphed] = sharded_calibrate(init, r, make_mesh(1, 1), t["lp"], t["K"],
                                              t["target"], num_steps=60, rebin_every=0)
             torch.cuda.synchronize()
             counts[graphed] = (prc.loss_fwd_compact_cuda.launches,
                                prc.loss_bwd_compact_cuda.launches, len(replays))
+            call = [sp for sp in profiling.spans() if sp.name == "shard.call"][-1]
+            n_step[graphed] = ([k.launches for k in stepk], call.counts["kernel_steps"],
+                               call.counts["own_rebins"])
         chip_smoke.nccl_capture_check()
     finally:
         dist.destroy_process_group()
     for a, b in zip(out[True], out[False]):
         assert torch.equal(a, b)
     assert counts == {True: (60, 60, 60), False: (60, 60, 0)}
+    for launched, kernel_steps, rebins in n_step.values():
+        assert launched == [60 + rebins, 60, 60] and kernel_steps == 60
 
 
 NCCL_WORKER = r'''
@@ -1368,10 +1522,12 @@ torch.cuda.set_device(rank)
 torch.backends.cuda.matmul.allow_tf32 = False
 import test_torch_cuda as T
 from easyhec_torch.ops import pose_raster_compact as prc
+from easyhec_torch.ops import step
 from easyhec_torch.parallel import init_distributed, make_mesh, sharded_calibrate
 from easyhec_torch.render import RobotRenderer
-from easyhec_torch.utils import cuda_graph
+from easyhec_torch.utils import cuda_graph, profiling
 init_distributed(rdv, num_processes=4, process_id=rank, backend="nccl")
+stepk = (step.step_head_cuda, step.step_grad_cuda, step.step_update_cuda)
 dev = torch.device("cuda", rank)
 r, _, t = T._scene(dev, True, B=4)
 band = RobotRenderer(r.meshes, T.H // 2, T.W, tile=r.tile, device=dev)
@@ -1388,13 +1544,17 @@ for name, kw in {{"adaptive": dict(rebin_every=0),
                  "robust": dict(rebin_every=5, robust_delta=0.2, grad_clip=1.0)}}.items():
     for graphed in (True, False):
         cuda_graph.captures = captures if graphed else (lambda device: False)
-        prc.loss_fwd_compact_cuda.launches = prc.loss_bwd_compact_cuda.launches = 0
+        for k in (prc.loss_fwd_compact_cuda, prc.loss_bwd_compact_cuda) + stepk:
+            k.launches = 0
         replays.clear()
         res = sharded_calibrate(init, band, mesh, t["lp"], t["K"], t["target"], num_steps=60,
                                 max_lr=3e-3, **kw)
         torch.cuda.synchronize()
         out[name, graphed] = [x.cpu().numpy() for x in res]
         out["counts", name, graphed] = (prc.loss_bwd_compact_cuda.launches, len(replays))
+        call = [sp for sp in profiling.spans() if sp.name == "shard.call"][-1]
+        out["steps", name, graphed] = ([k.launches for k in stepk], call.counts["kernel_steps"],
+                                       call.counts["own_rebins"])
 torch.distributed.destroy_process_group()
 open(d + f"/out{{rank}}.pkl", "wb").write(pickle.dumps(out))
 print("WORKER_OK", rank)
@@ -1410,7 +1570,10 @@ def test_graphed_sharded_calibrate_matches_eager_on_four_nccl_ranks(dev, tmp_pat
     adaptive and every 5 with robust_delta and grad_clip. On every rank the
     graphed losses, history and pose equal the eager ones bit for bit, and
     the ranks agree bit for bit; one step-graph replay and one backward
-    kernel per step on each rank."""
+    kernel per step on each rank. The adaptive run takes the kernel route
+    (its combine the all-reduce of the grad kernel's [loss, g] in place:
+    one grad and one update kernel a step, the head once more a rebin,
+    kernel_steps 60), the Huber run autograd's (none)."""
     import os
     import pickle
     import subprocess
@@ -1443,6 +1606,12 @@ def test_graphed_sharded_calibrate_matches_eager_on_four_nccl_ranks(dev, tmp_pat
             for a, b, c in zip(o[name, True], o[name, False], outs[0][name, True]):
                 assert np.array_equal(a, b) and np.array_equal(a, c), (o["rank"], name)
             assert o["counts", name, True] == (60, 60) and o["counts", name, False] == (60, 0)
+            for graphed in (True, False):  # the kernel route adaptive, autograd's with Huber
+                launched, kernel_steps, rebins = o["steps", name, graphed]
+                if name == "adaptive":
+                    assert launched == [60 + rebins, 60, 60] and kernel_steps == 60
+                else:
+                    assert launched == [0, 0, 0] and kernel_steps == 0
 
 
 @pytest.mark.parametrize("route", ["compact", "counted"])

@@ -70,7 +70,8 @@ def rig():
 
 def _port_scan(rig, chunk, rebin_every):
     """_chunk_scan as calibrate sets it up: no capture, since
-    utils.cuda_graph.captures says no on the CPU."""
+    utils.cuda_graph.captures says no on the CPU; the kernel route (the
+    compact fused loss and Adam), its kernels' plain twins running."""
     _, tr, lp, gt, target = rig
     opt = t_make_optimizer("adam", max_lr=LR, total_steps=chunk)
     d0 = torch.from_numpy(gt + OFFSET)
@@ -78,6 +79,7 @@ def _port_scan(rig, chunk, rebin_every):
                           torch.from_numpy(target), tc.tile_masks(target, tr), tr, chunk,
                           1.0, 0.0, rebin_every)
     assert not cuda_graph.captures(d0.device) and scan.graph is None
+    assert scan.kernel is not None
     return scan
 
 

@@ -150,7 +150,7 @@ def test_calibrate_records_its_call_and_chunks():
     n = -(-steps // chunk)
     assert kids == (["calib.prepare"] + ["calib.chunk.queue", "calib.chunk.read"] * n
                     + ["calib.finish"])
-    assert call.counts == {"rebins": res.rebins} and res.rebins > 0
+    assert call.counts == {"rebins": res.rebins, "kernel_steps": steps} and res.rebins > 0
     assert not [s for s in sp if s.name.startswith("graph.") and s.root == call.id]  # eager
     assert all(s.root == call.id for s in sp if s.start_ns >= call.start_ns)
 
